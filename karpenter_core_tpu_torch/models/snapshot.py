@@ -1,0 +1,1283 @@
+"""Dense cluster-snapshot encoding for the solve kernel.
+
+Encodes the solver's inputs (SURVEY.md §7 step 2) into numpy tensors:
+
+  - instance types: general-key requirement masks, allocatable vectors, and
+    offering availability/price over the zone × capacity-type axes
+  - machine templates (per provisioner, weight-ordered): requirement masks,
+    structural-axis masks, daemonset overhead, taints (pre-evaluated against
+    pod classes)
+  - pod *classes*: pods deduplicated by (requirements, requests, tolerations,
+    topology spec) — the kernel's scan runs over classes, not pods, which is
+    what makes 50k-pod solves tractable: cost scales with distinct pod shapes
+
+Structural keys (hostname / instance-type / zone / capacity-type) are encoded
+as dedicated axes rather than general masks (models.vocab.STRUCTURAL_KEYS).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from karpenter_core_tpu_torch.apis import labels as labels_api
+from karpenter_core_tpu_torch.apis.objects import SCHEDULE_ANYWAY, Pod
+from karpenter_core_tpu_torch.apis.v1alpha5 import Provisioner
+from karpenter_core_tpu_torch.cloudprovider import InstanceType
+from karpenter_core_tpu_torch.models.vocab import (
+    Vocabulary,
+    encode_value_sets,
+)
+from karpenter_core_tpu_torch.scheduling import Requirements, Taints
+from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
+from karpenter_core_tpu_torch.utils import resources as resources_util
+
+UNLIMITED = np.int32(1 << 30)
+
+
+GRP_SPREAD = 0
+GRP_AFFINITY = 1
+GRP_ANTI = 2
+
+
+@dataclass(frozen=True)
+class GroupSpec:
+    """A topology group: the hash-deduped identity the reference tracks
+    (topologygroup.go:137-153) — one per distinct (type, key, namespaces,
+    selector, skew) across the whole batch, shared by every class that owns
+    or matches it.  ``namespaces`` scopes membership exactly as the
+    reference's group namespace set does: spreads count only the owner's
+    namespace (topology.go:280-282), affinity terms count term.namespaces or
+    the owner's namespace (topology.go:287-320 buildNamespaceList)."""
+
+    gtype: int  # GRP_SPREAD | GRP_AFFINITY | GRP_ANTI
+    is_zone: bool  # zone key vs hostname key
+    selector_sig: tuple
+    skew: int
+    namespaces: frozenset = frozenset()
+
+
+@dataclass(frozen=True)
+class GroupScope:
+    """Membership test for a group: label selector AND namespace scope."""
+
+    selector: object  # Optional[LabelSelector]
+    namespaces: frozenset
+
+    def matches_pod(self, pod: Pod) -> bool:
+        if (pod.namespace or "") not in self.namespaces:
+            return False
+        return self.selector is not None and self.selector.matches(pod.metadata.labels)
+
+
+@dataclass
+class PodClass:
+    """One equivalence class of identical pods."""
+
+    pods: List[Pod]
+    requirements: Requirements
+    requests: resources_util.ResourceList
+    # owned topology groups, at most one per (type, key) pair — multiple
+    # same-kind constraints on one pod take the host path
+    zone_spread: Optional[GroupSpec] = None
+    host_spread: Optional[GroupSpec] = None
+    zone_affinity: Optional[GroupSpec] = None
+    host_affinity: Optional[GroupSpec] = None
+    zone_anti: Optional[GroupSpec] = None
+    host_anti: Optional[GroupSpec] = None
+    # GroupScope (selector + namespace set) per owned group, for
+    # membership evaluation
+    selectors: Dict[GroupSpec, "GroupScope"] = field(default_factory=dict)
+    # preference ladder (preferences.go:38-46 pre-applied): the next, more
+    # relaxed variant of this shape.  The kernel rolls failed counts down the
+    # chain between scan passes; variants carry one relaxed representative
+    # pod and schedule pods from the root's list (solver.cuda.decode)
+    relax_to: Optional["PodClass"] = None
+    is_ladder_variant: bool = False
+    # anti-affinity slots filled from a PREFERRED term: the owner still seeks
+    # zero-count domains, but never registers inverse counts — the reference
+    # intentionally doesn't track inverse anti preferences (topology.go:203-206)
+    zone_anti_soft: bool = False
+    host_anti_soft: bool = False
+    # the already-derived _class_signature of this class's shape, when the
+    # producer holds it (PodIngest slots, the controller's interner) — lets
+    # the encode's class-plane reuse key skip re-deriving O(C) signatures
+    # per tick.  MUST equal _class_signature(pods[0]) when set; None makes
+    # the key fall back to the derivation.
+    interned_sig: Optional[tuple] = None
+
+    @property
+    def count(self) -> int:
+        return len(self.pods)
+
+    def owned_groups(self):
+        return [
+            g
+            for g in (
+                self.zone_spread,
+                self.host_spread,
+                self.zone_affinity,
+                self.host_affinity,
+                self.zone_anti,
+                self.host_anti,
+            )
+            if g is not None
+        ]
+
+
+@dataclass
+class EncodedSnapshot:
+    vocab: Vocabulary
+    resources: List[str]  # R axis
+    zones: List[str]  # Z axis
+    capacity_types: List[str]  # CT axis
+    it_names: List[str]  # I axis
+    classes: List[PodClass]  # C axis (solve order: FFD cpu/mem descending)
+
+    # instance types [I, ...]
+    it_mask: np.ndarray = None
+    it_defined: np.ndarray = None
+    it_negative: np.ndarray = None
+    it_gt: np.ndarray = None
+    it_lt: np.ndarray = None
+    it_alloc: np.ndarray = None  # f32[I, R]
+    it_avail: np.ndarray = None  # bool[I, Z, CT] offering available
+    it_price: np.ndarray = None  # f32[I, Z, CT] (+inf unavailable)
+
+    # templates [T, ...] (weight-ordered)
+    tmpl_mask: np.ndarray = None
+    tmpl_defined: np.ndarray = None
+    tmpl_negative: np.ndarray = None
+    tmpl_gt: np.ndarray = None
+    tmpl_lt: np.ndarray = None
+    tmpl_zone: np.ndarray = None  # bool[T, Z]
+    tmpl_ct: np.ndarray = None  # bool[T, CT]
+    tmpl_it: np.ndarray = None  # bool[T, I] catalog membership ∧ it-name reqs
+    tmpl_daemon: np.ndarray = None  # f32[T, R]
+    tmpl_limits: np.ndarray = None  # f32[T, R] provisioner limits minus usage (+inf none)
+    it_capacity: np.ndarray = None  # f32[I, R] (limits compare against capacity)
+
+    # pod classes [C, ...]
+    cls_mask: np.ndarray = None
+    cls_defined: np.ndarray = None
+    cls_negative: np.ndarray = None
+    cls_gt: np.ndarray = None
+    cls_lt: np.ndarray = None
+    cls_zone: np.ndarray = None  # bool[C, Z]
+    cls_ct: np.ndarray = None  # bool[C, CT]
+    cls_it: np.ndarray = None  # bool[C, I]
+    cls_requests: np.ndarray = None  # f32[C, R]
+    cls_count: np.ndarray = None  # i32[C]
+    cls_relax_next: np.ndarray = None  # i32[C] ladder successor index (-1 none)
+    cls_anti_soft: np.ndarray = None  # bool[C, 2] (zone, host) anti slot is preferred
+    cls_root: np.ndarray = None  # i32[C] ladder root index (self when not a variant)
+    cls_tol: np.ndarray = None  # bool[C, T] tolerates template taints
+    # host ports [P axis: distinct (port, protocol) pairs in play]
+    ports: List[tuple] = None
+    cls_ports: np.ndarray = None  # bool[C, P] ports each class's pod binds
+    # topology groups [G1] (shared across classes; last row = dummy "none")
+    groups: List[GroupSpec] = None  # host-side identities, len G
+    group_selectors: list = None  # selector object per group (membership tests)
+    grp_skew: np.ndarray = None  # i32[G1]
+    grp_is_zone: np.ndarray = None  # bool[G1]
+    grp_is_anti: np.ndarray = None  # bool[G1]
+    grp_member: np.ndarray = None  # bool[C, G1] selector matches class labels
+    cls_groups: np.ndarray = None  # i32[C, 6] owned group per kind (G = none):
+    #   [zone_spread, host_spread, zone_aff, host_aff, zone_anti, host_anti]
+
+    # vocabulary statics
+    valid: np.ndarray = None  # bool[K, V+1]
+    is_custom: np.ndarray = None  # bool[K]
+    vocab_ints: np.ndarray = None  # f32[K, V]
+
+    # kernel scan passes (cross-group affinity retry rounds, the host queue's
+    # re-push equivalent — affinity_scan_passes)
+    scan_passes: int = 1
+
+    # static phase-plan flag: some class carries REQUIRED zonal anti-affinity,
+    # so the kernel must emit the per-zone committal phases (ops/solve.py
+    # _class_step's owned-anti loop — n_zones extra run_phase instances).
+    # False lets solve_core skip emitting them entirely: with no required
+    # zonal-anti class every committal quota is statically zero, and the
+    # phases are pure compile time + per-step cost
+    has_required_zonal_anti: bool = False
+
+    # full static phase plan (ops/solve.SnapshotFeatures): one flag per
+    # constraint family, computed from the classes + bound-pod anti groups.
+    # has_required_zonal_anti above is its required_zone_anti bit, kept for
+    # compatibility.  volume_limits is refined at solve time (the solver) —
+    # it depends on the existing-node CSI planes this encode cannot see.
+    features: object = None
+
+    # per-class resolved volumes (volumeusage.go:33-236 resolution, filled by
+    # the solver when a kube client is available).  Each entry:
+    #   {"shared": {driver: {pvc ids}}, "per_pod": {driver: count}}
+    # shared = every pod mounts the same set (count-independent per node);
+    # per_pod = each pod its own disjoint claims (count-dependent per node)
+    class_volumes: list = None
+
+    # policy-objective planes (policy.planes.attach_planes, filled by
+    # the solver post-encode): the offering price sheet, interruption-risk
+    # priors, and per-type throughput weights on this snapshot's I/Z/CT axes.
+    # Digested as the ``policy`` plane group in models.store so a price-sheet
+    # change escalates the incremental path exactly like a supply change.
+    pol_price: np.ndarray = None  # f32[I, Z, CT]
+    pol_risk: np.ndarray = None  # f32[I, Z, CT]
+    pol_throughput: np.ndarray = None  # f32[I]
+
+    # delta-consuming encode provenance: True when every class-shape-derived
+    # plane above was shared BY REFERENCE from the previous same-shape encode
+    # (cache_host._class_plane_cache) and only the count vector was rebuilt.
+    # The store's commit and the solver's warm-prep reuse both key on that
+    # array identity (docs/KERNEL_PERF.md "Layer 6").
+    encode_reused: bool = False
+
+
+def _class_signature(pod: Pod) -> tuple:
+    """Equivalence key computed from the raw spec — cheap enough to run per pod
+    at 50k scale; Requirements construction happens once per class."""
+    selector_sig = tuple(sorted(pod.spec.node_selector.items()))
+    affinity_req_sig = ()
+    if pod.spec.affinity is not None and pod.spec.affinity.node_affinity is not None:
+        na = pod.spec.affinity.node_affinity
+        req_terms = (
+            tuple(
+                tuple(
+                    (e.key, e.operator, tuple(e.values))
+                    for e in term.match_expressions
+                )
+                for term in na.required.node_selector_terms
+            )
+            if na.required is not None
+            else ()
+        )
+        pref_terms = tuple(
+            (
+                p.weight,
+                tuple((e.key, e.operator, tuple(e.values)) for e in p.preference.match_expressions),
+            )
+            for p in na.preferred
+        )
+        affinity_req_sig = (req_terms, pref_terms)
+    req_sig = (selector_sig, affinity_req_sig)
+    # fast path for the dominant shape: one plain container, no limits/init
+    spec = pod.spec
+    if len(spec.containers) == 1 and not spec.init_containers and not spec.containers[0].resources.limits:
+        req_vec = tuple(sorted(spec.containers[0].resources.requests.items()))
+    else:
+        requests = resources_util.ceiling(pod)
+        req_vec = tuple(sorted((k, round(v, 9)) for k, v in requests.items()))
+    tol_sig = tuple(
+        sorted((t.key, t.operator, t.value, t.effect) for t in pod.spec.tolerations)
+    )
+    spread_sig = tuple(
+        sorted(
+            (
+                c.topology_key,
+                c.max_skew,
+                c.when_unsatisfiable,
+                _selector_sig(c.label_selector),
+            )
+            for c in pod.spec.topology_spread_constraints
+        )
+    )
+    affinity_sig = ()
+    if pod.spec.affinity is not None:
+        aff = pod.spec.affinity
+        terms = []
+        # namespace scope is part of term identity: same-selector terms over
+        # different explicit namespaces (or a live namespaceSelector) must not
+        # collapse into one class, or the first pod's scope silently wins
+        def ns_sig(t):
+            return (
+                tuple(sorted(t.namespaces or ())),
+                _selector_sig(t.namespace_selector)
+                if t.namespace_selector is not None
+                else None,
+            )
+
+        if aff.pod_affinity is not None:
+            for t in aff.pod_affinity.required:
+                terms.append(("aff", t.topology_key, _selector_sig(t.label_selector), ns_sig(t)))
+            for w in aff.pod_affinity.preferred:
+                t = w.pod_affinity_term
+                terms.append(
+                    ("aff-pref", w.weight, t.topology_key, _selector_sig(t.label_selector), ns_sig(t))
+                )
+        if aff.pod_anti_affinity is not None:
+            for t in aff.pod_anti_affinity.required:
+                terms.append(("anti", t.topology_key, _selector_sig(t.label_selector), ns_sig(t)))
+            for w in aff.pod_anti_affinity.preferred:
+                t = w.pod_affinity_term
+                terms.append(
+                    ("anti-pref", w.weight, t.topology_key, _selector_sig(t.label_selector), ns_sig(t))
+                )
+        affinity_sig = tuple(sorted(terms))
+    # namespace is part of identity: group membership is (namespace, labels)
+    labels_sig = (pod.namespace or "", tuple(sorted(pod.metadata.labels.items())))
+    ports_sig = tuple(
+        sorted(
+            (p.host_port, p.protocol, p.host_ip)
+            for c in pod.spec.containers
+            for p in c.ports
+            if p.host_port
+        )
+    )
+    # claim COUNT (not identity) keeps one-PVC-per-pod StatefulSets in a
+    # single class; volume resolution (solver.cuda._resolve_class_volumes)
+    # distinguishes shared vs per-pod claim sets per class.  Namespace scopes
+    # PVC ids, so it joins the signature only when claims exist.
+    claims = {
+        v.persistent_volume_claim.claim_name
+        for v in pod.spec.volumes
+        if v.persistent_volume_claim is not None
+    }
+    vol_sig = (pod.namespace or "", len(claims)) if claims else ()
+    return (req_sig, req_vec, tol_sig, spread_sig, affinity_sig, labels_sig, ports_sig, vol_sig)
+
+
+def _selector_sig(selector) -> tuple:
+    if selector is None:
+        return ()
+    return (
+        tuple(sorted(selector.match_labels.items())),
+        tuple(
+            sorted(
+                (e.key, e.operator, tuple(sorted(e.values)))
+                for e in selector.match_expressions
+            )
+        ),
+    )
+
+
+class KernelUnsupported(Exception):
+    """The batch uses a feature the tensor kernel does not cover; callers fall
+    back to the host solver (solver.scheduler.Scheduler)."""
+
+
+def build_pod_class(pod: Pod) -> PodClass:
+    """Build the class-level derived state (requirements, requests, owned
+    topology groups) from one representative pod's CURRENT spec — soft
+    constraints still on the spec count as hard.  Raises KernelUnsupported
+    for shapes the kernel doesn't model."""
+    cls = PodClass(
+        pods=[],
+        requirements=Requirements.from_pod(pod),
+        requests=resources_util.ceiling(pod),
+    )
+    _derive_topology_spec(pod, cls)
+    return cls
+
+
+MAX_LADDER_VARIANTS = 5
+
+
+def build_pod_ladder(pod: Pod) -> PodClass:
+    """The root of a strict-to-bare variant chain for one pod shape.
+
+    The reference schedules with every soft constraint treated as hard, then
+    relaxes one constraint per failed round (preferences.go:38-46,
+    scheduler.go:117-123).  The kernel can't mutate specs mid-scan, so the
+    ladder is materialized ahead of time: apply Preferences.relax stepwise to
+    a copied representative and build one PodClass per step.  Variants whose
+    shape the kernel can't model are skipped (their preference level is
+    silently forfeited — a soft-placement-quality deviation only); if no
+    variant is representable the whole shape routes to the host path.  The
+    kernel rolls failed counts down the chain between scan passes
+    (ops/solve.solve_core), which is the tensor form of relax-and-requeue.
+
+    Returns the first (strictest representable) variant with an empty pods
+    list; successors hang off ``relax_to`` carrying one relaxed representative
+    each."""
+    import copy
+
+    from karpenter_core_tpu_torch.solver.preferences import Preferences
+
+    specs = [pod]  # build_pod_class only reads the spec
+    if _has_relaxable(pod):
+        rep = copy.deepcopy(pod)
+        prefs = Preferences()
+        while prefs.relax(rep):
+            specs.append(copy.deepcopy(rep))
+    variants: List[PodClass] = []
+    last_error: Optional[KernelUnsupported] = None
+    for spec_pod in specs:
+        try:
+            cls = build_pod_class(spec_pod)
+        except KernelUnsupported as e:
+            last_error = e
+            continue
+        cls.pods = [spec_pod]
+        variants.append(cls)
+    if not variants:
+        raise last_error or KernelUnsupported("no kernel-supported variant")
+    if len(variants) > MAX_LADDER_VARIANTS:
+        raise KernelUnsupported(
+            f"preference ladder depth {len(variants)} exceeds the kernel's "
+            f"{MAX_LADDER_VARIANTS}-variant cap"
+        )
+    for parent, child in zip(variants, variants[1:]):
+        parent.relax_to = child
+    for child in variants[1:]:
+        child.is_ladder_variant = True
+    root = variants[0]
+    root.pods = []
+    return root
+
+
+def _has_relaxable(pod: Pod) -> bool:
+    """Whether Preferences.relax would find anything — cheap pre-check so the
+    dominant no-soft-constraint shape skips the ladder deepcopies."""
+    if any(
+        c.when_unsatisfiable == SCHEDULE_ANYWAY
+        for c in pod.spec.topology_spread_constraints
+    ):
+        return True
+    affinity = pod.spec.affinity
+    if affinity is None:
+        return False
+    na = affinity.node_affinity
+    if na is not None and (
+        na.preferred
+        or (na.required is not None and len(na.required.node_selector_terms) > 1)
+    ):
+        return True
+    return bool(
+        (affinity.pod_affinity is not None and affinity.pod_affinity.preferred)
+        or (affinity.pod_anti_affinity is not None and affinity.pod_anti_affinity.preferred)
+    )
+
+
+def _with_prefer_no_schedule_rungs(
+    classes: List[PodClass], templates: List[MachineTemplate]
+) -> List[PodClass]:
+    """Append the host path's final relaxation rung — tolerate PreferNoSchedule
+    taints — to every ladder when some template carries one (the same gate as
+    solver.scheduler and preferences.go ToleratePreferNoSchedule).  Chains are
+    shallow-copied before relinking so shared class prototypes (columnar
+    slots) are never mutated with template-specific state."""
+    import copy
+    from dataclasses import replace as dc_replace
+
+    from karpenter_core_tpu_torch.apis.objects import TAINT_EFFECT_PREFER_NO_SCHEDULE
+
+    if not any(
+        taint.effect == TAINT_EFFECT_PREFER_NO_SCHEDULE
+        for tmpl in templates
+        for taint in tmpl.taints
+    ):
+        return classes
+    from karpenter_core_tpu_torch.solver.preferences import Preferences
+
+    prefs = Preferences(tolerate_prefer_no_schedule=True)
+    out: List[PodClass] = []
+    for cls in classes:
+        if cls.is_ladder_variant:
+            continue  # re-emitted with its (possibly extended) chain below
+        chain = ladder_chain(cls)
+        source = chain[-1].pods[0] if chain[-1].pods else cls.pods[0]
+        if Preferences.tolerates_prefer_no_schedule(source):
+            out.extend(chain)
+            continue  # deepcopy only when a rung must actually be built
+        rep = copy.deepcopy(source)
+        prefs._tolerate_prefer_no_schedule_taints(rep)
+        try:
+            rung = build_pod_class(rep)
+        except KernelUnsupported:
+            out.extend(chain)
+            continue
+        rung.pods = [rep]
+        rung.is_ladder_variant = True
+        new_chain = [dc_replace(c) for c in chain]
+        for parent, child in zip(new_chain, new_chain[1:]):
+            parent.relax_to = child
+        new_chain[-1].relax_to = rung
+        out.extend(new_chain)
+        out.append(rung)
+    return out
+
+
+def ladder_chain(root: PodClass) -> List[PodClass]:
+    """[root, variant1, ...] in relax order."""
+    chain = [root]
+    node = root.relax_to
+    while node is not None:
+        chain.append(node)
+        node = node.relax_to
+    return chain
+
+
+def finalize_classes(classes: List[PodClass]) -> List[PodClass]:
+    """Order classes for the kernel scan (mutates in place, returns a new
+    flattened list).  FFD over ladder roots: cpu desc, then memory desc
+    (queue.go:74-110); each root's relaxation variants follow it immediately
+    so failed counts roll forward in scan order."""
+    roots = [c for c in classes if not c.is_ladder_variant]
+    roots.sort(
+        key=lambda c: (
+            -c.requests.get(resources_util.CPU, 0.0),
+            -c.requests.get(resources_util.MEMORY, 0.0),
+        )
+    )
+    return [cls for root in roots for cls in ladder_chain(root)]
+
+
+MAX_SCAN_PASSES = 3
+
+
+def affinity_scan_passes(classes: List[PodClass]) -> int:
+    """Scan passes the kernel needs for cross-group affinity whose targets
+    scan later.  The host path retries followers after their targets schedule
+    (queue re-push, scheduler.go:117-123); the kernel's equivalent is an extra
+    scan pass over the still-failed pods, seeded by the earlier passes'
+    topology counts.  pass(i) = max over affinity targets j of pass(j), +1
+    when j scans after i.  Chains deeper than MAX_SCAN_PASSES (or cyclic
+    cross-group dependencies) route to the host path."""
+    n = len(classes)
+    passes = [1] * n
+    reps = [cls.pods[0] for cls in classes]
+    for _ in range(n + 1):
+        changed = False
+        for i, cls in enumerate(classes):
+            for spec in (cls.zone_affinity, cls.host_affinity):
+                if spec is None:
+                    continue
+                scope = cls.selectors[spec]
+                if scope.selector is None or scope.matches_pod(reps[i]):
+                    continue  # self-affinity bootstraps in-pass
+                need = passes[i]
+                for j in range(n):
+                    if j != i and scope.matches_pod(reps[j]):
+                        need = max(need, passes[j] + (1 if j > i else 0))
+                if need > MAX_SCAN_PASSES:
+                    raise KernelUnsupported(
+                        "cross-group affinity chain deeper than "
+                        f"{MAX_SCAN_PASSES} passes not kernel-supported"
+                    )
+                if need != passes[i]:
+                    passes[i] = need
+                    changed = True
+        if not changed:
+            return max(passes, default=1)
+    raise KernelUnsupported("cyclic cross-group affinity not kernel-supported")
+
+
+def classify_pods(pods: List[Pod]) -> List[PodClass]:
+    """Group pods into equivalence classes and derive each class's owned
+    topology groups.  Groups are shared across classes by identity (type, key,
+    selector, skew) — the reference's hash dedup — so selectors may span
+    classes (cross-group affinity, inverse anti-affinity).  Raises
+    KernelUnsupported for shapes the kernel doesn't model: host ports,
+    region/custom-key topologies, multiple same-kind constraints per pod."""
+    groups: Dict[tuple, PodClass] = {}
+    order: List[tuple] = []
+    for pod in pods:
+        sig = _class_signature(pod)
+        cls = groups.get(sig)
+        if cls is None:
+            cls = build_pod_ladder(pod)
+            groups[sig] = cls
+            order.append(sig)
+        cls.pods.append(pod)
+    return finalize_classes([groups[sig] for sig in order])
+
+
+def _group_spec(
+    gtype: int, topology_key: str, selector, skew: int, namespaces: frozenset
+) -> GroupSpec:
+    if topology_key == labels_api.LABEL_TOPOLOGY_ZONE:
+        is_zone = True
+    elif topology_key == labels_api.LABEL_HOSTNAME:
+        is_zone = False
+    else:
+        raise KernelUnsupported(f"topology on {topology_key} not kernel-supported")
+    return GroupSpec(
+        gtype=gtype, is_zone=is_zone, selector_sig=_selector_sig(selector), skew=skew,
+        namespaces=namespaces,
+    )
+
+
+def term_namespaces(pod: Pod, term) -> frozenset:
+    """The namespace scope of an affinity term (topology.go buildNamespaceList):
+    explicit term.namespaces, else the owner pod's namespace.  A live
+    namespaceSelector needs an apiserver listing — host path only."""
+    if term.namespace_selector is not None:
+        raise KernelUnsupported("affinity namespaceSelector not kernel-supported")
+    if term.namespaces:
+        return frozenset(term.namespaces)
+    return frozenset({pod.namespace or ""})
+
+
+def _derive_topology_spec(pod: Pod, cls: PodClass) -> None:
+    def set_slot(attr: str, spec: GroupSpec, selector) -> None:
+        if getattr(cls, attr) is not None:
+            raise KernelUnsupported(f"multiple {attr} constraints not kernel-supported")
+        setattr(cls, attr, spec)
+        cls.selectors[spec] = GroupScope(selector, spec.namespaces)
+
+    # ALL spreads — ScheduleAnyway included — and both required and preferred
+    # affinity terms act as hard constraints while present on the spec
+    # (topology.go:280-320 builds groups from soft terms too); build_pod_ladder
+    # materializes the relaxed variants by removing soft terms stepwise, so
+    # strictness lives in the spec, not here.
+    # Self-selecting spreads water-fill (counts move with each placement);
+    # non-self-selecting ones reduce to a static within-skew domain mask —
+    # the kernel handles both (ops/solve.py zone-spread phases, host caps)
+    own_ns = frozenset({pod.namespace or ""})
+    for constraint in pod.spec.topology_spread_constraints:
+        spec = _group_spec(
+            GRP_SPREAD, constraint.topology_key, constraint.label_selector,
+            constraint.max_skew, own_ns,
+        )
+        set_slot("zone_spread" if spec.is_zone else "host_spread", spec, constraint.label_selector)
+    affinity = pod.spec.affinity
+    if affinity is not None:
+        if affinity.pod_affinity is not None:
+            terms = list(affinity.pod_affinity.required) + [
+                w.pod_affinity_term for w in affinity.pod_affinity.preferred
+            ]
+            for term in terms:
+                spec = _group_spec(
+                    GRP_AFFINITY, term.topology_key, term.label_selector, UNLIMITED,
+                    term_namespaces(pod, term),
+                )
+                set_slot(
+                    "zone_affinity" if spec.is_zone else "host_affinity", spec, term.label_selector
+                )
+        if affinity.pod_anti_affinity is not None:
+            n_required = len(affinity.pod_anti_affinity.required)
+            terms = list(affinity.pod_anti_affinity.required) + [
+                w.pod_affinity_term for w in affinity.pod_anti_affinity.preferred
+            ]
+            for i, term in enumerate(terms):
+                spec = _group_spec(
+                    GRP_ANTI, term.topology_key, term.label_selector, UNLIMITED,
+                    term_namespaces(pod, term),
+                )
+                slot = "zone_anti" if spec.is_zone else "host_anti"
+                set_slot(slot, spec, term.label_selector)
+                if i >= n_required:
+                    setattr(cls, f"{slot}_soft", True)
+    for container in pod.spec.containers:
+        for p in container.ports:
+            if p.host_port and p.host_ip not in ("", "0.0.0.0", "::"):
+                # specific-IP host ports only conflict with same/unspecified
+                # IPs (hostportusage.go:44-56) — finer than the kernel's
+                # (port, proto) bitset models
+                raise KernelUnsupported("host ports with specific hostIP not kernel-supported")
+    if cls.zone_affinity is not None and (cls.zone_spread is not None or cls.zone_anti is not None):
+        raise KernelUnsupported("combined zone affinity + spread/anti not kernel-supported")
+    if cls.host_affinity is not None and (cls.host_spread is not None or cls.host_anti is not None):
+        raise KernelUnsupported("combined hostname affinity + spread/anti not kernel-supported")
+    # the kernel schedules each class through exactly one phase family; these
+    # combos need intersected phase plans (and under the reference's
+    # pessimistic new-node committal they schedule ~1 pod before deadlocking,
+    # topology_test.go:1896) — the host path keeps exact per-pod semantics
+    if cls.zone_spread is not None and cls.zone_anti is not None:
+        raise KernelUnsupported("combined zone spread + zone anti-affinity not kernel-supported")
+    if cls.host_affinity is not None and (cls.zone_spread is not None or cls.zone_anti is not None):
+        raise KernelUnsupported("combined hostname affinity + zonal spread/anti not kernel-supported")
+    # required zonal anti-affinity IS kernel-supported (since round 5): the
+    # scan derives per-zone counts from nodes' CURRENT zone masks at every
+    # class step (ops/solve.TopoCounts) and the owned-anti phases are
+    # zone-committal (one member per admissible zone, the node pinned to it),
+    # reaching the host's batch-two fixpoint in batch one.  encode_snapshot
+    # adds min(count, zones) scan passes for these classes so later
+    # de-poisoning (co-location narrowing) is replayed to quiescence.
+
+
+def encode_snapshot(
+    pods: List[Pod],
+    provisioners: List[Provisioner],
+    templates: List[MachineTemplate],
+    instance_types: Dict[str, List[InstanceType]],
+    extra_requirement_sets: Optional[List[Requirements]] = None,
+    extra_anti_groups: Optional[list] = None,
+    cache_host: Optional[object] = None,
+    extra_host_ports: Optional[List[tuple]] = None,
+    classes: Optional[List[PodClass]] = None,
+    catalog_pad_multiple: int = 1,
+) -> EncodedSnapshot:
+    """Encode a solve input.  ``templates`` must be weight-ordered (the order
+    is the kernel's template preference order, scheduler.go:174-219).
+    ``extra_requirement_sets`` widen the vocabulary (e.g. existing-node label
+    values, which must be representable for NotIn semantics to stay exact).
+    ``classes`` short-circuits classification when the caller maintains pod
+    classes incrementally (models.columnar.PodIngest).
+
+    ``catalog_pad_multiple`` emits the instance-type axis shard-aligned: the
+    I extent pads up to a multiple of the solve mesh's catalog axis
+    (parallel.mesh.catalog_pad_multiple, threaded by the solver) with INERT
+    sentinel types — ``~catalog-pad-N`` names, no offerings, zero
+    allocatable/capacity, excluded from every template catalog — so the
+    shard_map dispatcher's even-split requirement is met at encode time and
+    every downstream consumer (decode, store digests, policy planes, the
+    wire) sees one consistent padded extent.  Padded columns can never be
+    viable; the solve is bit-identical to the unpadded encode's."""
+    if classes is None:
+        classes = classify_pods(pods)
+    classes = _with_prefer_no_schedule_rungs(classes, templates)
+    # each relax step needs its own scan pass for the rolled counts to be
+    # retried (the host path's fail -> Relax -> re-push round)
+    ladder_extra = max(
+        (len(ladder_chain(c)) - 1 for c in classes if not c.is_ladder_variant),
+        default=0,
+    )
+    scan_passes = affinity_scan_passes(classes) + ladder_extra
+
+    # -- axes -----------------------------------------------------------------
+    all_its: List[InstanceType] = []
+    it_index: Dict[str, int] = {}
+    for tmpl in templates:
+        for it in instance_types.get(tmpl.provisioner_name, []):
+            if it.name not in it_index:
+                it_index[it.name] = len(all_its)
+                all_its.append(it)
+    it_names = [it.name for it in all_its]
+    # shard-aligned catalog extent (docstring): inert sentinel types fill the
+    # tail so the mesh's catalog axis divides I evenly
+    pad_multiple = max(int(catalog_pad_multiple or 1), 1)
+    n_pad_types = ((-len(it_names)) % pad_multiple) if it_names else 0
+    it_names += [f"~catalog-pad-{j}" for j in range(n_pad_types)]
+
+    zones: List[str] = []
+    capacity_types: List[str] = []
+    for it in all_its:
+        for off in it.offerings:
+            if off.zone not in zones:
+                zones.append(off.zone)
+            if off.capacity_type not in capacity_types:
+                capacity_types.append(off.capacity_type)
+    zones = sorted(zones)
+    capacity_types = sorted(capacity_types)
+
+    # required zonal anti-affinity converges one pod per pass (pessimistic
+    # committal: a placed member poisons every zone its node could be in until
+    # co-location narrows the mask) — give each such class enough passes to
+    # reach the host's retry-to-quiescence fixpoint; progress caps at one pod
+    # per distinct zone, so min(count, |zones|) bounds the chain depth
+    anti_extra = max(
+        (
+            min(len(c.pods), max(len(zones), 1)) - 1
+            for c in classes
+            if not c.is_ladder_variant
+            and c.zone_anti is not None
+            and not c.zone_anti_soft
+        ),
+        default=0,
+    )
+    scan_passes += anti_extra
+    # any class (ladder variants included — they inherit the anti term) with
+    # required zonal anti makes the per-zone committal phases reachable
+    has_required_zonal_anti = any(
+        c.zone_anti is not None and not c.zone_anti_soft for c in classes
+    )
+
+    resources: List[str] = [resources_util.CPU, resources_util.MEMORY, resources_util.PODS]
+    for cls in classes:
+        for name in cls.requests:
+            if name not in resources:
+                resources.append(name)
+    for it in all_its:
+        for name in it.capacity:
+            if name not in resources:
+                resources.append(name)
+
+    # -- vocabulary -----------------------------------------------------------
+    # demand side defines the keys; catalog/node labels only widen the value
+    # lists of keys the demand side references (Vocabulary.build docstring) —
+    # the kernel's mask compute scales with the widest key, so supply-only
+    # label families (e.g. a per-instance serial label) must not enter
+    demand_sets = [cls.requirements for cls in classes]
+    demand_sets += [tmpl.requirements for tmpl in templates]
+    supply_sets = [it.requirements for it in all_its]
+    supply_sets += list(extra_requirement_sets or [])
+    vocab = Vocabulary.build(demand_sets, supply_sets=supply_sets)
+
+    snap = EncodedSnapshot(
+        vocab=vocab,
+        resources=resources,
+        zones=zones,
+        capacity_types=capacity_types,
+        it_names=it_names,
+        classes=classes,
+        scan_passes=scan_passes,
+        has_required_zonal_anti=has_required_zonal_anti,
+    )
+    vocab_content = (
+        tuple(vocab.keys),
+        tuple((k, tuple(v)) for k, v in sorted(vocab.values.items())),
+    )
+
+    # -- instance types -------------------------------------------------------
+    # catalog planes only depend on the vocabulary content + catalog +
+    # resource/zone/ct axes — identical across reconcile loops, so cache them
+    # (cache_host carries the dict across encodes, e.g. a CudaSolver)
+    I, Z, CT, R = len(it_names), len(zones), len(capacity_types), len(resources)
+    cache = getattr(cache_host, "_catalog_cache", None) if cache_host is not None else None
+    cache_key = vocab_content + (
+        tuple(it_names),
+        tuple(resources),
+        tuple(zones),
+        tuple(capacity_types),
+        # offering content is part of the key: prices/availability can move
+        # between encodes on one live solver (dynamic spot pricing —
+        # FakeCloudProvider.set_price), and the cached it_price/it_avail
+        # planes must not outlive the sheet they encoded.  Capacity content
+        # is NOT keyed — it_alloc has always assumed catalog capacity is
+        # immutable on a live solver, and it_capacity (cached here too now)
+        # rides the same assumption.
+        tuple(
+            (o.zone, o.capacity_type, o.available, o.price)
+            for it in all_its
+            for o in it.offerings
+        ),
+    )
+    if cache is not None and cache.get("key") == cache_key:
+        (
+            snap.it_mask, snap.it_defined, snap.it_negative, snap.it_gt, snap.it_lt,
+            snap.it_alloc, snap.it_avail, snap.it_price, snap.it_capacity,
+        ) = cache["planes"]
+    else:
+        it_planes = [vocab.encode_requirements(it.requirements) for it in all_its]
+        snap.it_mask, snap.it_defined, snap.it_negative, snap.it_gt, snap.it_lt = (
+            np.stack([p[j] for p in it_planes]) for j in range(5)
+        )
+        if n_pad_types:
+            # inert ReqTensor rows for the sentinel types: nothing defined, so
+            # every compatibility check skips them (they are also excluded
+            # from availability/templates below — belt and suspenders).
+            # Fill values MATCH ops.solve.pad_catalog's row-padding convention
+            # (mask=False, defined=False, ±inf bounds) so the two padding
+            # paths can never diverge on the tail even if the kernel ever
+            # starts consulting mask where defined is False.
+            K, W = snap.it_mask.shape[1], snap.it_mask.shape[2]
+            snap.it_mask = np.concatenate(
+                [snap.it_mask, np.zeros((n_pad_types, K, W), dtype=bool)]
+            )
+            snap.it_defined = np.concatenate(
+                [snap.it_defined, np.zeros((n_pad_types, K), dtype=bool)]
+            )
+            snap.it_negative = np.concatenate(
+                [snap.it_negative, np.zeros((n_pad_types, K), dtype=bool)]
+            )
+            snap.it_gt = np.concatenate(
+                [snap.it_gt, np.full((n_pad_types, K), -np.inf, dtype=np.float32)]
+            )
+            snap.it_lt = np.concatenate(
+                [snap.it_lt, np.full((n_pad_types, K), np.inf, dtype=np.float32)]
+            )
+        # one vectorized scatter per plane instead of a Python store per
+        # (type, resource) / (type, offering) cell — at 2k-type catalogs the
+        # cell loops were the cold encode's floor
+        snap.it_alloc = np.zeros((I, R), dtype=np.float32)
+        snap.it_capacity = np.zeros((I, R), dtype=np.float32)
+        snap.it_avail = np.zeros((I, Z, CT), dtype=bool)
+        snap.it_price = np.full((I, Z, CT), np.inf, dtype=np.float32)
+        res_index = {name: r for r, name in enumerate(resources)}
+        zone_idx2 = {z: i for i, z in enumerate(zones)}
+        ct_idx2 = {c: i for i, c in enumerate(capacity_types)}
+        a_cells: List[tuple] = []  # (i, r, value) for it_alloc
+        c_cells: List[tuple] = []  # (i, r, value) for it_capacity
+        o_cells: List[tuple] = []  # (i, z, ct, price) for available offerings
+        for i, it in enumerate(all_its):
+            for name, quantity in it.allocatable().items():
+                r = res_index.get(name)
+                if r is not None:
+                    a_cells.append((i, r, quantity))
+            for name, quantity in it.capacity.items():
+                r = res_index.get(name)
+                if r is not None:
+                    c_cells.append((i, r, quantity))
+            for off in it.offerings:
+                if off.available:
+                    o_cells.append((
+                        i, zone_idx2[off.zone], ct_idx2[off.capacity_type],
+                        off.price,
+                    ))
+        if a_cells:
+            rows, cols, vals = zip(*a_cells)
+            snap.it_alloc[list(rows), list(cols)] = np.asarray(vals, dtype=np.float32)
+        if c_cells:
+            rows, cols, vals = zip(*c_cells)
+            snap.it_capacity[list(rows), list(cols)] = np.asarray(vals, dtype=np.float32)
+        if o_cells:
+            rows, zcols, ccols, prices = zip(*o_cells)
+            snap.it_avail[list(rows), list(zcols), list(ccols)] = True
+            snap.it_price[list(rows), list(zcols), list(ccols)] = np.asarray(
+                prices, dtype=np.float32
+            )
+        if cache_host is not None:
+            cache_host._catalog_cache = {
+                "key": cache_key,
+                "planes": (
+                    snap.it_mask, snap.it_defined, snap.it_negative, snap.it_gt,
+                    snap.it_lt, snap.it_alloc, snap.it_avail, snap.it_price,
+                    snap.it_capacity,
+                ),
+            }
+
+    # -- class/template/group/port planes: the delta-consuming seam ----------
+    # Everything below this point is a pure function of the class SHAPES
+    # (signatures), the templates, the vocabulary, the axes, and the extra
+    # groups/ports — NOT of the per-class pod counts.  A churn tick that only
+    # moves members between existing shapes therefore reuses the previous
+    # encode's plane arrays by reference (bit-identical by construction; the
+    # arrays are treated as immutable everywhere downstream), and the store's
+    # commit skips re-digesting the untouched plane groups by the same
+    # identity (models.store.snapshot_digests).  The fresh cls_count vector
+    # is the only thing a steady-state re-encode actually computes.
+    reuse_key = None
+    prev_snap: Optional[EncodedSnapshot] = None
+    if cache_host is not None:
+        reuse_key = _class_plane_key(
+            vocab_content, snap, classes, templates, provisioners,
+            instance_types, extra_requirement_sets, extra_anti_groups,
+            extra_host_ports,
+        )
+        cached_cls = getattr(cache_host, "_class_plane_cache", None)
+        if cached_cls is not None and cached_cls.get("key") == reuse_key:
+            prev_snap = cached_cls["snap"]
+    if prev_snap is not None:
+        _share_class_planes(snap, prev_snap, classes)
+        snap.encode_reused = True
+        return snap
+
+    snap.valid = vocab.valid_mask()
+    snap.is_custom = vocab.is_custom()
+    snap.vocab_ints = vocab.ints_table()
+    _populate_class_planes(
+        snap, classes, templates, provisioners, instance_types,
+        extra_anti_groups, extra_host_ports,
+    )
+
+    # -- static phase plan ----------------------------------------------------
+    # which constraint families any class can exercise; a False flag lets the
+    # kernel skip tracing the family's phases entirely (ops/solve._class_step).
+    # Deferred import: ops.solve imports this module at load time.
+    from karpenter_core_tpu_torch.ops.solve import SnapshotFeatures
+
+    def owns(attr: str) -> bool:
+        return any(getattr(c, attr) is not None for c in classes)
+
+    extra_groups = [spec for spec, _ in (extra_anti_groups or [])]
+    snap.features = SnapshotFeatures(
+        zone_spread=owns("zone_spread"),
+        host_spread=owns("host_spread"),
+        zone_affinity=owns("zone_affinity"),
+        host_affinity=owns("host_affinity"),
+        zone_anti=owns("zone_anti"),
+        required_zone_anti=has_required_zonal_anti,
+        host_anti=owns("host_anti"),
+        # inverse planes: groups whose owners register inverse counts —
+        # required class-owned anti terms or already-bound pods' terms
+        inv_zone_anti=has_required_zonal_anti
+        or any(g.is_zone for g in extra_groups),
+        inv_host_anti=any(
+            c.host_anti is not None and not c.host_anti_soft for c in classes
+        )
+        or any(not g.is_zone for g in extra_groups),
+        host_ports=bool(snap.cls_ports.any()),
+        volume_limits=False,  # refined at solve time
+    ).canonical()
+
+    if cache_host is not None:
+        cache_host._class_plane_cache = {"key": reuse_key, "snap": snap}
+    return snap
+
+
+# plane fields shared by reference on a class-plane reuse hit — everything
+# class-shape-derived; cls_count (the only count-derived plane) is rebuilt
+# fresh every encode and re-shared only when its values are unchanged
+_SHAPE_PLANE_FIELDS = (
+    "valid", "is_custom", "vocab_ints",
+    "tmpl_mask", "tmpl_defined", "tmpl_negative", "tmpl_gt", "tmpl_lt",
+    "tmpl_zone", "tmpl_ct", "tmpl_it", "tmpl_daemon", "tmpl_limits",
+    "cls_mask", "cls_defined", "cls_negative", "cls_gt", "cls_lt",
+    "cls_zone", "cls_ct", "cls_it", "cls_requests", "cls_relax_next",
+    "cls_anti_soft", "cls_root", "cls_tol", "cls_ports",
+    "grp_skew", "grp_is_zone", "grp_is_anti", "grp_member", "cls_groups",
+)
+
+
+def _requirements_content(reqs) -> tuple:
+    """Order-independent content key of one Requirements set."""
+    entries = []
+    for key in reqs.keys():
+        r = reqs.get(key)
+        entries.append((
+            key, r.complement, tuple(sorted(r.values)),
+            r.greater_than, r.less_than,
+        ))
+    return tuple(sorted(entries))
+
+
+def _class_plane_key(
+    vocab_content, snap, classes, templates, provisioners, instance_types,
+    extra_requirement_sets, extra_anti_groups, extra_host_ports,
+) -> tuple:
+    """Reuse key of the class-shape-derived plane block.  Covers every input
+    those planes read: the finalized class-signature sequence (counts
+    excluded — they are the delta), vocabulary content, the axis name
+    spaces, template content (requirements, taints, daemon overhead
+    requests), provisioner limits, per-template catalog membership, and the
+    extra group/port/requirement inputs."""
+    return (
+        vocab_content,
+        tuple(snap.resources), tuple(snap.zones), tuple(snap.capacity_types),
+        tuple(snap.it_names),
+        # the finalized ROOT-signature sequence, interned when the producer
+        # carried it (PodIngest / SignatureInterner) so steady-state ticks
+        # derive zero signatures here.  Ladder variants are implied: the
+        # chain (relax rungs, prefer-no-schedule rungs) is a deterministic
+        # function of the root's spec — which the signature captures — and
+        # of the templates, which this key covers below.
+        tuple(
+            c.interned_sig
+            if c.interned_sig is not None
+            else _class_signature(c.pods[0])
+            for c in classes
+            if not c.is_ladder_variant
+        ),
+        tuple(
+            (
+                t.provisioner_name,
+                _requirements_content(t.requirements),
+                tuple(sorted(
+                    (tt.key, tt.value, tt.effect, getattr(tt, "operator", ""))
+                    for tt in t.taints
+                )),
+                tuple(sorted((t.requests or {}).items())),
+            )
+            for t in templates
+        ),
+        tuple(
+            (
+                p.name,
+                tuple(sorted(p.spec.limits.resources.items()))
+                if p.spec.limits is not None
+                else None,
+            )
+            for p in provisioners
+        ),
+        tuple(
+            (
+                t.provisioner_name,
+                tuple(
+                    it.name
+                    for it in instance_types.get(t.provisioner_name, ())
+                ),
+            )
+            for t in templates
+        ),
+        tuple(
+            _requirements_content(r) for r in (extra_requirement_sets or ())
+        ),
+        tuple(
+            (spec, _selector_sig(sel) if sel is not None else None)
+            for spec, sel in (extra_anti_groups or ())
+        ),
+        tuple(extra_host_ports or ()),
+    )
+
+
+def _share_class_planes(snap: EncodedSnapshot, prev: EncodedSnapshot, classes) -> None:
+    """Populate ``snap`` from a previous same-shape encode: every
+    shape-derived plane by reference (identity — the store digest reuse and
+    the solver's warm-prep reuse both key on it), the count vector fresh
+    (shared back only when values are unchanged, so an idle tick stays
+    fully identity-stable)."""
+    for f in _SHAPE_PLANE_FIELDS:
+        setattr(snap, f, getattr(prev, f))
+    snap.ports = prev.ports
+    snap.groups = prev.groups
+    snap.group_selectors = prev.group_selectors
+    snap.features = prev.features
+    counts = np.array(
+        [0 if c.is_ladder_variant else c.count for c in classes],
+        dtype=np.int32,
+    )
+    if prev.cls_count is not None and np.array_equal(counts, prev.cls_count):
+        snap.cls_count = prev.cls_count
+    else:
+        snap.cls_count = counts
+
+
+def _populate_class_planes(
+    snap: EncodedSnapshot, classes, templates, provisioners, instance_types,
+    extra_anti_groups, extra_host_ports,
+) -> None:
+    """Build the class/template/group/port planes (the shape-derived block
+    ``_share_class_planes`` reuses on delta ticks) as batch operations over
+    interned name spaces — no per-universe-value Python on the hot path."""
+    vocab = snap.vocab
+    zones, capacity_types, it_names = snap.zones, snap.capacity_types, snap.it_names
+    resources = snap.resources
+    I, Z, CT, R = len(it_names), len(zones), len(capacity_types), len(resources)
+
+    # -- templates ------------------------------------------------------------
+    T = len(templates)
+    tmpl_planes = [vocab.encode_requirements(t.requirements) for t in templates]
+    snap.tmpl_mask, snap.tmpl_defined, snap.tmpl_negative, snap.tmpl_gt, snap.tmpl_lt = (
+        np.stack([p[j] for p in tmpl_planes]) for j in range(5)
+    )
+
+    def req_of(reqs, label):
+        return reqs.get(label) if reqs.has(label) else None
+
+    snap.tmpl_zone = encode_value_sets(
+        [req_of(t.requirements, labels_api.LABEL_TOPOLOGY_ZONE) for t in templates],
+        zones,
+    )
+    snap.tmpl_ct = encode_value_sets(
+        [req_of(t.requirements, labels_api.LABEL_CAPACITY_TYPE) for t in templates],
+        capacity_types,
+    )
+    # catalog membership by interned name index, then AND the instance-type
+    # name requirement row — same cells as the old per-name Python walk
+    it_name_index = {name: i for i, name in enumerate(it_names)}
+    snap.tmpl_it = np.zeros((T, I), dtype=bool)
+    for t, tmpl in enumerate(templates):
+        members = [
+            it_name_index[it.name]
+            for it in instance_types.get(tmpl.provisioner_name, [])
+            if it.name in it_name_index
+        ]
+        if members:
+            snap.tmpl_it[t, members] = True
+    snap.tmpl_it &= encode_value_sets(
+        [req_of(t.requirements, labels_api.LABEL_INSTANCE_TYPE_STABLE) for t in templates],
+        it_names,
+    )
+    snap.tmpl_daemon = np.zeros((T, R), dtype=np.float32)
+    # raw provisioner limits (scheduler.go:69-75); in-solve usage is the
+    # capacity of the solve's own state nodes, subtracted in-kernel per
+    # open-mask (scheduler.go:244-246 calculateExistingMachines) so
+    # consolidation subsets release their nodes' budget per lane
+    snap.tmpl_limits = np.full((T, R), np.inf, dtype=np.float32)
+    prov_by_name = {p.name: p for p in provisioners}
+    for t, tmpl in enumerate(templates):
+        prov = prov_by_name.get(tmpl.provisioner_name)
+        if prov is not None and prov.spec.limits is not None:
+            for r, name in enumerate(resources):
+                if name in prov.spec.limits.resources:
+                    snap.tmpl_limits[t, r] = prov.spec.limits.resources[name]
+        for r, name in enumerate(resources):
+            snap.tmpl_daemon[t, r] = tmpl.requests.get(name, 0.0) if tmpl.requests else 0.0
+
+    # -- pod classes ----------------------------------------------------------
+    C = len(classes)
+    if C == 0:
+        K, W = vocab.n_keys, vocab.width
+        snap.cls_mask = np.zeros((0, K, W), dtype=bool)
+        snap.cls_defined = np.zeros((0, K), dtype=bool)
+        snap.cls_negative = np.zeros((0, K), dtype=bool)
+        snap.cls_gt = np.zeros((0, K), dtype=np.float32)
+        snap.cls_lt = np.zeros((0, K), dtype=np.float32)
+    else:
+        cls_planes = [vocab.encode_requirements(c.requirements) for c in classes]
+        snap.cls_mask, snap.cls_defined, snap.cls_negative, snap.cls_gt, snap.cls_lt = (
+            np.stack([p[j] for p in cls_planes]) for j in range(5)
+        )
+    snap.cls_zone = encode_value_sets(
+        [req_of(c.requirements, labels_api.LABEL_TOPOLOGY_ZONE) for c in classes],
+        zones,
+    ) if C else np.zeros((0, Z), dtype=bool)
+    snap.cls_ct = encode_value_sets(
+        [req_of(c.requirements, labels_api.LABEL_CAPACITY_TYPE) for c in classes],
+        capacity_types,
+    ) if C else np.zeros((0, CT), dtype=bool)
+    snap.cls_it = encode_value_sets(
+        [req_of(c.requirements, labels_api.LABEL_INSTANCE_TYPE_STABLE) for c in classes],
+        it_names,
+    ) if C else np.zeros((0, I), dtype=bool)
+    snap.cls_requests = np.zeros((C, R), dtype=np.float32)
+    snap.cls_count = np.zeros(C, dtype=np.int32)
+    snap.cls_relax_next = np.full(C, -1, dtype=np.int32)
+    snap.cls_anti_soft = np.zeros((C, 2), dtype=bool)
+    for c, cls in enumerate(classes):
+        snap.cls_anti_soft[c, 0] = cls.zone_anti_soft
+        snap.cls_anti_soft[c, 1] = cls.host_anti_soft
+    index_of = {id(cls): c for c, cls in enumerate(classes)}
+    for c, cls in enumerate(classes):
+        if cls.relax_to is not None:
+            snap.cls_relax_next[c] = index_of[id(cls.relax_to)]
+    snap.cls_root = np.arange(C, dtype=np.int32)
+    for c in range(C):
+        nxt = snap.cls_relax_next[c]
+        if nxt >= 0:  # successors always follow their root
+            snap.cls_root[nxt] = snap.cls_root[c]
+    snap.cls_tol = np.zeros((C, T), dtype=bool)
+    # -- topology groups (hash-deduped, topologygroup.go:137-153) -------------
+    group_index: Dict[GroupSpec, int] = {}
+    group_selectors: list = []
+    for cls in classes:
+        for spec in cls.owned_groups():
+            if spec not in group_index:
+                group_index[spec] = len(group_index)
+                group_selectors.append(cls.selectors[spec])
+    # anti-affinity groups owned only by already-bound cluster pods still gate
+    # the pods they select (inverse topologies, topology.go:185-198)
+    for spec, selector in extra_anti_groups or []:
+        if spec not in group_index:
+            group_index[spec] = len(group_index)
+            group_selectors.append(GroupScope(selector, spec.namespaces))
+    G = len(group_index)
+    snap.groups = list(group_index)
+    snap.group_selectors = group_selectors
+    snap.grp_skew = np.full(G + 1, UNLIMITED, dtype=np.int32)
+    snap.grp_is_zone = np.zeros(G + 1, dtype=bool)
+    snap.grp_is_anti = np.zeros(G + 1, dtype=bool)
+    snap.grp_member = np.zeros((C, G + 1), dtype=bool)
+    snap.cls_groups = np.full((C, 6), G, dtype=np.int32)
+    for spec, g in group_index.items():
+        snap.grp_skew[g] = spec.skew
+        snap.grp_is_zone[g] = spec.is_zone
+        snap.grp_is_anti[g] = spec.gtype == GRP_ANTI
+    for c, cls in enumerate(classes):
+        rep = cls.pods[0]
+        for g, scope in enumerate(group_selectors):
+            snap.grp_member[c, g] = scope is not None and scope.matches_pod(rep)
+        for slot, spec in enumerate(
+            (cls.zone_spread, cls.host_spread, cls.zone_affinity,
+             cls.host_affinity, cls.zone_anti, cls.host_anti)
+        ):
+            if spec is not None:
+                snap.cls_groups[c, slot] = group_index[spec]
+    for c, cls in enumerate(classes):
+        requests = dict(cls.requests)
+        requests[resources_util.PODS] = 1.0
+        for r, name in enumerate(resources):
+            snap.cls_requests[c, r] = requests.get(name, 0.0)
+        # variants start empty: the kernel rolls failed root counts into
+        # them between scan passes (one relax step per pass)
+        snap.cls_count[c] = 0 if cls.is_ladder_variant else cls.count
+        example = cls.pods[0]
+        for t, tmpl in enumerate(templates):
+            snap.cls_tol[c, t] = Taints.of(tmpl.taints).tolerates(example) is None
+
+    # -- host ports (hostportusage.go:31-144 as a (port, proto) bitset) -------
+    port_universe: Dict[tuple, None] = {}
+    for cls in classes:
+        for key in pod_port_keys(cls.pods[0]):
+            port_universe.setdefault(key)
+    for key in extra_host_ports or []:
+        port_universe.setdefault(key)
+    snap.ports = list(port_universe) or [(0, "TCP")]  # >=1 column for the kernels
+    port_idx = {key: i for i, key in enumerate(snap.ports)}
+    snap.cls_ports = np.zeros((C, len(snap.ports)), dtype=bool)
+    for c, cls in enumerate(classes):
+        for key in pod_port_keys(cls.pods[0]):
+            snap.cls_ports[c, port_idx[key]] = True
+
+
+def pod_port_keys(pod: Pod) -> List[tuple]:
+    """(host_port, protocol) pairs a pod binds (protocol defaults to TCP)."""
+    return [
+        (p.host_port, p.protocol or "TCP")
+        for container in pod.spec.containers
+        for p in container.ports
+        if p.host_port
+    ]
