@@ -1,11 +1,12 @@
-"""Smoke run of the port on one CUDA card: the cold 50k-pod provisioning solve.
+"""Smoke run of the port on one CUDA card: the provisioning solve, cold
+into an empty cluster and into a live 5,000-node cluster.
 
     python3 chip_smoke.py
 
-Builds the four hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the seven hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
-  1. main path — 50,000 pending pods x 1,000 instance types x 5 provisioners
+  1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
      (the reference benchmark's makeDiversePods mix) through
      ``CudaSolver.solve``, cold and warm, with the stage split.  Every pod
      must land, on exactly 7,162 new nodes: the JAX package's answer on the
@@ -13,14 +14,28 @@ csrc`` (one nvcc per source, all at once), then:
      the same solve run with ``use_kernels=False`` (the kernels' plain torch
      twins) on the card, and every kernel must have launched in the cold run
      (launch counters are zeroed just before it and read just after).
-  2. kernels — each kernel against its plain twin on the card, on inputs
-     taken from the main path's final state (its real shapes), plus a small
-     bounded-keys case for K1 and a hole-preference case for K2; equality is
-     exact.  Each is timed (median of CUDA-event timings) beside its plain
-     twin and its bound: bytes it must move over 3.35 TB/s, or operations
-     over 67 T/s, whichever is larger (H100 SXM data-sheet peaks at 700 W).
-     No single PyTorch call computes any of the four, so ``library_ms`` is
-     null.
+  2. kernels K1-K4 — each against its plain twin on the card, on inputs
+     taken from the cold path's final state (its real shapes), plus a small
+     bounded-keys case for K1 and a hole-preference case for K2.
+  3. existing-node path — first a mid-size solve (10,000 pods x 100 types
+     into a 1,000-node cluster) whose counts must equal the JAX package's
+     answer on the same inputs, measured on the CPU; then the same 50,000
+     pods into a live cluster,
+     ``testing.workloads.build_cluster(5000, 1000, 5, fill=0.6)`` (5,000
+     initialized nodes at 60 % cpu requested, every tenth tainted), through
+     ``CudaSolver.solve(ingest, state_nodes, bound_pods)``, cold and warm.
+     Every leaf must equal the plain-twin solve; every existing node's final
+     usage must stay within its allocatable; no tainted node may take a pod;
+     scheduled + failed + residual must be 50,000; every kernel K1-K7 must
+     have launched in the cold run.  Then K5-K7 against their twins at this
+     path's shapes.
+
+Kernel checks are exact (no tolerance: the kernels reproduce the twins'
+integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
+of CUDA-event timings of one call, wrapper included) beside its plain twin
+and its bound: bytes it must move over 3.35 TB/s, or operations over 67 T/s,
+whichever is larger (H100 SXM data-sheet peaks at 700 W).  No single
+PyTorch call computes any of the seven, so ``library_ms`` is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
@@ -28,6 +43,7 @@ failed check exits non-zero before that line.  Needs one card; refuses to
 run without one.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -40,6 +56,15 @@ import torch
 # provisioners), measured on the CPU: every pod placed on 7,162 new nodes
 EXPECTED_NODES = 7162
 N_PODS, N_TYPES, N_PROVISIONERS = 50_000, 1000, 5
+# the live cluster of phase 3 (BASELINE.json config 3: 5k nodes at 60 % util)
+N_NODES, FILL, CLUSTER_SEED = 5000, 0.6, 2024
+# the JAX package's answer for the existing-node path at a size its CPU run
+# takes: MID_PODS pods x MID_TYPES types x 5 provisioners into
+# build_cluster(MID_NODES, MID_TYPES, 5, FILL, CLUSTER_SEED);
+# tests/test_torch_existing.py holds both packages to it on the CPU
+MID_PODS, MID_NODES, MID_TYPES = 10_000, 1000, 100
+MID_EXPECTED = {"on_existing_nodes": 8609, "existing_nodes_used": 277, "on_new_nodes": 1391,
+                "new_nodes": 1391, "failed": 0, "residual": 0}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
@@ -98,6 +123,37 @@ def max_abs_err(got, want) -> float:
     return err
 
 
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel (each wrapper counts its own)."""
+    from karpenter_core_tpu_torch.kernels import (
+        capacity, existing, fill, packbits, reqmerge, spread,
+    )
+    return {
+        "it_capacity": capacity.launches, "fill_priority": fill.launches,
+        "req_merge": reqmerge.launches, "pack_bool": packbits.launches,
+        "existing_intake": existing.intake_launches,
+        "existing_phase": existing.phase_launches, "spread_quota": spread.launches,
+    }
+
+
+def reset_launches() -> None:
+    from karpenter_core_tpu_torch.kernels import (
+        capacity, existing, fill, packbits, reqmerge, spread,
+    )
+    for mod in (capacity, fill, reqmerge, packbits, spread):
+        mod.launches = 0
+    existing.intake_launches = existing.phase_launches = 0
+
+
+def same_leaves(got_outputs, want_outputs, label: str) -> None:
+    want = leaves(want_outputs)
+    for name, got in leaves(got_outputs).items():
+        if got.shape != want[name].shape or got.dtype != want[name].dtype or not torch.equal(
+                got, want[name]):
+            fail(f"{label}: SolveOutputs.{name} differs between the kernels and their plain twins")
+    print(f"{label}: every SolveOutputs leaf equals the plain-twin solve", flush=True)
+
+
 def leaves(outputs) -> dict:
     out = {}
     for name in ("assign", "assign_existing", "failed", "spread_suspect", "remaining"):
@@ -107,6 +163,215 @@ def leaves(outputs) -> dict:
         for f in tup._fields:
             out[f"{group}.{f}"] = getattr(tup, f)
     return out
+
+
+def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops):
+    """Hold one kernel against its plain twin (exactly), time both, and
+    append the kernel's record; returns the kernel's outputs."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        fail(f"{name}: kernel differs from its plain twin (max_abs_err {err})")
+    rec = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches_n, "max_abs_err": err,
+        "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+        "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
+        else "operations",
+        "library_ms": None,
+    }
+    records.append(rec)
+    print(f"{name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+          f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) exact", flush=True)
+    return got
+
+
+def path_counts(results) -> dict:
+    """Where the pods of one existing-node solve went."""
+    return {
+        "on_existing_nodes": sum(len(v) for v in results.existing_assignments.values()),
+        "existing_nodes_used": len(results.existing_assignments),
+        "on_new_nodes": sum(len(n.pods) for n in results.new_nodes),
+        "new_nodes": len(results.new_nodes),
+        "failed": len(results.failed_pods),
+        "residual": len(results.spread_residual_pods),
+    }
+
+
+def existing_path(records, cold_launches) -> None:
+    """Phase 3: the 50,000-pod backlog into a live 5,000-node cluster, then
+    K5-K7 against their twins at this path's shapes."""
+    from karpenter_core_tpu_torch.kernels import existing, fill, reqmerge, spread
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.testing.workloads import build_cluster, build_inputs
+
+    # the mid-size solve whose answer the JAX package gave on the CPU
+    mid_nodes, mid_bound = build_cluster(MID_NODES, MID_TYPES, N_PROVISIONERS, FILL,
+                                         CLUSTER_SEED)
+    mid_solver, mid_pods = build_inputs(MID_PODS, MID_TYPES, N_PROVISIONERS)
+    mid = path_counts(mid_solver.solve(mid_pods, mid_nodes, mid_bound))
+    print(json.dumps({"run": "existing mid-size", "bound_pods": len(mid_bound), **mid}),
+          flush=True)
+    if mid != MID_EXPECTED:
+        fail(f"existing mid-size: {mid}, the JAX package's answer is {MID_EXPECTED}")
+    del mid_nodes, mid_bound, mid_solver, mid_pods
+
+    t0 = time.perf_counter()
+    state_nodes, bound_pods = build_cluster(N_NODES, N_TYPES, N_PROVISIONERS, FILL, CLUSTER_SEED)
+    tainted = {n.node.name for n in state_nodes if n.node.spec.taints}
+    print(json.dumps({"cluster": {
+        "nodes": len(state_nodes), "bound_pods": len(bound_pods), "tainted": len(tainted),
+        "allocatable_cpu": sum(n.allocatable().get("cpu", 0.0) for n in state_nodes),
+        "requested_cpu": sum(n.pod_requests_total().get("cpu", 0.0) for n in state_nodes),
+        "build_s": time.perf_counter() - t0,
+    }}), flush=True)
+
+    solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+    reset_launches()
+    solve_ops.host_syncs = 0
+    runs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        ingest_s = time.perf_counter() - t0
+        results = solver.solve(ingest, state_nodes, bound_pods)
+        torch.cuda.synchronize()
+        runs.append((label, ingest_s, dict(solver.stages), time.perf_counter() - t0, results))
+        if label == "cold":
+            launches = launch_counts()
+            syncs = solve_ops.host_syncs
+    out = solver.last_outputs
+    for label, ingest_s, stages, total_s, results in runs:
+        counts = path_counts(results)
+        print(json.dumps({
+            "run": f"existing {label}", "wall_s": total_s, "ingest_s": ingest_s, **stages,
+            **counts, "E": int(out.assign_existing.shape[1]), "slots": int(out.assign.shape[1]),
+        }), flush=True)
+        placed = (counts["on_existing_nodes"] + counts["on_new_nodes"] + counts["failed"]
+                  + counts["residual"])
+        if placed != N_PODS:
+            fail(f"existing {label}: {counts} accounts for {placed} pods, not {N_PODS}")
+        if tainted & set(results.existing_assignments):
+            fail(f"existing {label}: a tainted node took pods")
+        if counts["on_existing_nodes"] <= 0:
+            fail(f"existing {label}: no pod landed on an existing node")
+    print(json.dumps({"existing_cold_run_launches": launches,
+                      "existing_cold_run_host_syncs": syncs}), flush=True)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} never launched on the existing-node path")
+    snapshot = solver.encode(ingest, state_nodes, bound_pods)
+    prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
+    if not bool((out.ex_state.used <= prep.ex_static.alloc + 1e-4).all()):
+        fail("an existing node's final usage exceeds its allocatable")
+    print("existing path: every existing node's usage within its allocatable", flush=True)
+
+    plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    t0 = time.perf_counter()
+    plain_solver.solve(ingest, state_nodes, bound_pods)
+    torch.cuda.synchronize()
+    print(json.dumps({"run": "existing plain twins (use_kernels=False)",
+                      "wall_s": time.perf_counter() - t0, **plain_solver.stages}), flush=True)
+    same_leaves(out, plain_solver.last_outputs, "existing path")
+
+    # -- K5-K7 at this path's shapes: the zone-spread class against the
+    # cluster as it stood before the solve -----------------------------------
+    c = next(i for i, cls in enumerate(snapshot.classes) if cls.zone_spread is not None)
+    ft = prep.features
+    st = solve_ops.StaticArrays(*prep.statics_arrays)
+    v = st.valid.shape[-1]
+    st = st._replace(valid=mask_ops.pack_mask(st.valid))
+    cls = solve_ops.ClassTensors(*(t[c] for t in prep.cls))
+    cls = cls._replace(mask=mask_ops.pack_mask(cls.mask))
+    cls_req = mask_ops.ReqTensor(cls.mask[None], cls.defined[None], cls.negative[None],
+                                 cls.gt[None], cls.lt[None])
+    ex, ex_static = prep.ex_state, prep.ex_static
+    ex = ex._replace(kmask=mask_ops.pack_mask(ex.kmask))
+    n_ex = ex.used.shape[0]
+    merged, key_ok = reqmerge.merge_compat(
+        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
+        st.vocab_ints, st.is_custom, v, prep.key_has_bounds)
+    host_cap = torch.full((n_ex,), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
+    k5 = (ex_static.alloc, ex.used, ex.open_, key_ok, ex_static.tol[c], ex.zone, cls.zone,
+          ex.ct, cls.ct, ex.ports, cls.ports, ex_static.vol_limit, ex.vol_used,
+          ex_static.cls_vol_add[c], ex_static.cls_vol_per_pod[c], cls.requests, host_cap)
+    read = [ex_static.alloc, ex.used, ex.open_, key_ok, ex_static.tol[c], ex.zone, cls.zone,
+            ex.ct, cls.ct, cls.requests, host_cap]
+    if ft.host_ports:
+        read += [ex.ports, cls.ports]
+    if ft.volume_limits:
+        read += [ex_static.vol_limit, ex.vol_used, ex_static.cls_vol_add[c],
+                 ex_static.cls_vol_per_pod[c]]
+    n_res, n_zones, n_ct = ex.used.shape[1], ex.zone.shape[1], ex.ct.shape[1]
+    cap, _, _ = record_kernel(
+        records, "existing_intake", "karpenter_core_tpu_torch/csrc/existing_intake.cu",
+        "karpenter_core_tpu/ops/solve.py:548", launches["existing_intake"],
+        lambda: existing.existing_intake(*k5, ft.host_ports, ft.volume_limits),
+        lambda: existing.existing_intake_plain(*k5, ft.host_ports, ft.volume_limits),
+        nbytes(*read) + n_ex * (4 + n_zones + n_ct), n_ex * (6 * n_res + n_zones + n_ct + 8),
+    )
+    # K6: the caps of an all-zone phase, K2's fill of the class's count, the
+    # commit; timed as the pair of entry points around the fill
+    all_zones = torch.ones(n_zones, dtype=torch.bool, device="cuda")
+    cap_m, pri_m, zone_ok = existing.existing_mask(cap, ex.zone, cls.zone, all_zones, None, False)
+    quota = torch.clamp(cls.count, min=1)
+    assigned = fill.fill_by_priority(quota, cap_m, pri_m)
+    rows = ex[:-1]  # the commit reads and writes every field but open_, which it passes on
+    k6c = (ex, merged, zone_ok, ex.ct & cls.ct[None, :], cls.ports, ex_static.cls_vol_add[c],
+           ex_static.cls_vol_per_pod[c], cls.requests, assigned, ft.host_ports, ft.volume_limits)
+    record_kernel(
+        records, "existing_phase", "karpenter_core_tpu_torch/csrc/existing_phase.cu",
+        "karpenter_core_tpu/ops/solve.py:624", launches["existing_phase"],
+        lambda: (existing.existing_mask(cap, ex.zone, cls.zone, all_zones, None, False),
+                 existing.existing_commit(*k6c)),
+        lambda: (existing.existing_mask_plain(cap, ex.zone, cls.zone, all_zones, None, False),
+                 existing.existing_commit_plain(*k6c)),
+        nbytes(cap, ex.zone, cls.zone, all_zones, cap_m, pri_m, zone_ok)
+        + nbytes(rows, *k6c[1:9]) + nbytes(rows),
+        n_ex * (n_zones + 4 + 2 * n_res),
+    )
+    # the single-node pin and a restricted, partly-excluded phase
+    taken = assigned > 0
+    for args in ((cap, ex.zone, cls.zone, all_zones, None, True),
+                 (cap, ex.zone, cls.zone, torch.arange(n_zones, device="cuda") != 1,
+                  ~taken, False)):
+        err = max_abs_err(existing.existing_mask(*args), existing.existing_mask_plain(*args))
+        if err != 0.0:
+            fail(f"existing_phase (mask) differs from its twin: {err}")
+    # K7: the class's quota rounds against the existing members per zone
+    g = cls.groups[0].long()
+    member_ex = ex_static.grp_node_member.index_select(0, g.reshape(1))[0]
+    single = (ex.zone.sum(dim=-1, dtype=torch.int32) == 1)[:, None] & ex.zone
+    counts = (member_ex[:, None] * single.to(torch.int32)).sum(dim=0, dtype=torch.int32)
+    unlimited = torch.full((n_zones,), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
+    k7 = (counts, cls.zone, torch.ones_like(cls.zone), unlimited,
+          st.grp_skew.index_select(0, g.reshape(1))[0], cls.count,
+          st.grp_member[c].index_select(0, g.reshape(1))[0])
+    record_kernel(
+        records, "spread_quota", "karpenter_core_tpu_torch/csrc/spread_quota.cu",
+        "karpenter_core_tpu/ops/solve.py:277", launches["spread_quota"],
+        lambda: spread.spread_quota(*k7), lambda: spread.spread_quota_plain(*k7),
+        nbytes(*k7) + n_zones * 5 + 5, (n_zones + 1) * (n_zones * n_zones + 30 * n_zones),
+    )
+    finite = torch.tensor([40, 3, 0], dtype=torch.int32, device="cuda")[:n_zones]
+    for caps, fillable in ((finite, torch.ones_like(cls.zone)),
+                           (unlimited, torch.arange(n_zones, device="cuda") != 1)):
+        args = (counts, cls.zone, fillable, caps) + k7[4:]
+        err = max_abs_err(spread.spread_quota(*args), spread.spread_quota_plain(*args))
+        if err != 0.0:
+            fail(f"spread_quota with finite caps differs from its twin: {err}")
+    print("existing path kernels exact: K5, K6 (mask, single-node pin, commit), "
+          "K7 (unlimited and finite caps)", flush=True)
+    for rec in records:
+        rec["launches_per_path"] = {"cold": cold_launches[rec["name"]],
+                                    "existing": launches[rec["name"]]}
 
 
 def main() -> None:
@@ -126,15 +391,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     build_s = build.build_all()
-    print(f"kernel build: {build_s:.2f} s (4 sources, parallel nvcc)", flush=True)
+    print(f"kernel build: {build_s:.2f} s ({len(build.SOURCES)} sources, parallel nvcc)",
+          flush=True)
     for name in build.SOURCES:
         build.load(name)
 
-    # -- 1. main path --------------------------------------------------------
+    # -- 1. cold path --------------------------------------------------------
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
-    modules = (capacity, fill, reqmerge, packbits)
-    for mod in modules:
-        mod.launches = 0
+    reset_launches()
     solve_ops.host_syncs = 0
     runs = []
     for label in ("cold", "warm"):
@@ -147,7 +411,7 @@ def main() -> None:
         total_s = time.perf_counter() - t0
         runs.append((label, ingest_s, dict(solver.stages), total_s, results))
         if label == "cold":
-            launches = {mod.__name__.rsplit(".", 1)[-1]: mod.launches for mod in modules}
+            launches = launch_counts()
             syncs = solve_ops.host_syncs
     for label, ingest_s, stages, total_s, results in runs:
         scheduled = sum(len(n.pods) for n in results.new_nodes)
@@ -176,12 +440,7 @@ def main() -> None:
     print(json.dumps({"run": "plain twins (use_kernels=False)",
                       "wall_s": time.perf_counter() - t0, **plain_solver.stages,
                       "nodes": len(plain_res.new_nodes)}), flush=True)
-    want = leaves(plain_solver.last_outputs)
-    for name, got in leaves(kernel_out).items():
-        if got.shape != want[name].shape or got.dtype != want[name].dtype or not torch.equal(
-                got, want[name]):
-            fail(f"SolveOutputs.{name} differs between the kernels and their plain twins")
-    print("main path: every SolveOutputs leaf equals the plain-twin solve", flush=True)
+    same_leaves(kernel_out, plain_solver.last_outputs, "cold path")
 
     # -- 2. kernels against their plain twins, at the main path's shapes ------
     state = kernel_out.state
@@ -197,30 +456,12 @@ def main() -> None:
     khb = prep.key_has_bounds
     records = []
 
-    def record(name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops):
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            fail(f"{name}: kernel differs from its plain twin (max_abs_err {err})")
-        rec = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches_n, "max_abs_err": err,
-            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
-            "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
-            else "operations",
-            "library_ms": None,
-        }
-        records.append(rec)
-        print(f"{name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-              f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) exact", flush=True)
-        return got
+    record = functools.partial(record_kernel, records)
 
     # K3 merge + compat of class 0 into every final slot
     merged, _ = record(
         "req_merge", "karpenter_core_tpu_torch/csrc/req_merge.cu",
-        "karpenter_core_tpu/ops/solve.py:312", launches["reqmerge"],
+        "karpenter_core_tpu/ops/solve.py:312", launches["req_merge"],
         lambda: reqmerge.merge_compat(node_req, cls_req, st.valid, st.vocab_ints,
                                       st.is_custom, v, khb),
         lambda: reqmerge.merge_compat_plain(node_req, cls_req, st.valid, st.vocab_ints,
@@ -236,7 +477,7 @@ def main() -> None:
     n_slots, n_types = state.viable.shape
     _, cap_ni, cap_n = record(
         "it_capacity", "karpenter_core_tpu_torch/csrc/it_capacity.cu",
-        "karpenter_core_tpu/ops/solve.py:334", launches["capacity"],
+        "karpenter_core_tpu/ops/solve.py:334", launches["it_capacity"],
         lambda: capacity.it_capacity(*k1_args), lambda: capacity.it_capacity_plain(*k1_args),
         nbytes(*[a for a in k1_args if isinstance(a, (torch.Tensor, tuple))])
         + n_slots * n_types * 5 + n_slots * 4,
@@ -249,7 +490,7 @@ def main() -> None:
                          device="cuda")
     record(
         "fill_priority", "karpenter_core_tpu_torch/csrc/fill_priority.cu",
-        "karpenter_core_tpu/ops/solve.py:419", launches["fill"],
+        "karpenter_core_tpu/ops/solve.py:419", launches["fill_priority"],
         lambda: fill.fill_by_priority(quota, cap_n, priority),
         lambda: fill.fill_by_priority_plain(quota, cap_n, priority),
         nbytes(quota, cap_n, priority) + n_slots * 4,
@@ -258,7 +499,7 @@ def main() -> None:
     # K4 bit-pack of the final viable plane
     record(
         "pack_bool", "karpenter_core_tpu_torch/csrc/pack_bool.cu",
-        "karpenter_core_tpu/ops/solve.py:2121", launches["packbits"],
+        "karpenter_core_tpu/ops/solve.py:2121", launches["pack_bool"],
         lambda: packbits.pack_bool(state.viable), lambda: packbits.pack_bool_plain(state.viable),
         nbytes(state.viable) + n_slots * ((n_types + 7) // 8),
         n_slots * n_types * 2,
@@ -307,7 +548,8 @@ def main() -> None:
     print("extra cases exact: it_capacity bounded keys + zero-request class; "
           "fill_priority with preferences", flush=True)
 
-    print("library_ms: null for all four — no single PyTorch call computes any of "
+    existing_path(records, launches)
+    print("library_ms: null for all seven — no single PyTorch call computes any of "
           "them", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

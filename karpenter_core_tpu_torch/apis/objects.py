@@ -339,4 +339,36 @@ class Node:
         return self.metadata.name
 
 
+# --- storage (the fields scheduling.volumeusage reads) ------------------------
+
+
+@dataclass
+class PersistentVolumeClaimSpec:
+    storage_class_name: Optional[str] = None
+    volume_name: str = ""
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeClaimSpec = field(default_factory=PersistentVolumeClaimSpec)
+
+
+@dataclass
+class PersistentVolumeSpec:
+    csi_driver: str = ""
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeSpec = field(default_factory=PersistentVolumeSpec)
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    provisioner: str = ""
+
+
 __all__ = [name for name in dir() if not name.startswith("_")]

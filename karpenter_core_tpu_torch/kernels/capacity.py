@@ -22,10 +22,13 @@ from typing import Dict, Tuple
 import torch
 
 from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.models import snapshot
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
+# the constants every kernel module and ops/solve.py share
 BIG = 1e30  # ops/solve.py's BIG, an f32 1e30 once it meets an f32 tensor
 INT32_MAX = 2**31 - 1
+UNLIMITED = int(snapshot.UNLIMITED)  # 1 << 30: no cap
 
 launches = 0  # kernel launches (CUDA path only)
 

@@ -1,18 +1,24 @@
 """The bin-packing solve, in torch.
 
-The port of ``karpenter_core_tpu/ops/solve.py`` for the cold solve (no warm
-carry, no real existing node): pods grouped into equivalence classes are
-scanned class by class; each class step runs the zone-spread committal block
-(with ``_water_fill``), the affinity / anti-affinity phases and the
-unconstrained phase, every one of them dense work over N node slots x I
-instance types, then records topology counts.
+The port of ``karpenter_core_tpu/ops/solve.py`` for the full solve (no warm
+carry): pods grouped into equivalence classes are scanned class by class;
+each class step tries the existing nodes first, then new node slots, through
+the zone-spread committal block (its quotas from the water-fill rounds), the
+affinity / anti-affinity phases and the unconstrained phase — dense work
+over E existing nodes and N node slots x I instance types — then records
+topology counts.  Without existing nodes the existing-node planes are one
+closed dummy row.
 
-Device work goes through four hand-written CUDA kernels (``kernels/``):
+Device work goes through seven hand-written CUDA kernels (``kernels/``):
 
-  K1 ``it_capacity``   viability + per-type capacity + row max
-  K2 ``fill``          priority fill (stable sort + exclusive scan)
-  K3 ``merge_compat``  requirement merge + compatibility
-  K4 ``pack_bool``     the decode fetch's bit-packing
+  K1 ``it_capacity``      viability + per-type capacity + row max
+  K2 ``fill``             priority fill (stable sort + exclusive scan)
+  K3 ``merge_compat``     requirement merge + compatibility
+  K4 ``pack_bool``        the decode fetch's bit-packing
+  K5 ``existing_intake``  each existing node's intake of one class
+  K6 ``existing_mask`` / ``existing_commit``  an existing-node fill's caps
+                          and priorities, and the state commit after it
+  K7 ``spread_quota``     the zone-spread quota rounds (water-fill)
 
 ``solve_core(..., use_kernels=False)`` runs their plain torch twins instead:
 the oracle a card run holds the kernels against.  On CPU tensors the
@@ -44,16 +50,16 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.kernels import capacity as k1
+from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import fill as k2
 from karpenter_core_tpu_torch.kernels import packbits as k4
 from karpenter_core_tpu_torch.kernels import reqmerge as k3
-from karpenter_core_tpu_torch.models.snapshot import UNLIMITED as _UNLIMITED
+from karpenter_core_tpu_torch.kernels import spread as k7
+from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED
+from karpenter_core_tpu_torch.kernels.existing import ExistingState
 from karpenter_core_tpu_torch.models.snapshot import EncodedSnapshot
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
-BIG = k1.BIG
-UNLIMITED = int(_UNLIMITED)
-I32_MAX = 2**31 - 1
 I32 = torch.int32
 F32 = torch.float32
 
@@ -114,23 +120,6 @@ class NodeState(NamedTuple):
     n_next: torch.Tensor  # i32[] next free slot
 
 
-class ExistingState(NamedTuple):
-    """Per-existing-node solver state (leading dim E)."""
-
-    used: torch.Tensor  # f32[E, R]
-    kmask: torch.Tensor  # int32[E, K, W] (bool[E, K, V+1] before packing)
-    kdef: torch.Tensor  # bool[E, K]
-    kneg: torch.Tensor  # bool[E, K]
-    kgt: torch.Tensor  # f32[E, K]
-    klt: torch.Tensor  # f32[E, K]
-    zone: torch.Tensor  # bool[E, Z]
-    ct: torch.Tensor  # bool[E, CT]
-    ports: torch.Tensor  # bool[E, P]
-    vol_used: torch.Tensor  # i32[E, D]
-    pod_count: torch.Tensor  # i32[E]
-    open_: torch.Tensor  # bool[E]
-
-
 class ExistingStatic(NamedTuple):
     """Constants for existing nodes."""
 
@@ -171,18 +160,25 @@ class SolveOutputs(NamedTuple):
 
 
 class Kernels(NamedTuple):
-    """The four device kernels the solve calls: the CUDA wrappers, or their
-    plain torch twins (``use_kernels=False``)."""
+    """The device kernels the solve calls: the CUDA wrappers, or their plain
+    torch twins (``use_kernels=False``)."""
 
     it_capacity: object
     fill: object
     merge_compat: object
     pack_bool: object
+    existing_intake: object
+    existing_mask: object
+    existing_commit: object
+    spread_quota: object
 
 
-KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool)
+KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool,
+                  k56.existing_intake, k56.existing_mask, k56.existing_commit,
+                  k7.spread_quota)
 PLAIN = Kernels(k1.it_capacity_plain, k2.fill_by_priority_plain,
-                k3.merge_compat_plain, k4.pack_bool_plain)
+                k3.merge_compat_plain, k4.pack_bool_plain, k56.existing_intake_plain,
+                k56.existing_mask_plain, k56.existing_commit_plain, k7.spread_quota_plain)
 
 
 class Statics(NamedTuple):
@@ -288,11 +284,10 @@ def _argmax_first(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8))
 
 
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` for a 0-dim index tensor, gathered on the device.  Plain
-    indexing with a 0-dim integer tensor reads the index on the host
-    (``.item()``), a hidden synchronisation per use."""
-    return x.index_select(0, idx.reshape(1))[0]
+# ``x[idx]`` for a 0-dim index tensor, gathered on the device.  Plain
+# indexing with a 0-dim integer tensor reads the index on the host
+# (``.item()``), a hidden synchronisation per use.
+_take = k7._take
 
 
 def _sync_positive(x: torch.Tensor) -> bool:
@@ -332,37 +327,6 @@ def _onehot_rows(n: int, n_zones: int, z: int, device) -> torch.Tensor:
     return out
 
 
-def _water_fill(count0: torch.Tensor, allowed: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """i32[Z] quotas: distribute m pods over allowed zones, always filling
-    the lowest-count zone first (topologygroup.go:155-182 telescoped).  Ties
-    among allowed zones keep index order: the sort is stable."""
-    z = count0.shape[0]
-    dev = count0.device
-    c = torch.where(allowed, count0.to(F32), BIG)
-    order = torch.argsort(c, stable=True)
-    s = c[order]
-    idx = torch.arange(z, dtype=F32, device=dev)
-    prefix = torch.cumsum(s, dim=0) - s
-    cost = idx * s - prefix
-    cost = torch.where(torch.isfinite(cost), cost, BIG)
-    mf = m.to(F32)
-    k_star = _isum(cost <= mf) - 1
-    k_star = torch.clamp(k_star, 0, z - 1).long()
-    base_level = _take(s, k_star)
-    spent = _take(cost, k_star)
-    rem = mf - spent
-    k_count = (k_star + 1).to(F32)
-    level = base_level + torch.floor(rem / k_count)
-    leftover = rem - torch.floor(rem / k_count) * k_count
-    ar = _ar(z, dev)
-    in_fill = ar <= k_star
-    extra = (ar < leftover).to(F32)
-    final_sorted = torch.where(in_fill, torch.maximum(s, level + extra), s)
-    final = torch.zeros_like(c).scatter(0, order, final_sorted)
-    quota = torch.where(allowed, final - c, 0.0)
-    return to_i32(torch.clamp(quota, min=0.0))
-
-
 def _fill_with_pref(k: Kernels, quota, cap, priority, pref):
     """Priority fill (K2); with ``pref`` (warm repair holes) the holes take
     the quota first, capped at their freed counts."""
@@ -370,9 +334,9 @@ def _fill_with_pref(k: Kernels, quota, cap, priority, pref):
         return k.fill(quota, cap, priority)
     idx = _ar(cap.shape[0], cap.device)
     hole_cap = torch.minimum(cap, pref)
-    a0 = k.fill(quota, hole_cap, torch.where(hole_cap > 0, idx, I32_MAX))
+    a0 = k.fill(quota, hole_cap, torch.where(hole_cap > 0, idx, INT32_MAX))
     cap_rest = cap - a0
-    a1 = k.fill(quota - _isum(a0), cap_rest, torch.where(cap_rest > 0, priority, I32_MAX))
+    a1 = k.fill(quota - _isum(a0), cap_rest, torch.where(cap_rest > 0, priority, INT32_MAX))
     return a0 + a1
 
 
@@ -390,86 +354,37 @@ def _and_opt(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
 def _prep_existing(ex, ex_static, cls, statics, host_cap_vec, tol_row, vol_add_row,
                    vol_per_pod_row, ft=ALL_FEATURES) -> ExClassPrep:
     """Intake of the class on each existing node (0 = ineligible), with the
-    merged requirement planes (existingnode.go:77-130 at class granularity)."""
+    merged requirement planes (existingnode.go:77-130 at class granularity):
+    the merge and key compatibility are K3, the intake K5."""
     node_t = mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt)
     merged, key_ok = _merge_compat(node_t, cls, statics)
-    zone_full = ex.zone & cls.zone[None, :]
-    ct_ok = ex.ct & cls.ct[None, :]
-
-    cap = None
-    for r in range(ex_static.alloc.shape[-1]):
-        free = ex_static.alloc[:, r] - ex.used[:, r]
-        per = torch.where(
-            cls.requests[r] > 0,
-            torch.floor((free + 1e-4) / torch.clamp(cls.requests[r], min=1e-9)),
-            BIG,
-        )
-        per = torch.clamp(per, min=0.0)
-        cap = per if cap is None else torch.minimum(cap, per)
-    cap = to_i32(torch.clamp(cap, max=BIG))
-
-    elig = ex.open_ & key_ok & tol_row & zone_full.any(dim=-1) & ct_ok.any(dim=-1)
-    if ft.host_ports:
-        has_ports = cls.ports.any()
-        port_conflict = (ex.ports & cls.ports[None, :]).any(dim=-1)
-        elig = elig & ~port_conflict
-        cap = torch.minimum(cap, _i32c(has_ports, 1, UNLIMITED))
-    if ft.volume_limits:
-        vol_free = ex_static.vol_limit - ex.vol_used - vol_add_row  # [E, D]
-        vol_ok = (vol_free >= vol_per_pod_row[None, :]).all(dim=-1)
-        cap_vol = torch.where(
-            vol_per_pod_row[None, :] > 0,
-            torch.div(vol_free, torch.clamp(vol_per_pod_row, min=1)[None, :], rounding_mode="floor"),
-            UNLIMITED,
-        ).amin(dim=-1).to(I32)
-        cap = torch.minimum(cap, torch.clamp(cap_vol, min=0))
-        elig = elig & vol_ok
-    cap = torch.where(elig, torch.minimum(cap, host_cap_vec), 0)
+    cap, zone_full, ct_ok = statics.k.existing_intake(
+        ex_static.alloc, ex.used, ex.open_, key_ok, tol_row, ex.zone, cls.zone, ex.ct, cls.ct,
+        ex.ports, cls.ports, ex_static.vol_limit, ex.vol_used, vol_add_row, vol_per_pod_row,
+        cls.requests, host_cap_vec, ft.host_ports, ft.volume_limits,
+    )
     return ExClassPrep(cap=cap, merged=merged, zone_full=zone_full, ct_ok=ct_ok,
                        vol_add=vol_add_row, vol_per_pod=vol_per_pod_row)
 
 
-def _commit_existing(ex, prep, cls, assigned, zone_new, ft):
-    """The existing-node state after ``assigned`` pods of the class land."""
-    sel = (assigned > 0)[:, None]
-    merged = prep.merged
-    return ExistingState(
-        used=ex.used + assigned[:, None].to(F32) * cls.requests[None, :],
-        kmask=torch.where(sel[..., None], merged.mask, ex.kmask),
-        kdef=torch.where(sel, merged.defined, ex.kdef),
-        kneg=torch.where(sel, merged.negative, ex.kneg),
-        kgt=torch.where(sel, merged.gt, ex.kgt),
-        klt=torch.where(sel, merged.lt, ex.klt),
-        zone=torch.where(sel, zone_new, ex.zone),
-        ct=torch.where(sel, prep.ct_ok, ex.ct),
-        ports=torch.where(sel, ex.ports | cls.ports[None, :], ex.ports)
-        if ft.host_ports else ex.ports,
-        vol_used=torch.where(
-            sel, ex.vol_used + prep.vol_add + assigned[:, None] * prep.vol_per_pod[None, :],
-            ex.vol_used,
-        ) if ft.volume_limits else ex.vol_used,
-        pod_count=ex.pod_count + assigned,
-        open_=ex.open_,
+def _commit_existing(k: Kernels, ex, prep, cls, assigned, zone_new, ft):
+    """The existing-node state after ``assigned`` pods of the class land (K6)."""
+    return k.existing_commit(
+        ex, prep.merged, zone_new, prep.ct_ok, cls.ports, prep.vol_add, prep.vol_per_pod,
+        cls.requests, assigned, ft.host_ports, ft.volume_limits,
     )
 
 
 def _phase_existing(ex, prep, cls, quota, zone_restrict, k: Kernels, extra_elig=None,
                     single_node=False, ft=ALL_FEATURES, pref=None):
     """Place up to ``quota`` pods of the class onto existing nodes in index
-    order (scheduler.go:176-180).  Zone eligibility reads the LIVE zone mask."""
-    n_ex = ex.used.shape[0]
-    dev = ex.used.device
-    zone_ok = ex.zone & cls.zone[None, :] & zone_restrict[None, :]
-    cap = torch.where(zone_ok.any(dim=-1), prep.cap, 0)
-    if extra_elig is not None:
-        cap = torch.where(extra_elig, cap, 0)
-    if single_node:
-        first = _argmax_first(cap > 0)
-        cap = torch.where(_ar(n_ex, dev) == first, cap, 0)
-    priority = torch.where(cap > 0, _ar(n_ex, dev), I32_MAX)
+    order (scheduler.go:176-180): K6's caps, K2's fill, K6's commit.  Zone
+    eligibility reads the LIVE zone mask."""
+    cap, priority, zone_ok = k.existing_mask(prep.cap, ex.zone, cls.zone, zone_restrict,
+                                             extra_elig, single_node)
     assigned = _fill_with_pref(k, quota, cap, priority, pref)
     placed = _isum(assigned)
-    return _commit_existing(ex, prep, cls, assigned, zone_ok, ft), assigned, placed
+    return _commit_existing(k, ex, prep, cls, assigned, zone_ok, ft), assigned, placed
 
 
 def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_cap_vec,
@@ -509,7 +424,7 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     # as the reference packs it — the product wraps the same way if it ever
     # overflowed
     priority = state.pod_count * n_slots + _ar(n_slots, dev)
-    priority = torch.where(cap_n > 0, priority, I32_MAX)
+    priority = torch.where(cap_n > 0, priority, INT32_MAX)
     assigned = _fill_with_pref(k, quota, cap_n, priority, pref)
     placed_existing = _isum(assigned)
 
@@ -807,8 +722,6 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             cap_z = torch.where(elig & zone_has_new[:, z], torch.minimum(cap_z, host_cap_new), 0)
             cap_open_z.append(cap_z)
         priority = state_i.pod_count * n_new_slots + _ar(n_new_slots, dev)
-        ex_cap = ex_prep.cap if ok_ex is None else torch.where(ok_ex, ex_prep.cap, 0)
-        zone_has_ex = ex_i.zone & cls.zone[None, :]  # [E, Z]
         tmpl_merged, tmpl_key_ok = _merge_compat(statics.tmpl, cls, statics)
         t_ct = statics.tmpl_ct & cls.ct[None, :]
         t_ct_any = t_ct.any(dim=-1)
@@ -816,6 +729,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         n_tmpl = statics.tmpl_zone.shape[0]
 
         taken_ex = torch.zeros(n_ex, dtype=torch.bool, device=dev)
+        zone_onehot = torch.eye(n_zones, dtype=torch.bool, device=dev)
         a_ex_acc = zeros_ex
         zex = zeros_ex
         taken_new = torch.zeros(n_new_slots, dtype=torch.bool, device=dev)
@@ -831,9 +745,12 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         for z in range(n_zones):
             quota = quota_z[z].to(I32)
             q = torch.clamp(torch.minimum(quota, cap_total - placed), min=0)
-            # existing nodes first, in index order (scheduler.go:176-180)
-            cap_e = torch.where(~taken_ex & zone_has_ex[:, z], ex_cap, 0)
-            pri_e = torch.where(cap_e > 0, _ar(n_ex, dev), I32_MAX)
+            # existing nodes first, in index order (scheduler.go:176-180);
+            # rows that took pods in an earlier zone are out
+            cap_e, pri_e, _ = k.existing_mask(
+                ex_prep.cap, ex_i.zone, cls.zone, zone_onehot[z],
+                ~taken_ex if ok_ex is None else ~taken_ex & ok_ex, False,
+            )
             a_ex = _fill_with_pref(k, q, cap_e, pri_e, pref_ex)
             placed_ex = _isum(a_ex)
             took_e = a_ex > 0
@@ -843,7 +760,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             # then open slots, emptiest first
             q2 = q - placed_ex
             cap_n = torch.where(~taken_new, cap_open_z[z], 0)
-            pri_n = torch.where(cap_n > 0, priority, I32_MAX)
+            pri_n = torch.where(cap_n > 0, priority, INT32_MAX)
             a_op = _fill_with_pref(k, q2, cap_n, pri_n, pref_new)
             placed_op = _isum(a_op)
             took_n = a_op > 0
@@ -899,7 +816,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         # -- one-shot commit (each node took pods in at most one zone) --------
         zar = torch.arange(n_zones, device=dev)
         zhot_e = (zar[None, :] == zex[:, None]) & (a_ex_acc > 0)[:, None]
-        ex_o = _commit_existing(ex_i, ex_prep, cls, a_ex_acc, zhot_e, ft)
+        ex_o = _commit_existing(k, ex_i, ex_prep, cls, a_ex_acc, zhot_e, ft)
         took_o = a_open_acc > 0
         is_fresh = fresh_t >= 0
         tmpl_idx = torch.clamp(fresh_t, min=0).long()
@@ -969,35 +886,12 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         counts_zs = _take(zone_fwd, g_zs)  # [Z]
         member_zs = _take(member_row, g_zs)
         cap_pods_z = torch.where(tmpl_offers, UNLIMITED, torch.clamp(ex_cap_z, max=UNLIMITED)).to(I32)
-        unreachable = allowed_zone & ~fillable
         skew_zs = _take(statics.grp_skew, g_zs)
-        bigi = 1 << 30
-        finite_cap = cap_pods_z < UNLIMITED
-        quotas = torch.zeros(n_zones, dtype=I32, device=dev)
-        sat = torch.zeros(n_zones, dtype=torch.bool, device=dev)
-        m_rem = m
-        for _ in range(n_zones + 1):
-            counts_now = counts_zs + quotas
-            min_frozen = torch.where(unreachable | sat, counts_now, bigi).amin()
-            skew_cap = torch.clamp(min_frozen + skew_zs - counts_now, 0, UNLIMITED)
-            active = allowed_zone & fillable & ~sat
-            cap_rem = torch.clamp(cap_pods_z - quotas, 0, UNLIMITED)
-            lvl_sat = torch.where(active & finite_cap, counts_now + cap_rem, bigi).amin()
-            q = _water_fill(counts_now, active, m_rem)
-            q = torch.minimum(q, torch.clamp(lvl_sat - counts_now, 0, UNLIMITED))
-            q = torch.minimum(q, torch.minimum(skew_cap, cap_rem))
-            q = torch.where(active, q, 0)
-            quotas = quotas + q
-            m_rem = m_rem - _isum(q)
-            sat = sat | (active & finite_cap & (quotas >= cap_pods_z))
-        quotas = torch.where(member_zs, quotas, 0)
-        counts_end = counts_zs + quotas
-        min_frozen_end = torch.where(unreachable | sat, counts_end, bigi).amin()
-        skew_headroom = (counts_end - min_frozen_end) < skew_zs
-        cap_headroom = (cap_pods_z - quotas) > 0
-        fill_residual = (m_rem > 0) & (
-            allowed_zone & fillable & ~sat & skew_headroom & cap_headroom
-        ).any()
+        # K7: the capped water-fill rounds, the member gate and the
+        # under-placement flag (the reference's :1440-1475)
+        quotas, _, _, fill_residual = k.spread_quota(
+            counts_zs, allowed_zone, fillable, cap_pods_z, skew_zs, m, member_zs,
+        )
         quotas_gated = torch.where(has_zs, quotas, 0)
         results_zs = committal_block(quotas_gated, torch.full((), UNLIMITED, dtype=I32, device=dev))
         placed_zs = results_zs[4]
@@ -1277,6 +1171,16 @@ def snapshot_features(snapshot) -> SnapshotFeatures:
     return SnapshotFeatures(*f).canonical()
 
 
+def features_with_existing(snapshot, ex_static) -> SnapshotFeatures:
+    """snapshot_features refined by the existing-node planes: the
+    volume-limit family only binds when some node carries a finite CSI
+    attach limit, which the encode cannot see."""
+    f = snapshot_features(snapshot)
+    if ex_static is not None and bool(np.any(np.asarray(ex_static.vol_limit) < UNLIMITED)):
+        f = f._replace(volume_limits=True)
+    return f
+
+
 class HostReq(NamedTuple):
     """A numpy ReqTensor (the encode's bool mask layout)."""
 
@@ -1396,11 +1300,13 @@ def _pad_req(t, k_new: int, v_new: int) -> HostReq:
     )
 
 
-def pad_planes(cls, statics_arrays, key_has_bounds):
-    """Bucket-pad host kernel inputs (prepare_host output) so nearby problem
+def pad_planes(cls, statics_arrays, key_has_bounds, ex_state=None, ex_static=None):
+    """Bucket-pad host kernel inputs (prepare_host output, and the numpy
+    existing-node planes of ``CudaSolver.encode_existing``) so nearby problem
     sizes share shapes: padded classes have count 0, padded keys are
     undefined everywhere, padded value slots are False, padded groups clone
-    the dummy "none" row.  Returns (cls, statics_arrays, key_has_bounds)."""
+    the dummy "none" row, padded existing nodes are closed.  Returns (cls,
+    statics_arrays, key_has_bounds, ex_state, ex_static)."""
     sa = StaticArrays(*statics_arrays)
     c_old = cls.count.shape[0]
     k_old = sa.valid.shape[0]
@@ -1450,4 +1356,58 @@ def pad_planes(cls, statics_arrays, key_has_bounds):
         ),
     )
     key_has_bounds = tuple(key_has_bounds) + (False,) * (k_new - k_old)
-    return cls, statics_arrays, key_has_bounds
+
+    if ex_state is not None:
+        e_old = ex_state.pod_count.shape[0]
+        d_old = ex_state.vol_used.shape[-1]
+        # floor 8: node churn below eight existing nodes must not change the
+        # plane shape (the bucket grid's 4->6->8 steps are too fine there)
+        e_new = bucket(e_old, floor=8)
+        d_new = bucket(d_old, floor=2)
+        ex_req = _pad_req(
+            HostReq(ex_state.kmask, ex_state.kdef, ex_state.kneg, ex_state.kgt, ex_state.klt),
+            k_new, v_new,
+        )
+        ex_state = ExistingState(
+            used=_pad_axis(np.asarray(ex_state.used), 0, e_new, 0),
+            kmask=_pad_axis(ex_req.mask, 0, e_new, True),
+            kdef=_pad_axis(ex_req.defined, 0, e_new, False),
+            kneg=_pad_axis(ex_req.negative, 0, e_new, False),
+            kgt=_pad_axis(ex_req.gt, 0, e_new, -np.inf),
+            klt=_pad_axis(ex_req.lt, 0, e_new, np.inf),
+            zone=_pad_axis(np.asarray(ex_state.zone), 0, e_new, True),
+            ct=_pad_axis(np.asarray(ex_state.ct), 0, e_new, True),
+            ports=_pad_axis(_pad_axis(np.asarray(ex_state.ports), -1, p_new, False), 0, e_new,
+                            False),
+            vol_used=_pad_axis(_pad_axis(np.asarray(ex_state.vol_used), -1, d_new, 0), 0, e_new, 0),
+            pod_count=_pad_axis(np.asarray(ex_state.pod_count), 0, e_new, 0),
+            open_=_pad_axis(np.asarray(ex_state.open_), 0, e_new, False),
+        )
+        ex_static = ExistingStatic(
+            alloc=_pad_axis(np.asarray(ex_static.alloc), 0, e_new, 0),
+            init=_pad_axis(np.asarray(ex_static.init), 0, e_new, False),
+            tol=_pad_axis(_pad_axis(np.asarray(ex_static.tol), -1, e_new, False), 0, c_new, False),
+            grp_node_member=_pad_axis(
+                _pad_axis(np.asarray(ex_static.grp_node_member), -1, e_new, 0), 0, g1_new, 0
+            ),
+            grp_node_owner=_pad_axis(
+                _pad_axis(np.asarray(ex_static.grp_node_owner), -1, e_new, 0), 0, g1_new, 0
+            ),
+            node_capacity=_pad_axis(np.asarray(ex_static.node_capacity), 0, e_new, 0),
+            node_tmpl=_pad_axis(np.asarray(ex_static.node_tmpl), 0, e_new, 0),
+            node_owned=_pad_axis(np.asarray(ex_static.node_owned), 0, e_new, False),
+            vol_limit=_pad_axis(
+                _pad_axis(np.asarray(ex_static.vol_limit), -1, d_new, UNLIMITED), 0, e_new,
+                UNLIMITED,
+            ),
+            cls_vol_add=_pad_axis(
+                _pad_axis(
+                    _pad_axis(np.asarray(ex_static.cls_vol_add), -1, d_new, 0), -2, e_new, 0
+                ),
+                0, c_new, 0,
+            ),
+            cls_vol_per_pod=_pad_axis(
+                _pad_axis(np.asarray(ex_static.cls_vol_per_pod), -1, d_new, 0), 0, c_new, 0
+            ),
+        )
+    return cls, statics_arrays, key_has_bounds, ex_state, ex_static

@@ -1,13 +1,19 @@
 """CUDA solver facade: encode → prepare → solve_core → decode.
 
-The port of ``karpenter_core_tpu/solver/tpu.py`` ``TPUSolver`` for the cold
+The port of ``karpenter_core_tpu/solver/tpu.py`` ``TPUSolver`` for the full
 provisioning solve: pending pods against the provisioners' instance-type
-catalogs, no existing node (the existing-node planes are the one closed
-dummy slot).  The encode half is the reference's, copied; the device half
-runs ``ops.solve.solve_core`` on the card through the hand-written kernels.
+catalogs and, when given, the nodes that already exist with the pods bound
+to them (without them the existing-node planes are one closed dummy row).
+The encode half is the reference's, copied; the device half runs
+``ops.solve.solve_core`` on the card through the hand-written kernels.
 
     solver = CudaSolver(provider, provisioners)          # device=None: CUDA
     results = solver.solve(ingest)                        # PodIngest or pods
+    results = solver.solve(ingest, state_nodes, bound_pods)   # a live cluster
+
+``state_nodes`` are ``state.cluster.StateNode``s; ``bound_pods`` the pods
+already bound to them (their topology groups, anti-affinity terms and host
+ports count against the pending pods).
 """
 
 from __future__ import annotations
@@ -25,12 +31,17 @@ from karpenter_core_tpu_torch.apis.objects import Pod
 from karpenter_core_tpu_torch.apis.v1alpha5 import Provisioner, order_by_weight
 from karpenter_core_tpu_torch.cloudprovider import CloudProvider, InstanceType
 from karpenter_core_tpu_torch.models.snapshot import (
+    GRP_ANTI,
+    UNLIMITED,
     EncodedSnapshot,
     KernelUnsupported,
+    _group_spec,
     encode_snapshot,
+    pod_port_keys,
+    term_namespaces,
 )
 from karpenter_core_tpu_torch.ops import solve as solve_ops
-from karpenter_core_tpu_torch.scheduling import Requirement, Requirements
+from karpenter_core_tpu_torch.scheduling import Requirement, Requirements, Taints, VolumeUsage
 from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
 from karpenter_core_tpu_torch.solver.scheduler import _daemon_overhead
 from karpenter_core_tpu_torch.utils import resources as resources_util
@@ -128,6 +139,8 @@ class SolvePrep(NamedTuple):
     cls: solve_ops.ClassTensors
     statics_arrays: solve_ops.StaticArrays
     key_has_bounds: tuple
+    ex_state: Optional[solve_ops.ExistingState]  # None: no existing node
+    ex_static: Optional[solve_ops.ExistingStatic]
     n_slots: int
     n_passes: int
     features: solve_ops.SnapshotFeatures
@@ -136,11 +149,17 @@ class SolvePrep(NamedTuple):
 @dataclass
 class CudaSolveResults:
     new_nodes: List[CudaNodeDecision] = field(default_factory=list)
+    # existing-node placements: node name -> pods nominated onto it
+    existing_assignments: Dict[str, List[Pod]] = field(default_factory=dict)
     failed_pods: List[Pod] = field(default_factory=list)
     # pods of classes the solve flagged spread_suspect: the zone-spread
     # water-fill could not prove host-oracle parity, so the host might still
     # place them — callers route them to the host path or treat them as failed
     spread_residual_pods: List[Pod] = field(default_factory=list)
+    # zone the solve committed each assignment-carrying existing node to
+    # (singleton post-solve zone masks only): a zone-less node that took
+    # zone-restricted pods is pinned there
+    existing_committed_zones: Dict[str, str] = field(default_factory=dict)
     n_slots_used: int = 0
 
 
@@ -164,14 +183,15 @@ class LaunchableNode:
 
 class _Fetch:
     """The decode fetch of one solve: the small planes copied to the host at
-    once — (assign, failed, spread_suspect, pod_count, tmpl_id, open_,
-    n_next) — and the big ones lazily (``planes``)."""
+    once — (assign, assign_existing, failed, spread_suspect, ex_state.zone,
+    pod_count, tmpl_id, open_, n_next) — and the big ones lazily
+    (``planes``)."""
 
     def __init__(self, outputs: solve_ops.SolveOutputs, pack_bool) -> None:
         state = outputs.state
         self.small = tuple(t.cpu().numpy() for t in (
-            outputs.assign, outputs.failed, outputs.spread_suspect,
-            state.pod_count, state.tmpl_id, state.open_, state.n_next,
+            outputs.assign, outputs.assign_existing, outputs.failed, outputs.spread_suspect,
+            outputs.ex_state.zone, state.pod_count, state.tmpl_id, state.open_, state.n_next,
         ))
         self.planes = _LazyPlanes(state, pack_bool)
 
@@ -183,18 +203,23 @@ class CudaSolver:
     oracle a card run holds the kernels against."""
 
     # positions in _Fetch.small read by the slot-exhaustion check
-    FETCH_FAILED = 1
-    FETCH_N_NEXT = 6
+    FETCH_FAILED = 2
+    FETCH_N_NEXT = 8
 
     def __init__(
         self,
         cloud_provider: CloudProvider,
         provisioners: List[Provisioner],
         daemonset_pods: Optional[List[Pod]] = None,
+        kube_client=None,
         device=None,
         use_kernels: bool = True,
     ) -> None:
         self.device = device_mod.resolve(device)
+        # resolves PVC -> CSI driver for the volume attach-limit planes
+        # (volumeusage.go:65-90); duck-typed (scheduling.volumeusage).  None
+        # treats every volume as unconstrained, as the host path does
+        self.kube_client = kube_client
         self.use_kernels = use_kernels
         self.cloud_provider = cloud_provider
         self.provisioners = order_by_weight(
@@ -210,14 +235,15 @@ class CudaSolver:
         self._it_by_name = {
             it.name: it for its in self.instance_types.values() for it in its
         }
-        # wall seconds of the last solve() by stage (encode / solve / decode),
-        # and the last solve's raw device outputs
+        # wall seconds of the last solve() by stage (encode, encode_existing,
+        # solve, decode), and the last solve's raw device outputs
         self.stages: Dict[str, float] = {}
         self.last_outputs: Optional[solve_ops.SolveOutputs] = None
 
     # -- encode (host, numpy) -------------------------------------------------
 
-    def encode(self, pods) -> EncodedSnapshot:
+    def encode(self, pods, state_nodes: Optional[list] = None,
+               bound_pods: Optional[List[Pod]] = None) -> EncodedSnapshot:
         """Raises models.snapshot.KernelUnsupported when the batch needs the
         host path.  ``pods`` is a pod list or a models.columnar.PodIngest
         (whose classification already ran at add time)."""
@@ -226,47 +252,372 @@ class CudaSolver:
         classes = None
         if isinstance(pods, PodIngest):
             classes = pods.classes()
+            # class representatives cover every distinct label set, which is
+            # all the anti-affinity relevance check below needs
             pods = [cls.pods[0] for cls in classes]
-        return self._encode_with_classes(pods, classes)
+        return self._encode_with_classes(pods, classes, state_nodes, bound_pods)
 
-    def encode_classes(self, classes: list) -> EncodedSnapshot:
+    def encode_classes(self, classes: list, state_nodes: Optional[list] = None,
+                       bound_pods: Optional[List[Pod]] = None) -> EncodedSnapshot:
         """Encode from prebuilt PodClass objects (ordered and validated in
         place by models.snapshot.finalize_classes)."""
         from karpenter_core_tpu_torch.models.snapshot import finalize_classes
 
         classes = finalize_classes(list(classes))
-        return self._encode_with_classes([cls.pods[0] for cls in classes], classes)
+        return self._encode_with_classes([cls.pods[0] for cls in classes], classes,
+                                         state_nodes, bound_pods)
 
-    def _encode_with_classes(self, pods: List[Pod], classes: Optional[list]) -> EncodedSnapshot:
+    def _encode_with_classes(self, pods: List[Pod], classes: Optional[list],
+                             state_nodes: Optional[list],
+                             bound_pods: Optional[List[Pod]]) -> EncodedSnapshot:
+        """The reference's ``_encode_with_classes_impl``: the existing nodes'
+        label sets widen the vocabulary, the bound pods' required
+        anti-affinity terms become groups and their host ports join the
+        port universe.  (No mesh catalog padding, no policy planes.)"""
+        extra = [Requirements.from_labels(n.node.metadata.labels) for n in (state_nodes or [])]
+        extra_anti = []
+        for pod in bound_pods or []:
+            affinity = pod.spec.affinity
+            if affinity is None or affinity.pod_anti_affinity is None:
+                continue
+            for term in affinity.pod_anti_affinity.required:
+                try:
+                    spec = _group_spec(
+                        GRP_ANTI, term.topology_key, term.label_selector, UNLIMITED,
+                        term_namespaces(pod, term),
+                    )
+                except KernelUnsupported:
+                    # an unrepresentable anti key/scope only matters if it can
+                    # gate a scheduling pod: selector match within the term's
+                    # static scope (or any pod when the scope is dynamic)
+                    if term.namespace_selector is not None:
+                        scoped = list(pods)
+                    else:
+                        scope_ns = term_namespaces(pod, term)
+                        scoped = [p for p in pods if (p.namespace or "") in scope_ns]
+                    if term.label_selector is not None and any(
+                        term.label_selector.matches(p.metadata.labels) for p in scoped
+                    ):
+                        raise
+                    continue
+                extra_anti.append((spec, term.label_selector))
+        extra_ports = [key for pod in bound_pods or [] for key in pod_port_keys(pod)]
         snapshot = encode_snapshot(
             pods, self.provisioners, self.templates, self.instance_types,
-            cache_host=self, classes=classes,
+            extra_requirement_sets=extra,
+            extra_anti_groups=extra_anti,
+            cache_host=self,
+            extra_host_ports=extra_ports,
+            classes=classes,
         )
-        # no state node carries CSI attach limits in a cold solve, so every
-        # class's volume profile is empty (the reference's resolution with
-        # no limited driver)
-        snapshot.class_volumes = [{"shared": {}, "per_pod": {}} for _ in snapshot.classes]
+        snapshot.class_volumes = self._resolve_class_volumes(snapshot.classes, state_nodes)
         return snapshot
+
+    def _resolve_class_volumes(self, classes, state_nodes) -> list:
+        """Per-class volume profile for the attach-limit planes
+        (volumeusage.go:65-90 resolution).  Each entry:
+
+          {"shared": {driver: {pvc ids}}, "per_pod": {driver: count}}
+
+        Only drivers with a finite limit on some state node can ever bind
+        (new nodes have no CSINode), so claims on unlimited drivers are
+        dropped up front.  For the rest a class must be either SHARED (every
+        member mounts the same claim set: the per-node contribution is
+        count-independent) or PERPOD (members mount pairwise-disjoint sets
+        with equal per-driver counts, nothing overlapping other classes or
+        already-mounted sets: the contribution is count-dependent).
+        Anything else, and any unresolvable reference, raises
+        KernelUnsupported: the host path takes the batch."""
+        empty = [{"shared": {}, "per_pod": {}} for _ in classes]
+        if self.kube_client is None:
+            return empty
+        limited = {
+            driver
+            for state_node in state_nodes or []
+            for driver in state_node.volume_limits()
+        }
+        has_claims = any(
+            v.persistent_volume_claim is not None
+            for cls in classes
+            for v in cls.pods[0].spec.volumes
+        )
+        if not limited or not has_claims:
+            return empty
+
+        mounted_ids = {
+            pvc_id
+            for state_node in state_nodes or []
+            for driver, ids in state_node.volume_usage().volumes.items()
+            if driver in limited
+            for pvc_id in ids
+        }
+        usage = VolumeUsage(self.kube_client)
+        resolve_cache: Dict[tuple, dict] = {}  # claim names -> limited-driver sets
+
+        def resolve(pod) -> dict:
+            key = (
+                pod.namespace or "",
+                tuple(sorted(
+                    v.persistent_volume_claim.claim_name
+                    for v in pod.spec.volumes
+                    if v.persistent_volume_claim is not None
+                )),
+            )
+            hit = resolve_cache.get(key)
+            if hit is None:
+                volumes, err = usage._validate(pod)
+                if err is not None:
+                    raise KernelUnsupported(f"volume resolution: {err}")
+                hit = {d: ids for d, ids in volumes.items() if d in limited}
+                resolve_cache[key] = hit
+            return hit
+
+        class_volumes = []
+        seen: Dict[str, int] = {}  # pvc id -> class index
+        for c, cls in enumerate(classes):
+            if cls.is_ladder_variant:
+                # ladder variants schedule the ROOT's pods, so they carry the
+                # root's volume profile (backfilled below)
+                class_volumes.append(None)
+                continue
+            member_sets = [resolve(pod) for pod in cls.pods]
+            first = member_sets[0]
+            for ids in first.values():
+                for pvc_id in ids:
+                    if seen.setdefault(pvc_id, c) != c:
+                        raise KernelUnsupported(
+                            f"pvc {pvc_id} shared across pod classes not kernel-supported"
+                        )
+            if all(m == first for m in member_sets):
+                class_volumes.append({"shared": first, "per_pod": {}})
+                continue
+            counts = {d: len(ids) for d, ids in first.items()}
+            all_ids: set = set()
+            for m in member_sets:
+                if {d: len(ids) for d, ids in m.items()} != counts:
+                    raise KernelUnsupported(
+                        "mixed volume shapes within a pod class not kernel-supported"
+                    )
+                for ids in m.values():
+                    for pvc_id in ids:
+                        if pvc_id in all_ids or pvc_id in mounted_ids:
+                            raise KernelUnsupported(
+                                f"pvc {pvc_id} shared across pods not kernel-supported"
+                            )
+                        if seen.setdefault(pvc_id, c) != c:
+                            raise KernelUnsupported(
+                                f"pvc {pvc_id} shared across pod classes not kernel-supported"
+                            )
+                        all_ids.add(pvc_id)
+            class_volumes.append({"shared": {}, "per_pod": counts})
+        # backfill variants with their root's profile (chain order: the root
+        # always precedes its variants in the finalized class list)
+        index_of = {id(cls): c for c, cls in enumerate(classes)}
+        for c, cls in enumerate(classes):
+            if cls.relax_to is not None:
+                class_volumes[index_of[id(cls.relax_to)]] = class_volumes[c]
+        return class_volumes
+
+    def encode_existing(self, snapshot: EncodedSnapshot, state_nodes: list,
+                        bound_pods: Optional[List[Pod]] = None):
+        """(ExistingState, ExistingStatic) numpy planes of the existing
+        nodes; the per-group member/owner node counts seed the solve's
+        topology counts.
+
+        Mirrors ExistingNode construction (existingnode.go:43-75): available
+        capacity, remaining daemonset overhead, label requirements, taints
+        without the ephemeral ones; and topology countDomains
+        (topology.go:231-276) for the bound pods."""
+        vocab = snapshot.vocab
+        E = max(len(state_nodes), 1)
+        C = len(snapshot.classes)
+        R = len(snapshot.resources)
+        Z = len(snapshot.zones)
+        CT = len(snapshot.capacity_types)
+        K, W = vocab.n_keys, vocab.width
+
+        G1 = len(snapshot.groups) + 1
+        used = np.zeros((E, R), dtype=np.float32)
+        alloc = np.zeros((E, R), dtype=np.float32)
+        kmask = np.ones((E, K, W), dtype=bool)
+        kdef = np.zeros((E, K), dtype=bool)
+        kneg = np.zeros((E, K), dtype=bool)
+        kgt = np.full((E, K), -np.inf, dtype=np.float32)
+        klt = np.full((E, K), np.inf, dtype=np.float32)
+        zone = np.zeros((E, Z), dtype=bool)
+        ct = np.zeros((E, CT), dtype=bool)
+        pod_count = np.zeros(E, dtype=np.int32)
+        open_ = np.zeros(E, dtype=bool)
+        init = np.zeros(E, dtype=bool)
+        tol = np.zeros((C, E), dtype=bool)
+        P = len(snapshot.ports)
+        ports = np.zeros((E, P), dtype=bool)
+        grp_node_member = np.zeros((G1, E), dtype=np.int32)
+        grp_node_owner = np.zeros((G1, E), dtype=np.int32)
+        node_capacity = np.zeros((E, R), dtype=np.float32)
+        node_tmpl = np.zeros(E, dtype=np.int32)
+        node_owned = np.zeros(E, dtype=bool)
+        port_idx = {key: i for i, key in enumerate(snapshot.ports)}
+        tmpl_index = {t.provisioner_name: i for i, t in enumerate(self.templates)}
+        tmpl_by_name = {t.provisioner_name: t for t in self.templates}
+        zone_idx = {z: i for i, z in enumerate(snapshot.zones)}
+        ct_idx = {c: i for i, c in enumerate(snapshot.capacity_types)}
+
+        for e, state_node in enumerate(state_nodes):
+            node = state_node.node
+            available = state_node.available()
+            for r, name in enumerate(snapshot.resources):
+                alloc[e, r] = available.get(name, 0.0)
+            template = tmpl_by_name.get(
+                node.metadata.labels.get(labels_api.PROVISIONER_NAME_LABEL_KEY, "")
+            )
+            if template is not None and template.requests:
+                remaining = resources_util.subtract(
+                    template.requests, state_node.daemon_set_requests()
+                )
+                for r, name in enumerate(snapshot.resources):
+                    used[e, r] = max(remaining.get(name, 0.0), 0.0)
+            reqs = Requirements.from_labels(node.metadata.labels)
+            kmask[e], kdef[e], kneg[e], kgt[e], klt[e] = vocab.encode_requirements(reqs)
+            z = node.metadata.labels.get(labels_api.LABEL_TOPOLOGY_ZONE)
+            if z is None:
+                zone[e, :] = True  # unknown zone: any
+            elif z in zone_idx:
+                zone[e, zone_idx[z]] = True
+            c_label = node.metadata.labels.get(labels_api.LABEL_CAPACITY_TYPE)
+            if c_label is None:
+                ct[e, :] = True
+            elif c_label in ct_idx:
+                ct[e, ct_idx[c_label]] = True
+            open_[e] = True
+            init[e] = state_node.initialized()
+            capacity = state_node.capacity()
+            for r, name in enumerate(snapshot.resources):
+                node_capacity[e, r] = capacity.get(name, 0.0)
+            t_idx = tmpl_index.get(
+                node.metadata.labels.get(labels_api.PROVISIONER_NAME_LABEL_KEY, "")
+            )
+            if t_idx is not None:
+                node_tmpl[e] = t_idx
+                node_owned[e] = True
+            taints = Taints.of(state_node.taints())
+            for c, cls in enumerate(snapshot.classes):
+                tol[c, e] = taints.tolerates(cls.pods[0]) is None
+
+        # pre-existing pod counts per topology group (countDomains semantics,
+        # topology.go:231-276): members (forward) and anti-term owners
+        # (inverse); pods being scheduled this solve are excluded
+        node_index = {n.node.name: e for e, n in enumerate(state_nodes)}
+        group_of = {spec: g for g, spec in enumerate(snapshot.groups)}
+        scheduling_uids = {p.uid for cls in snapshot.classes for p in cls.pods}
+        for pod in bound_pods or []:
+            e = node_index.get(pod.spec.node_name)
+            if e is None or pod.uid in scheduling_uids:
+                continue
+            for key in pod_port_keys(pod):
+                i = port_idx.get(key)
+                if i is not None:
+                    ports[e, i] = True
+            for g, scope in enumerate(snapshot.group_selectors):
+                if scope is not None and scope.matches_pod(pod):
+                    grp_node_member[g, e] += 1
+            affinity = pod.spec.affinity
+            if affinity is not None and affinity.pod_anti_affinity is not None:
+                for term in affinity.pod_anti_affinity.required:
+                    try:
+                        spec = _group_spec(
+                            GRP_ANTI, term.topology_key, term.label_selector,
+                            UNLIMITED, term_namespaces(pod, term),
+                        )
+                    except Exception:  # noqa: BLE001 - unsupported keys don't track
+                        continue
+                    g = group_of.get(spec)
+                    if g is not None:
+                        grp_node_owner[g, e] += 1
+
+        # volume attach-limit planes (volumeusage.go:33-236 as per-driver
+        # counters; existingnode.go:77-130 enforcement).  Only existing nodes
+        # carry limits (CSINode); the axis covers drivers mounted by a
+        # scheduling class plus drivers already over their limit (which
+        # block every add, volume-less pods included)
+        class_volumes = snapshot.class_volumes or [
+            {"shared": {}, "per_pod": {}} for _ in snapshot.classes
+        ]
+        drivers = sorted(
+            {d for vols in class_volumes for d in vols["shared"]}
+            | {d for vols in class_volumes for d in vols["per_pod"]}
+        )
+        for state_node in state_nodes:
+            limits = state_node.volume_limits()
+            mounted = state_node.volume_usage().volumes
+            for d, lim in limits.items():
+                if d not in drivers and len(mounted.get(d, ())) > lim:
+                    drivers.append(d)
+        D = max(len(drivers), 1)
+        vol_used = np.zeros((E, D), dtype=np.int32)
+        vol_limit = np.full((E, D), UNLIMITED, dtype=np.int32)
+        cls_vol_add = np.zeros((C, E, D), dtype=np.int32)
+        cls_vol_per_pod = np.zeros((C, D), dtype=np.int32)
+        for i, d in enumerate(drivers):
+            for c, vols in enumerate(class_volumes):
+                cls_vol_per_pod[c, i] = vols["per_pod"].get(d, 0)
+        for e, state_node in enumerate(state_nodes):
+            mounted = state_node.volume_usage().volumes
+            limits = state_node.volume_limits()
+            for i, d in enumerate(drivers):
+                have = mounted.get(d, set())
+                vol_used[e, i] = len(have)
+                if d in limits:
+                    vol_limit[e, i] = limits[d]
+                for c, vols in enumerate(class_volumes):
+                    new = vols["shared"].get(d)
+                    if new:
+                        cls_vol_add[c, e, i] = len(new - have)
+
+        ex_state = solve_ops.ExistingState(
+            used=used, kmask=kmask, kdef=kdef, kneg=kneg, kgt=kgt, klt=klt, zone=zone, ct=ct,
+            ports=ports, vol_used=vol_used, pod_count=pod_count, open_=open_,
+        )
+        ex_static = solve_ops.ExistingStatic(
+            alloc=alloc, init=init, tol=tol, grp_node_member=grp_node_member,
+            grp_node_owner=grp_node_owner, node_capacity=node_capacity, node_tmpl=node_tmpl,
+            node_owned=node_owned, vol_limit=vol_limit, cls_vol_add=cls_vol_add,
+            cls_vol_per_pod=cls_vol_per_pod,
+        )
+        return ex_state, ex_static
 
     # -- device half ----------------------------------------------------------
 
-    def prepare_encoded(self, snapshot: EncodedSnapshot, n_slots: int = 0) -> SolvePrep:
-        """Kernel inputs for one encoded snapshot, bucket-padded and on the
-        solver's device."""
+    def prepare_encoded(self, snapshot: EncodedSnapshot, state_nodes: Optional[list] = None,
+                        bound_pods: Optional[List[Pod]] = None, n_slots: int = 0) -> SolvePrep:
+        """Kernel inputs for one encoded snapshot, the existing-node planes
+        included, bucket-padded and on the solver's device.  The wall time of
+        ``encode_existing`` lands in ``stages["encode_existing_s"]``."""
+        ex_state = ex_static = None
+        t0 = time.perf_counter()
+        if state_nodes:
+            ex_state, ex_static = self.encode_existing(snapshot, state_nodes, bound_pods)
+        self.stages["encode_existing_s"] = time.perf_counter() - t0
         if n_slots <= 0:
             n_slots = solve_ops.estimate_slots(snapshot)
+        features = solve_ops.features_with_existing(snapshot, ex_static)
         cls, statics_arrays, key_has_bounds = solve_ops.prepare_host(snapshot)
-        cls, statics_arrays, key_has_bounds = solve_ops.pad_planes(cls, statics_arrays, key_has_bounds)
+        cls, statics_arrays, key_has_bounds, ex_state, ex_static = solve_ops.pad_planes(
+            cls, statics_arrays, key_has_bounds, ex_state, ex_static,
+        )
         cls_t, sa_t, khb = carry.tensors_from_numpy(cls, statics_arrays, key_has_bounds, self.device)
-        return SolvePrep(cls=cls_t, statics_arrays=sa_t, key_has_bounds=khb, n_slots=n_slots,
-                         n_passes=snapshot.scan_passes,
-                         features=solve_ops.snapshot_features(snapshot))
+        if ex_state is not None:
+            ex_state, ex_static = carry.existing_from_numpy(ex_state, ex_static, self.device)
+        return SolvePrep(cls=cls_t, statics_arrays=sa_t, key_has_bounds=khb, ex_state=ex_state,
+                         ex_static=ex_static, n_slots=n_slots, n_passes=snapshot.scan_passes,
+                         features=features)
 
     def run_prepared(self, prep: SolvePrep, n_slots: int = 0) -> solve_ops.SolveOutputs:
         """Run the solve on a SolvePrep; returns device-resident outputs."""
         return solve_ops.solve_core(
             prep.cls, prep.statics_arrays, n_slots or prep.n_slots, prep.key_has_bounds,
-            n_passes=prep.n_passes, features=prep.features, use_kernels=self.use_kernels,
+            prep.ex_state, prep.ex_static, n_passes=prep.n_passes, features=prep.features,
+            use_kernels=self.use_kernels,
         )
 
     @classmethod
@@ -285,20 +636,24 @@ class CudaSolver:
         are packed on the device and fetched on first use."""
         return _Fetch(outputs, self._pack_bool())
 
-    def solve(self, pods, n_slots: int = 0) -> CudaSolveResults:
+    def solve(self, pods, state_nodes: Optional[list] = None,
+              bound_pods: Optional[List[Pod]] = None, n_slots: int = 0) -> CudaSolveResults:
         """The entry point: encode, prepare, solve, decode.  Stage wall times
-        land in ``self.stages``."""
+        land in ``self.stages``: ``encode_s``, ``encode_existing_s`` (the
+        existing-node planes), ``solve_s`` (prepare and the device solve, the
+        existing-node planes excluded) and ``decode_s``."""
         t0 = time.perf_counter()
-        snapshot = self.encode(pods)
+        snapshot = self.encode(pods, state_nodes, bound_pods)
         t1 = time.perf_counter()
-        results = self.solve_encoded(snapshot, n_slots, t_start=t1)
+        results = self.solve_encoded(snapshot, state_nodes, bound_pods, n_slots, t_start=t1)
         self.stages["encode_s"] = t1 - t0
         return results
 
-    def solve_encoded(self, snapshot: EncodedSnapshot, n_slots: int = 0,
+    def solve_encoded(self, snapshot: EncodedSnapshot, state_nodes: Optional[list] = None,
+                      bound_pods: Optional[List[Pod]] = None, n_slots: int = 0,
                       t_start: Optional[float] = None) -> CudaSolveResults:
         t1 = time.perf_counter() if t_start is None else t_start
-        prep = self.prepare_encoded(snapshot, n_slots)
+        prep = self.prepare_encoded(snapshot, state_nodes, bound_pods, n_slots)
         outputs = self.run_prepared(prep)
         fetched = self.begin_fetch(outputs)  # the solve's one barrier
         slots = outputs.assign.shape[1]
@@ -307,18 +662,20 @@ class CudaSolver:
             outputs = self.run_prepared(prep, n_slots=slots * 2)
             fetched = self.begin_fetch(outputs)
         t2 = time.perf_counter()
-        results = self.decode(snapshot, outputs, fetched=fetched)
-        self.stages["solve_s"] = t2 - t1
+        results = self.decode(snapshot, outputs, state_nodes, fetched=fetched)
+        self.stages["solve_s"] = t2 - t1 - self.stages["encode_existing_s"]
         self.stages["decode_s"] = time.perf_counter() - t2
         self.last_outputs = outputs
         return results
 
     def decode(self, snapshot: EncodedSnapshot, outputs: solve_ops.SolveOutputs,
+               state_nodes: Optional[list] = None,
                fetched: Optional[_Fetch] = None) -> CudaSolveResults:
         fetched = fetched if fetched is not None else self.begin_fetch(outputs)
         planes = fetched.planes
         # per-pod failure comes from the leftover walk below, not the counts
-        assign, _, suspect, pod_count, tmpl_id, open_, n_next = fetched.small
+        (assign, assign_ex, _, suspect, ex_zone, pod_count, tmpl_id, open_,
+         n_next) = fetched.small
         results = CudaSolveResults(n_slots_used=int(n_next))
         nodes: Dict[int, CudaNodeDecision] = {}
         provisioner_names = [t.provisioner_name for t in self.templates]
@@ -326,6 +683,7 @@ class CudaSolver:
             n = int(n)
             nodes[n] = CudaNodeDecision(provisioner_names[int(tmpl_id[n])], snapshot, planes, n)
 
+        state_nodes = state_nodes or []
         # preference-ladder variants schedule pods from their ROOT's list: all
         # rows of one ladder share a cursor into the root's (identical) pods
         n_classes = len(snapshot.classes)
@@ -334,9 +692,20 @@ class CudaSolver:
         else:
             root_of = list(range(n_classes))
         cursors = [0] * n_classes  # keyed by root index
+        assigned_ex_idx: set = set()
         for c in range(n_classes):
             r = root_of[c]
             pods, cursor = snapshot.classes[r].pods, cursors[r]
+            # existing-node placements first (the solve tried them first)
+            ex_idx = np.nonzero(assign_ex[c] > 0)[0]
+            for e, take in zip(ex_idx.tolist(), assign_ex[c][ex_idx].tolist()):
+                if e < len(state_nodes):
+                    name = state_nodes[e].node.name
+                    results.existing_assignments.setdefault(name, []).extend(
+                        pods[cursor: cursor + take]
+                    )
+                    assigned_ex_idx.add(e)
+                cursor += take
             node_idx = np.nonzero(assign[c] > 0)[0]
             for n, take in zip(node_idx.tolist(), assign[c][node_idx].tolist()):
                 nodes[n].pods.extend(pods[cursor: cursor + take])
@@ -360,6 +729,15 @@ class CudaSolver:
                 results.spread_residual_pods.extend(leftover)
             else:
                 results.failed_pods.extend(leftover)
+        # zone commitments on existing nodes (singleton post-solve masks)
+        for e in sorted(assigned_ex_idx):
+            mask = ex_zone[e]
+            if int(mask.sum()) == 1:
+                z = int(np.argmax(mask))
+                if z < len(snapshot.zones):
+                    results.existing_committed_zones[state_nodes[e].node.name] = (
+                        snapshot.zones[z]
+                    )
         results.new_nodes = [nodes[n] for n in sorted(nodes)]
         return results
 

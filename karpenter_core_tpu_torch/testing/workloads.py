@@ -7,21 +7,33 @@ benchmark's makeDiversePods (scheduling_benchmark_test.go:185-197): 3/7
 generic pods in four sizes, 1/7 zonal topology spread, 1/7 hostname spread,
 and 2/7 zone self-affinity over 7 label groups.  The main path runs it at
 50,000 pods x 1,000 types x 5 provisioners.
+
+``build_cluster`` is the live cluster those pods meet on the existing-node
+path: N initialized nodes of the same catalog and provisioners, filled with
+bound pods of the same mix to a given share of their cpu.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
+
 from karpenter_core_tpu_torch.apis import labels as labels_api
 from karpenter_core_tpu_torch.apis.objects import (
     LabelSelector,
     Pod,
     PodAffinityTerm,
+    Taint,
     TopologySpreadConstraint,
 )
 from karpenter_core_tpu_torch.cloudprovider import fake as fake_cp
-from karpenter_core_tpu_torch.testing.factories import make_pod, make_provisioner
+from karpenter_core_tpu_torch.testing.factories import make_node, make_pod, make_provisioner
+from karpenter_core_tpu_torch.utils import resources as resources_util
+
+# the taint of the dedicated pool: every tenth node carries it, and no pod of
+# the mix tolerates it
+DEDICATED_TAINT = Taint(key="dedicated", value="batch", effect="NoSchedule")
 
 
 def build_pods(n_pods: int) -> List[Pod]:
@@ -79,3 +91,85 @@ def build_inputs(n_pods: int, n_instance_types: int, n_provisioners: int,
     ]
     solver = CudaSolver(provider, provisioners, device=device, use_kernels=use_kernels)
     return solver, build_pods(n_pods)
+
+
+def build_cluster(n_nodes: int, n_instance_types: int, n_provisioners: int, fill: float,
+                  seed: int) -> Tuple[list, List[Pod]]:
+    """(state_nodes, bound_pods): a live cluster of ``n_nodes`` nodes for the
+    existing-node path, deterministic from ``seed`` (a numpy Generator).
+
+    - node i belongs to ``prov-{i % n_provisioners}``;
+    - its instance type is drawn uniformly from the fake catalog's
+      (``instance_types(n_instance_types)``) types with at least 4 vcpu and
+      an available offering, and one of that type's available offerings is
+      drawn for its zone and capacity-type labels;
+    - it is initialized, with the type's allocatable and capacity;
+    - every tenth node (i % 10 == 9) carries ``DEDICATED_TAINT``;
+    - bound pods are a fresh makeDiversePods batch (``build_pods``), shuffled,
+      and bound first-fit in node order while a node's cpu requests stay
+      within ``fill`` of its allocatable cpu, until no node can take the
+      smallest pod.  So the pending mix's spread, hostname-spread and
+      affinity groups already have members on existing nodes.
+
+    The catalog gives a type of i vcpu 10·i pods, so no node meets its pods
+    limit before its cpu share.
+    """
+    from karpenter_core_tpu_torch.state.cluster import StateNode
+
+    rng = np.random.default_rng(seed)
+    catalog = fake_cp.instance_types(n_instance_types)
+    choices = [
+        it for it in catalog
+        if resources_util.parse_quantity(it.capacity.get(resources_util.CPU, 0)) >= 4.0
+        and any(o.available for o in it.offerings)
+    ]
+    nodes, targets = [], []
+    for i in range(n_nodes):
+        it = choices[int(rng.integers(len(choices)))]
+        offers = [o for o in it.offerings if o.available]
+        offer = offers[int(rng.integers(len(offers)))]
+        name = f"node-{i:05d}"
+        node = make_node(
+            name=name,
+            labels={
+                labels_api.PROVISIONER_NAME_LABEL_KEY: f"prov-{i % n_provisioners}",
+                labels_api.LABEL_INSTANCE_TYPE_STABLE: it.name,
+                labels_api.LABEL_TOPOLOGY_ZONE: offer.zone,
+                labels_api.LABEL_CAPACITY_TYPE: offer.capacity_type,
+                labels_api.LABEL_NODE_INITIALIZED: "true",
+            },
+            taints=[DEDICATED_TAINT] if i % 10 == 9 else None,
+            allocatable=it.allocatable(),
+            capacity=dict(it.capacity),
+            provider_id=f"fake://{name}",
+        )
+        nodes.append(StateNode(node))
+        targets.append(fill * node.status.allocatable.get(resources_util.CPU, 0.0))
+
+    # batches of the mix (it averages 0.54 cpu a pod), each in a seeded
+    # order, bound first-fit in node order: one cursor per pod size, each at
+    # the first node that might still take a pod of that size (room only
+    # shrinks), until no node can take the smallest pod
+    room = list(targets)
+    cursor: dict = {}
+    bound: List[Pod] = []
+    while n_nodes:
+        pods = build_pods(max(7, int(sum(room) / 0.5) // 7 * 7))
+        cpu = [resources_util.requests_for_pods(p).get(resources_util.CPU, 0.0) for p in pods]
+        for size in cpu:
+            cursor.setdefault(size, 0)
+        for j in rng.permutation(len(pods)):
+            size = cpu[j]
+            e = cursor[size]
+            while e < n_nodes and room[e] + 1e-9 < size:
+                e += 1
+            cursor[size] = e
+            if e < n_nodes:
+                pod = pods[j]
+                pod.spec.node_name = nodes[e].node.name
+                nodes[e].update_for_pod(pod)
+                room[e] -= size
+                bound.append(pod)
+        if cursor[min(cursor)] >= n_nodes:
+            break
+    return nodes, bound

@@ -136,3 +136,20 @@ def requests_for_pods(*pods: "Pod") -> ResourceList:
     merged[PODS] = float(len(pods))
     return merged
 
+
+
+def limits_for_pods(*pods: "Pod") -> ResourceList:
+    limits: ResourceList = {}
+    for pod in pods:
+        pod_limits: ResourceList = {}
+        for container in pod.spec.containers:
+            pod_limits = merge(pod_limits, container.resources.limits)
+        for container in pod.spec.init_containers:
+            pod_limits = max_resources(pod_limits, container.resources.limits)
+        limits = merge(limits, pod_limits)
+    limits[PODS] = float(len(pods))
+    return limits
+
+
+def is_zero(value: float) -> bool:
+    return cmp(value, 0.0) == 0

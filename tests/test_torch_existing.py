@@ -1,0 +1,506 @@
+"""The port's existing-node path held against the JAX package's, on the CPU.
+
+Three levels, each with no tolerance (ints and bools exact, f32 bit for bit):
+
+- the host half: ``CudaSolver.encode_existing`` plus ``ops.solve.pad_planes``
+  against ``TPUSolver.encode_existing`` plus the reference's ``pad_planes``,
+  plane for plane, and the solve on those planes leaf for leaf, on small
+  clusters built identically in each package (each package's ``StateNode``
+  filled by ``update_for_pod``): CSI attach limits through a duck-typed PVC
+  lookup, host ports, taints and a tolerating class, bound pods owning zonal
+  and hostname anti-affinity terms, a zone-less node, an uninitialized node,
+  a node of a provisioner that no longer exists;
+- the whole path: ``CudaSolver(device="cpu").solve(pods, state_nodes,
+  bound_pods)`` against ``TPUSolver.solve`` on ``testing.workloads.
+  build_cluster`` with 700 pending pods of the headline mix, the counts of
+  the mid-size solve that chip_smoke.py pins on the card, and the three
+  spread-residual cases of tests/test_spread_residual.py, which drive the
+  finite-capacity rounds of the zone-spread quota (K7's loop);
+- K7's twin, the quota rounds, against a transcription of the reference's
+  loop (karpenter_core_tpu/ops/solve.py:1440-1475) under hypothesis, with
+  finite zone caps.
+"""
+
+import dataclasses
+import importlib.util
+import pathlib
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+import karpenter_core_tpu.apis.labels as jlabels
+import karpenter_core_tpu.apis.objects as jobj
+import karpenter_core_tpu.cloudprovider.fake as jfake
+import karpenter_core_tpu.state.cluster as jcluster
+import karpenter_core_tpu.testing as jtesting
+import karpenter_core_tpu_torch.apis.labels as tlabels
+import karpenter_core_tpu_torch.apis.objects as tobj
+import karpenter_core_tpu_torch.cloudprovider.fake as tfake
+import karpenter_core_tpu_torch.state.cluster as tcluster
+import karpenter_core_tpu_torch.testing as ttesting
+from karpenter_core_tpu.ops import solve as jsolve
+from karpenter_core_tpu.solver.tpu import TPUSolver
+from karpenter_core_tpu_torch.kernels import spread as k7
+from karpenter_core_tpu_torch.ops import solve as tsolve
+from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+from karpenter_core_tpu_torch.testing import workloads
+
+JAX_PKG = dict(obj=jobj, labels=jlabels, fake=jfake, testing=jtesting, cluster=jcluster)
+PORT_PKG = dict(obj=tobj, labels=tlabels, fake=tfake, testing=ttesting, cluster=tcluster)
+ZONES = ("test-zone-1", "test-zone-2", "test-zone-3")
+CSI_DRIVER = "ebs.csi.example.com"
+
+
+# -- one seeded cluster description, built in either package ------------------
+
+
+class _Kube:
+    """A duck-typed volume lookup: claims named ``pv-*`` are bound to a
+    persistent volume, the rest name a storage class; every one resolves to
+    the same CSI driver."""
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def get_persistent_volume_claim(self, namespace, name):
+        spec = (self.obj.PersistentVolumeClaimSpec(volume_name=f"vol-{name}")
+                if name.startswith("pv-")
+                else self.obj.PersistentVolumeClaimSpec(storage_class_name="csi-fast"))
+        return self.obj.PersistentVolumeClaim(spec=spec)
+
+    def get_persistent_volume(self, name):
+        return self.obj.PersistentVolume(spec=self.obj.PersistentVolumeSpec(csi_driver=CSI_DRIVER))
+
+    def get_storage_class(self, name):
+        return self.obj.StorageClass(provisioner=CSI_DRIVER)
+
+
+CASES = ("volumes", "host_ports", "taints", "anti_affinity", "zoneless", "uninitialized",
+         "unknown_provisioner")
+
+
+def _scenario(pkg, case, seed):
+    """(state_nodes, bound_pods, pending_pods, kube, provisioners) of one
+    case, drawn identically in either package."""
+    obj, lab, t = pkg["obj"], pkg["labels"], pkg["testing"]
+    rng = random.Random(1000 * seed + CASES.index(case))
+    kube = _Kube(obj)
+    zone_key, host_key = lab.LABEL_TOPOLOGY_ZONE, lab.LABEL_HOSTNAME
+    dedicated = obj.Taint(key="dedicated", value="gpu", effect="NoSchedule")
+    state_nodes, bound = [], []
+    for i in range(6):
+        cpu = rng.choice((4, 8, 16))
+        labels = {
+            lab.PROVISIONER_NAME_LABEL_KEY: rng.choice(("default", "spare")),
+            lab.LABEL_INSTANCE_TYPE_STABLE: f"fake-it-{cpu - 1}",
+            zone_key: ZONES[i % 3],
+            lab.LABEL_CAPACITY_TYPE: rng.choice(("spot", "on-demand")),
+            lab.LABEL_NODE_INITIALIZED: "true",
+        }
+        taints = []
+        if case == "zoneless" and i in (0, 4):
+            del labels[zone_key]
+            if i == 4:
+                del labels[lab.LABEL_CAPACITY_TYPE]
+        if case == "uninitialized" and i == 1:
+            del labels[lab.LABEL_NODE_INITIALIZED]
+        if case == "unknown_provisioner" and i == 2:
+            labels[lab.PROVISIONER_NAME_LABEL_KEY] = "retired"
+        if case == "taints" and i % 2 == 0:
+            taints = [dedicated]
+        node = t.make_node(name=f"node-{i}", labels=labels, taints=taints,
+                           allocatable={"cpu": cpu, "memory": f"{2 * cpu}Gi", "pods": 110})
+        sn = pkg["cluster"].StateNode(node, kube if case == "volumes" else None)
+        if case == "uninitialized" and i == 1:
+            sn.inflight_allocatable = {"cpu": 2.0}
+        if case == "volumes":
+            sn.volume_limits()[CSI_DRIVER] = rng.randint(1, 4)
+        for j in range(rng.randint(0, 4)):
+            kw = dict(name=f"bound-{i}-{j}", node_name=node.name,
+                      labels={"app": rng.choice(("web", "db", "cache"))},
+                      requests={"cpu": rng.choice(("250m", "500m", "1"))})
+            if case == "anti_affinity" and rng.random() < 0.5:
+                kw["pod_anti_affinity"] = [obj.PodAffinityTerm(
+                    topology_key=rng.choice((zone_key, host_key)),
+                    label_selector=obj.LabelSelector(match_labels={"app": "web"}))]
+            if case == "host_ports" and rng.random() < 0.5:
+                kw["host_ports"] = [rng.choice((8080, 9090))]
+            if case == "volumes" and rng.random() < 0.6:
+                kw["pvcs"] = [f"{rng.choice(('pv', 'sc'))}-bound-{i}-{j}"]
+            pod = t.make_pod(**kw)
+            sn.update_for_pod(pod)
+            bound.append(pod)
+        state_nodes.append(sn)
+
+    def spread(app, key):
+        return [obj.TopologySpreadConstraint(
+            max_skew=1, topology_key=key,
+            label_selector=obj.LabelSelector(match_labels={"app": app}))]
+
+    groups = [
+        dict(labels={"app": "plain"}, requests={"cpu": "500m"}),
+        dict(labels={"app": "web"}, requests={"cpu": "250m"},
+             topology_spread=spread("web", zone_key)),
+        dict(labels={"app": "hs"}, requests={"cpu": "250m"},
+             topology_spread=spread("hs", host_key)),
+        dict(labels={"app": "db"}, requests={"cpu": "1"}, pod_affinity=[obj.PodAffinityTerm(
+            topology_key=zone_key, label_selector=obj.LabelSelector(match_labels={"app": "db"}))]),
+    ]
+    if case == "taints":
+        groups.append(dict(labels={"app": "gpu"}, requests={"cpu": "500m"}, tolerations=[
+            obj.Toleration(key="dedicated", value="gpu", effect="NoSchedule")]))
+    if case == "host_ports":
+        groups.append(dict(labels={"app": "ports"}, requests={"cpu": "250m"}, host_ports=[8080]))
+    if case == "anti_affinity":
+        groups.append(dict(labels={"app": "web"}, requests={"cpu": "500m"}))
+    pending = []
+    for g, kw in enumerate(groups):
+        for j in range(rng.randint(2, 9)):
+            pending.append(t.make_pod(name=f"pending-{g}-{j}", **kw))
+    if case == "volumes":
+        # a class sharing one claim set, and a class of one claim per pod
+        for j in range(rng.randint(2, 6)):
+            pending.append(t.make_pod(name=f"shared-{j}", labels={"app": "shared"},
+                                      requests={"cpu": "250m"}, pvcs=["sc-shared"]))
+        for j in range(rng.randint(2, 6)):
+            pending.append(t.make_pod(name=f"perpod-{j}", labels={"app": "perpod"},
+                                      requests={"cpu": "250m"}, pvcs=[f"pv-perpod-{j}"]))
+    provisioners = [t.make_provisioner(name="default", weight=2),
+                    t.make_provisioner(name="spare", weight=1)]
+    return state_nodes, bound, pending, (kube if case == "volumes" else None), provisioners
+
+
+def _solvers(case, seed):
+    jsn, jbound, jpods, jkube, jprovs = _scenario(JAX_PKG, case, seed)
+    tsn, tbound, tpods, tkube, tprovs = _scenario(PORT_PKG, case, seed)
+    js = TPUSolver(jfake.FakeCloudProvider(jfake.instance_types(16)), jprovs, kube_client=jkube)
+    ts = CudaSolver(tfake.FakeCloudProvider(tfake.instance_types(16)), tprovs,
+                    kube_client=tkube, device="cpu")
+    return (js, jsn, jbound, jpods), (ts, tsn, tbound, tpods)
+
+
+def _np(x):
+    a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _assert_tuple_equal(ref, got, label):
+    assert ref._fields == got._fields, label
+    for f in ref._fields:
+        a, b = getattr(ref, f), getattr(got, f)
+        if hasattr(a, "_fields"):
+            _assert_tuple_equal(a, b, f"{label}.{f}")
+            continue
+        a, b = _np(a), _np(b)
+        assert a.dtype == b.dtype, f"{label}.{f}: dtype {a.dtype} vs {b.dtype}"
+        np.testing.assert_array_equal(a, b, err_msg=f"{label}.{f}")
+
+
+def _leaves(out):
+    d = {"assign": out.assign, "assign_existing": out.assign_existing, "failed": out.failed,
+         "spread_suspect": out.spread_suspect, "remaining": out.remaining}
+    for group, tup in (("state", out.state), ("ex", out.ex_state), ("topo", out.topo)):
+        for f in tup._fields:
+            d[f"{group}.{f}"] = getattr(tup, f)
+    return {k: _np(v) for k, v in d.items()}
+
+
+def _assert_leaves_equal(ref, got, label):
+    a, b = _leaves(ref), _leaves(got)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype, f"{label}: {k} dtype {a[k].dtype} vs {b[k].dtype}"
+        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{label}: {k}")
+
+
+def _by_name(results):
+    """A decode result in package-neutral terms: pod names per node."""
+    return dict(
+        existing={k: sorted(p.name for p in v) for k, v in results.existing_assignments.items()},
+        zones=dict(results.existing_committed_zones),
+        new=[(n.provisioner_name, sorted(p.name for p in n.pods), list(n.instance_type_names),
+              list(n.zones), list(n.capacity_types)) for n in results.new_nodes],
+        failed=sorted(p.name for p in results.failed_pods),
+        residual=sorted(p.name for p in results.spread_residual_pods),
+    )
+
+
+# -- the host half ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+@pytest.mark.parametrize("case", CASES)
+def test_encode_existing_and_padding_match_reference(case, seed):
+    (js, jsn, jbound, jpods), (ts, tsn, tbound, tpods) = _solvers(case, seed)
+    jsnap = js.encode(jpods, jsn, jbound)
+    tsnap = ts.encode(tpods, tsn, tbound)
+    assert tsnap.class_volumes == jsnap.class_volumes
+    jex = js.encode_existing(jsnap, jsn, jbound)
+    tex = ts.encode_existing(tsnap, tsn, tbound)
+    for ref, got, label in zip(jex, tex, ("ExistingState", "ExistingStatic")):
+        _assert_tuple_equal(ref, got, label)
+    assert tuple(tsolve.features_with_existing(tsnap, tex[1])) == tuple(
+        jsolve.features_with_existing(jsnap, jex[1]))
+    jpad = jsolve.pad_planes(*jsolve.prepare_host(jsnap), *jex)
+    tpad = tsolve.pad_planes(*tsolve.prepare_host(tsnap), *tex)
+    for ref, got, label in zip(jpad, tpad, ("cls", "statics", "key_has_bounds",
+                                             "ExistingState", "ExistingStatic")):
+        if label == "key_has_bounds":
+            assert tuple(ref) == tuple(got)
+        else:
+            _assert_tuple_equal(ref, got, f"padded {label}")
+    # the padded nodes are closed, with an all-zone mask: the intake gives 0
+    e_old = len(jsn)
+    assert not np.asarray(tpad[3].open_)[e_old:].any()
+    assert np.asarray(tpad[3].zone)[e_old:].all()
+    if case == "volumes":
+        assert (np.asarray(tex[1].vol_limit) < (1 << 30)).any()
+        assert tsolve.features_with_existing(tsnap, tex[1]).volume_limits
+    if case == "anti_affinity":
+        assert np.asarray(tex[1].grp_node_owner).sum() > 0
+    if case == "host_ports":
+        assert np.asarray(tex[0].ports).any()
+    if case == "taints":
+        assert not np.asarray(tex[1].tol).all()
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+@pytest.mark.parametrize("case", CASES)
+def test_existing_solve_matches_reference(case, seed):
+    """The solve on those planes: every SolveOutputs leaf, then the decode."""
+    (js, jsn, jbound, jpods), (ts, tsn, tbound, tpods) = _solvers(case, seed)
+    jsnap = js.encode(jpods, jsn, jbound)
+    tsnap = ts.encode(tpods, tsn, tbound)
+    jout = jax.device_get(js.run_prepared(js.prepare_encoded(jsnap, jsn, jbound)))
+    tout = ts.run_prepared(ts.prepare_encoded(tsnap, tsn, tbound))
+    _assert_leaves_equal(jout, tout, case)
+    assert int(np.asarray(jout.state.n_next)) < np.asarray(jout.assign).shape[1]
+    assert _by_name(ts.decode(tsnap, tout, tsn)) == _by_name(js.decode(jsnap, jout, jsn))
+
+
+# -- the whole path -----------------------------------------------------------
+
+
+def _to_jax(x):
+    """A port API object rebuilt from the JAX package's classes of the same
+    names (the two ``apis/objects.py`` share their dataclass layouts)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return getattr(jobj, type(x).__name__)(**{
+            f.name: _to_jax(getattr(x, f.name)) for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, list):
+        return [_to_jax(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _to_jax(v) for k, v in x.items()}
+    return x
+
+
+def _reference_inputs(nodes, bound, pods, n_types):
+    """The JAX package's solver, state nodes, bound pods and pending pods for
+    a cluster and backlog built by ``testing.workloads``: the same objects
+    (``_to_jax``), uids included, its StateNodes filled by update_for_pod."""
+    jbound = [_to_jax(p) for p in bound]
+    by_node = {}
+    for p in jbound:
+        by_node.setdefault(p.spec.node_name, []).append(p)
+    jnodes = []
+    for n in nodes:
+        sn = jcluster.StateNode(_to_jax(n.node))
+        for p in by_node.get(n.node.name, []):
+            sn.update_for_pod(p)
+        jnodes.append(sn)
+    provs = [jtesting.make_provisioner(name=f"prov-{i}", weight=5 - i) for i in range(5)]
+    js = TPUSolver(jfake.FakeCloudProvider(jfake.instance_types(n_types)), provs)
+    return js, jnodes, jbound, [_to_jax(p) for p in pods]
+
+
+@pytest.mark.parametrize("seed", (3, 11))
+def test_solve_into_existing_cluster_matches_reference(seed):
+    """build_cluster(60, 50, 5, 0.6) and 700 pending pods of the headline
+    mix: ``CudaSolver.solve(pods, state_nodes, bound_pods)`` on the CPU
+    against ``TPUSolver.solve``."""
+    nodes, bound = workloads.build_cluster(60, 50, 5, 0.6, seed)
+    solver, pods = workloads.build_inputs(700, 50, 5, device="cpu")
+    res = solver.solve(pods, nodes, bound)
+
+    js, jnodes, jbound, jpods = _reference_inputs(nodes, bound, pods, 50)
+    jres = js.solve(jpods, jnodes, jbound)
+
+    def by_uid(r):
+        return (
+            {k: sorted(p.uid for p in v) for k, v in r.existing_assignments.items()},
+            dict(r.existing_committed_zones),
+            [(n.provisioner_name, sorted(p.uid for p in n.pods), list(n.instance_type_names),
+              list(n.zones)) for n in r.new_nodes],
+            sorted(p.uid for p in r.failed_pods),
+            sorted(p.uid for p in r.spread_residual_pods),
+        )
+
+    assert by_uid(res) == by_uid(jres)
+    on_existing = sum(len(v) for v in res.existing_assignments.values())
+    on_new = sum(len(n.pods) for n in res.new_nodes)
+    assert on_existing > 0 and on_new > 0
+    assert on_existing + on_new + len(res.failed_pods) + len(res.spread_residual_pods) == 700
+    tainted = {n.node.name for n in nodes if n.node.spec.taints}
+    assert tainted and not tainted & set(res.existing_assignments)
+    # the f32 leaves too: the final existing-node usage, bit for bit
+    jprep = js.prepare_encoded(js.encode(jpods, jnodes, jbound), jnodes, jbound)
+    jout = jax.device_get(js.run_prepared(jprep))
+    np.testing.assert_array_equal(np.asarray(jout.ex_state.used),
+                                  solver.last_outputs.ex_state.used.numpy())
+    alloc = np.asarray(jprep.ex_static.alloc)
+    assert (solver.last_outputs.ex_state.used.numpy() <= alloc + 1e-4).all()
+
+
+def _chip_smoke():
+    """chip_smoke.py's module (its constants; nothing runs on import)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_mid_size_counts_match_chip_smoke_pin():
+    """The mid-size existing-node solve that chip_smoke.py runs on the card
+    (10,000 pods x 100 types into a 1,000-node cluster): both packages give
+    the counts it pins, so the card's answer is held to the JAX package's."""
+    smoke = _chip_smoke()
+    nodes, bound = workloads.build_cluster(smoke.MID_NODES, smoke.MID_TYPES, 5, smoke.FILL,
+                                           smoke.CLUSTER_SEED)
+    solver, pods = workloads.build_inputs(smoke.MID_PODS, smoke.MID_TYPES, 5, device="cpu")
+    assert smoke.path_counts(solver.solve(pods, nodes, bound)) == smoke.MID_EXPECTED
+    js, jnodes, jbound, jpods = _reference_inputs(nodes, bound, pods, smoke.MID_TYPES)
+    assert smoke.path_counts(js.solve(jpods, jnodes, jbound)) == smoke.MID_EXPECTED
+
+
+# -- the spread-residual cases (tests/test_spread_residual.py :92, :118, :134) --
+
+
+def _zoneless_node(pkg, name, cpu):
+    """An owned, initialized node with NO zone label: its zone mask is
+    all-ones, the shape whose intake the water-fill double-counts."""
+    lab = pkg["labels"]
+    its = pkg["fake"].FakeCloudProvider().get_instance_types(None)
+    it = next(t for t in its if t.capacity.get("cpu", 0) >= cpu)
+    return pkg["testing"].make_node(
+        name=name,
+        labels={
+            lab.PROVISIONER_NAME_LABEL_KEY: "default",
+            lab.LABEL_INSTANCE_TYPE_STABLE: it.name,
+            lab.LABEL_CAPACITY_TYPE: lab.CAPACITY_TYPE_ON_DEMAND,
+            lab.LABEL_NODE_INITIALIZED: "true",
+        },
+        allocatable={"cpu": cpu, "memory": "16Gi", "pods": 110},
+    )
+
+
+def _residual_solve(pkg, n_pods, with_node):
+    obj, lab, t = pkg["obj"], pkg["labels"], pkg["testing"]
+    prov = t.make_provisioner(name="default", requirements=[obj.NodeSelectorRequirement(
+        lab.LABEL_TOPOLOGY_ZONE, obj.OP_IN, ["test-zone-1"])])
+    pods = [t.make_pod(
+        name=f"residual-{i}", labels={"app": "residual"}, requests={"cpu": "500m"},
+        topology_spread=[obj.TopologySpreadConstraint(
+            max_skew=1, topology_key=lab.LABEL_TOPOLOGY_ZONE,
+            label_selector=obj.LabelSelector(match_labels={"app": "residual"}))],
+    ) for i in range(n_pods)]
+    nodes = [pkg["cluster"].StateNode(_zoneless_node(pkg, "fuzzy", 4.0))] if with_node else []
+    provider = pkg["fake"].FakeCloudProvider()
+    if pkg is PORT_PKG:
+        solver = CudaSolver(provider, [prov], device="cpu")
+    else:
+        solver = TPUSolver(provider, [prov])
+    return solver.solve(pods, nodes, [])
+
+
+@pytest.mark.parametrize("case", ("unknown_zone_shortfall_flags_residual",
+                                  "skew_bound_failure_is_not_residual",
+                                  "committed_zone_reported_for_zoneless_node"))
+def test_spread_residual_cases_match_reference(case):
+    """Quota granted against a zone-ambiguous node's double-counted intake
+    cannot all be realized once the node commits to one zone: the leftover
+    is residual, not failed.  A genuine maxSkew bound (zones 2 and 3 serve
+    nothing and hold nothing) fails pods instead.  And a zone-less node that
+    took zone-restricted pods reports the zone it committed to."""
+    n_pods, with_node = (5, False) if case == "skew_bound_failure_is_not_residual" else (12, True)
+    got = _residual_solve(PORT_PKG, n_pods, with_node)
+    assert _by_name(got) == _by_name(_residual_solve(JAX_PKG, n_pods, with_node))
+    placed = sum(len(p) for p in got.existing_assignments.values()) + sum(
+        len(n.pods) for n in got.new_nodes)
+    if case == "unknown_zone_shortfall_flags_residual":
+        assert placed + len(got.failed_pods) + len(got.spread_residual_pods) == n_pods
+        assert got.spread_residual_pods and not got.failed_pods
+    elif case == "skew_bound_failure_is_not_residual":
+        assert placed == 1 and len(got.failed_pods) == 4
+        assert not got.spread_residual_pods
+    else:
+        if got.existing_assignments.get("fuzzy"):
+            assert got.existing_committed_zones.get("fuzzy") in ZONES
+
+
+# -- K7's twin against the reference's quota rounds ----------------------------
+
+
+UNLIMITED = 1 << 30
+
+
+@jax.jit
+def _jax_quota_rounds(counts_zs, allowed_zone, fillable, cap_pods_z, skew_zs, m, member_zs):
+    """The reference's capped quota rounds, transcribed from
+    karpenter_core_tpu/ops/solve.py:1440-1475 (inline in ``_class_step``
+    there), around its own ``_water_fill``."""
+    n_zones = counts_zs.shape[0]
+    unreachable = allowed_zone & ~fillable
+    bigi = jnp.int32(1 << 30)
+    finite_cap = cap_pods_z < UNLIMITED
+    quotas = jnp.zeros(n_zones, dtype=jnp.int32)
+    sat = jnp.zeros(n_zones, dtype=bool)
+    m_rem = m
+    for _ in range(n_zones + 1):
+        counts_now = counts_zs + quotas
+        min_frozen = jnp.min(jnp.where(unreachable | sat, counts_now, bigi))
+        skew_cap = jnp.clip(min_frozen + skew_zs - counts_now, 0, UNLIMITED)
+        active = allowed_zone & fillable & ~sat
+        cap_rem = jnp.clip(cap_pods_z - quotas, 0, UNLIMITED)
+        lvl_sat = jnp.min(jnp.where(active & finite_cap, counts_now + cap_rem, bigi))
+        q = jsolve._water_fill(counts_now, active, m_rem)
+        q = jnp.minimum(q, jnp.clip(lvl_sat - counts_now, 0, UNLIMITED))
+        q = jnp.minimum(q, jnp.minimum(skew_cap, cap_rem))
+        q = jnp.where(active, q, 0)
+        quotas = quotas + q
+        m_rem = m_rem - jnp.sum(q)
+        sat = sat | (active & finite_cap & (quotas >= cap_pods_z))
+    quotas = jnp.where(member_zs, quotas, 0)
+    counts_end = counts_zs + quotas
+    min_frozen_end = jnp.min(jnp.where(unreachable | sat, counts_end, bigi))
+    skew_headroom = (counts_end - min_frozen_end) < skew_zs
+    cap_headroom = (cap_pods_z - quotas) > 0
+    fill_residual = (m_rem > 0) & jnp.any(
+        allowed_zone & fillable & ~sat & skew_headroom & cap_headroom)
+    return quotas, sat, m_rem, fill_residual
+
+
+_zone_vec = st.lists(st.integers(0, 40), min_size=3, max_size=3)
+
+
+@settings(max_examples=80, deadline=None)
+@given(counts=_zone_vec, allowed=st.lists(st.booleans(), min_size=3, max_size=3),
+       fillable=st.lists(st.booleans(), min_size=3, max_size=3),
+       caps=st.lists(st.one_of(st.integers(0, 60), st.just(UNLIMITED)), min_size=3, max_size=3),
+       skew=st.one_of(st.integers(1, 5), st.just(UNLIMITED)), m=st.integers(0, 200),
+       member=st.booleans())
+def test_spread_quota_rounds_match_reference(counts, allowed, fillable, caps, skew, m, member):
+    args = (np.asarray(counts, np.int32), np.asarray(allowed), np.asarray(fillable),
+            np.asarray(caps, np.int32), np.int32(skew), np.int32(m), np.bool_(member))
+    ref = jax.device_get(_jax_quota_rounds(*args))
+    got = k7.spread_quota(*(torch.as_tensor(np.asarray(a)) for a in args))
+    for name, a, b in zip(("quotas", "sat", "m_rem", "fill_residual"), ref, got):
+        a = np.asarray(a)
+        assert a.dtype == b.numpy().dtype, name
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=name)

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from karpenter_core_tpu_torch.kernels import capacity, fill, packbits, reqmerge
+from karpenter_core_tpu_torch.kernels import capacity, existing, fill, packbits, reqmerge, spread
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 
@@ -113,3 +113,89 @@ def test_fill_priority_matches_plain(card, n):
 def test_pack_bool_matches_plain(card, shape):
     bits = torch.as_tensor(np.random.default_rng(len(shape)).random(shape) < 0.5).to(card)
     assert torch.equal(packbits.pack_bool(bits), packbits.pack_bool_plain(bits))
+
+
+def _intake_args(rng, n, dev, host_ports, volume_limits, zero_request=False):
+    def b(shape, p):
+        return torch.as_tensor(rng.random(shape) < p).to(dev)
+
+    def i(shape, lo, hi):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32)).to(dev)
+
+    alloc = torch.as_tensor((rng.integers(0, 64, (n, 3)) * 0.25).astype(np.float32)).to(dev)
+    used = torch.as_tensor((rng.integers(0, 64, (n, 3)) * 0.25).astype(np.float32)).to(dev)
+    req = (0.0, 0.0, 0.0) if zero_request else (0.25, 0.0, 1.0)
+    vol_limit = torch.where(b((n, 2), 0.5), i((n, 2), 0, 6), torch.tensor(1 << 30, device=dev))
+    return (alloc, used, b((n,), 0.9), b((n,), 0.8), b((n,), 0.9), b((n, 3), 0.6),
+            b((3,), 0.8), b((n, 2), 0.7), b((2,), 0.9), b((n, 4), 0.2), b((4,), 0.3),
+            vol_limit, i((n, 2), 0, 4), i((n, 2), 0, 2), i((2,), 0, 2),
+            torch.tensor(req, dtype=torch.float32, device=dev), i((n,), 0, 50),
+            host_ports, volume_limits)
+
+
+@pytest.mark.parametrize("n,host_ports,volume_limits,zero_request", [
+    (6144, True, False, False), (6144, True, True, False), (1, True, False, False),
+    (1000, False, True, True),  # BIG must saturate to INT32_MAX
+])
+def test_existing_intake_matches_plain(card, n, host_ports, volume_limits, zero_request):
+    args = _intake_args(np.random.default_rng(n), n, card, host_ports, volume_limits,
+                        zero_request)
+    _equal(existing.existing_intake(*args), existing.existing_intake_plain(*args))
+
+
+@pytest.mark.parametrize("n,extra,single", [(6144, True, False), (6144, False, True),
+                                            (5000, True, True), (1, False, False)])
+def test_existing_mask_matches_plain(card, n, extra, single):
+    rng = np.random.default_rng(n)
+    cap = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(0, 9, n), 0)
+                          .astype(np.int32)).to(card)
+    zone = torch.as_tensor(rng.random((n, 3)) < 0.5).to(card)
+    args = (cap, zone, torch.tensor([True, True, False], device=card),
+            torch.tensor([True, False, True], device=card),
+            torch.as_tensor(rng.random(n) < 0.7).to(card) if extra else None, single)
+    _equal(existing.existing_mask(*args), existing.existing_mask_plain(*args))
+
+
+@pytest.mark.parametrize("n,host_ports,volume_limits", [(6144, True, True), (6144, True, False),
+                                                        (1, False, False)])
+def test_existing_commit_matches_plain(card, n, host_ports, volume_limits):
+    rng = np.random.default_rng(n + 1)
+    k, words = 8, 1
+    rows = existing.ExistingState(
+        torch.as_tensor((rng.integers(0, 64, (n, 3)) * 0.1).astype(np.float32)).to(card),
+        _req(rng, n, k, 9, False, card).mask,
+        *(t for t in _req(rng, n, k, 9, True, card)[1:]),
+        torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+        torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
+        torch.as_tensor(rng.random((n, 4)) < 0.2).to(card),
+        torch.as_tensor(rng.integers(0, 5, (n, 2)).astype(np.int32)).to(card),
+        torch.as_tensor(rng.integers(0, 50, n).astype(np.int32)).to(card),
+        torch.as_tensor(rng.random(n) < 0.8).to(card),
+    )
+    merged = _req(rng, n, k, 9, True, card)
+    assigned = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(1, 7, n), 0)
+                               .astype(np.int32)).to(card)
+    args = (rows, merged, torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+            torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
+            torch.as_tensor(rng.random(4) < 0.5).to(card),
+            torch.as_tensor(rng.integers(0, 3, (n, 2)).astype(np.int32)).to(card),
+            torch.as_tensor(rng.integers(0, 3, 2).astype(np.int32)).to(card),
+            torch.tensor((0.1, 0.3, 1.0), dtype=torch.float32, device=card), assigned,
+            host_ports, volume_limits)
+    assert words == merged.mask.shape[-1]
+    _equal(existing.existing_commit(*args), existing.existing_commit_plain(*args))
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_spread_quota_matches_plain(card, seed):
+    rng = np.random.default_rng(seed)
+    z = 3 if seed < 30 else int(rng.integers(1, 8))
+    unlimited = np.int32(1 << 30)
+    caps = np.where(rng.random(z) < 0.5, rng.integers(0, 60, z), unlimited).astype(np.int32)
+    args = [
+        rng.integers(0, 40, z).astype(np.int32), rng.random(z) < 0.8, rng.random(z) < 0.8, caps,
+        np.int32(rng.integers(1, 5) if seed % 5 else unlimited),
+        np.int32(rng.integers(0, 300)), np.bool_(seed % 7 != 0),
+    ]
+    t = [torch.as_tensor(np.asarray(a)).to(card) for a in args]
+    _equal(spread.spread_quota(*t), spread.spread_quota_plain(*t))

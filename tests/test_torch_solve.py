@@ -39,6 +39,7 @@ from karpenter_core_tpu.testing import make_pod, make_provisioner
 from karpenter_core_tpu_torch import carry
 from karpenter_core_tpu_torch.kernels import capacity as k1
 from karpenter_core_tpu_torch.kernels import fill as k2
+from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.ops import solve as tsolve
 
 ZONE = labels_api.LABEL_TOPOLOGY_ZONE
@@ -287,7 +288,7 @@ def test_water_fill_ties_match_reference(counts, allowed, m):
     c = np.asarray(counts, np.int32)
     a = np.asarray(allowed)
     ref = np.asarray(_jax_water_fill(c, a, np.int32(m)))
-    got = tsolve._water_fill(torch.as_tensor(c), torch.as_tensor(a), torch.tensor(m, dtype=torch.int32))
+    got = k7.water_fill(torch.as_tensor(c), torch.as_tensor(a), torch.tensor(m, dtype=torch.int32))
     np.testing.assert_array_equal(ref, got.numpy())
 
 
