@@ -1,9 +1,10 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
-into an empty cluster and into a live 5,000-node cluster.
+into an empty cluster and into a live 5,000-node cluster, and multi-node
+consolidation of that cluster.
 
     python3 chip_smoke.py
 
-Builds the seven hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the nine hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
@@ -30,12 +31,28 @@ csrc`` (one nvcc per source, all at once), then:
      have launched in the cold run.  Then K5-K7 against their twins at this
      path's shapes.
 
+  4. consolidation path — multi-node consolidation with every node a
+     candidate and no pending pods, through
+     ``CudaConsolidationSearch.compute_command``: first the mid-size
+     cluster of phase 3, whose command must equal the JAX package's answer
+     on the same inputs, measured on the CPU (``MID_CONSOLIDATION``); then
+     phase 3's 5,000-node cluster.  The removed nodes must be a prefix of
+     the candidate list, and the chosen prefix's lane must show no failed
+     pod, no uninitialized node and at most one new node; every kernel of
+     the path (K1-K3, K5-K9) must have launched in that run.  The coarse
+     pass runs again with ``use_kernels=False``: every ``SweepOutputs``
+     leaf must equal the kernel run (``new_cost`` to rtol 1e-6, the one
+     leaf whose f32 sum the reference lets vary with reduction order).
+     Then K8 and K9 against their twins at this path's shapes.
+
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
 of CUDA-event timings of one call, wrapper included) beside its plain twin
 and its bound: bytes it must move over 3.35 TB/s, or operations over 67 T/s,
-whichever is larger (H100 SXM data-sheet peaks at 700 W).  No single
-PyTorch call computes any of the seven, so ``library_ms`` is null.
+whichever is larger (H100 SXM data-sheet peaks at 700 W).  K8's
+``library_ms`` times one ``torch.matmul`` of the f32 lane-subset mask with
+the f32 count plane, which computes its displaced counts; no single PyTorch
+call computes any of the others, so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
@@ -65,6 +82,23 @@ N_NODES, FILL, CLUSTER_SEED = 5000, 0.6, 2024
 MID_PODS, MID_NODES, MID_TYPES = 10_000, 1000, 100
 MID_EXPECTED = {"on_existing_nodes": 8609, "existing_nodes_used": 277, "on_new_nodes": 1391,
                 "new_nodes": 1391, "failed": 0, "residual": 0}
+
+# the JAX package's multi-node consolidation command for build_cluster(
+# MID_NODES, MID_TYPES, 5, FILL, CLUSTER_SEED) with every node a candidate
+# and no pending pods, measured on the CPU; tests/test_torch_consolidation.py
+# holds both packages to it
+MID_CONSOLIDATION = {
+    "action": "replace", "nodes_removed": 261,
+    "replacements": [{"options": ["fake-it-0", "fake-it-1", "fake-it-2"],
+                      "zones": ["test-zone-1", "test-zone-2", "test-zone-3"],
+                      "capacity_types": ["spot"]}],
+}
+# the kernels each path runs (K4 packs the provisioning decode's planes; the
+# sweep's fetch has no big plane)
+PROVISIONING_KERNELS = ("it_capacity", "fill_priority", "req_merge", "pack_bool",
+                        "existing_intake", "existing_phase", "spread_quota")
+CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
+                         "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
@@ -126,23 +160,31 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, existing, fill, packbits, reqmerge, spread,
+        capacity, consolidate, existing, fill, packbits, reqmerge, spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
         "req_merge": reqmerge.launches, "pack_bool": packbits.launches,
         "existing_intake": existing.intake_launches,
         "existing_phase": existing.phase_launches, "spread_quota": spread.launches,
+        "sweep_lanes": consolidate.lanes_launches, "lane_finish": consolidate.finish_launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, existing, fill, packbits, reqmerge, spread,
+        capacity, consolidate, existing, fill, packbits, reqmerge, spread,
     )
     for mod in (capacity, fill, reqmerge, packbits, spread):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
+    consolidate.lanes_launches = consolidate.finish_launches = 0
+
+
+def check_launched(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched on the {path}")
 
 
 def same_leaves(got_outputs, want_outputs, label: str) -> None:
@@ -165,9 +207,11 @@ def leaves(outputs) -> dict:
     return out
 
 
-def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops):
-    """Hold one kernel against its plain twin (exactly), time both, and
-    append the kernel's record; returns the kernel's outputs."""
+def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops,
+                  library_fn=None):
+    """Hold one kernel against its plain twin (exactly), time both (and the
+    one PyTorch call that computes the same function, where there is one),
+    and append the kernel's record; returns the kernel's outputs."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -180,7 +224,7 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
         "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
         else "operations",
-        "library_ms": None,
+        "library_ms": time_ms(library_fn) if library_fn is not None else None,
     }
     records.append(rec)
     print(f"{name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
@@ -200,9 +244,11 @@ def path_counts(results) -> dict:
     }
 
 
-def existing_path(records, cold_launches) -> None:
+def existing_path(records, cold_launches):
     """Phase 3: the 50,000-pod backlog into a live 5,000-node cluster, then
-    K5-K7 against their twins at this path's shapes."""
+    K5-K7 against their twins at this path's shapes.  Returns the mid-size
+    and the full-size cluster, each (state_nodes, bound_pods), and this
+    path's launches."""
     from karpenter_core_tpu_torch.kernels import existing, fill, reqmerge, spread
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import masks as mask_ops
@@ -218,7 +264,7 @@ def existing_path(records, cold_launches) -> None:
           flush=True)
     if mid != MID_EXPECTED:
         fail(f"existing mid-size: {mid}, the JAX package's answer is {MID_EXPECTED}")
-    del mid_nodes, mid_bound, mid_solver, mid_pods
+    del mid_solver, mid_pods
 
     t0 = time.perf_counter()
     state_nodes, bound_pods = build_cluster(N_NODES, N_TYPES, N_PROVISIONERS, FILL, CLUSTER_SEED)
@@ -262,9 +308,7 @@ def existing_path(records, cold_launches) -> None:
             fail(f"existing {label}: no pod landed on an existing node")
     print(json.dumps({"existing_cold_run_launches": launches,
                       "existing_cold_run_host_syncs": syncs}), flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} never launched on the existing-node path")
+    check_launched(launches, PROVISIONING_KERNELS, "existing-node path")
     snapshot = solver.encode(ingest, state_nodes, bound_pods)
     prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
     if not bool((out.ex_state.used <= prep.ex_static.alloc + 1e-4).all()):
@@ -372,6 +416,172 @@ def existing_path(records, cold_launches) -> None:
     for rec in records:
         rec["launches_per_path"] = {"cold": cold_launches[rec["name"]],
                                     "existing": launches[rec["name"]]}
+    return (mid_nodes, mid_bound), (state_nodes, bound_pods), launches
+
+
+def command_summary(cmd) -> dict:
+    """A consolidation command in package-neutral terms (either package's)."""
+    zone_key, ct_key = "topology.kubernetes.io/zone", "karpenter.sh/capacity-type"
+    return {
+        "action": cmd.action.value, "nodes_removed": len(cmd.nodes_to_remove),
+        "replacements": [{
+            "options": [it.name for it in r.instance_type_options],
+            "zones": sorted(r.requirements.get(zone_key).values),
+            "capacity_types": sorted(r.requirements.get(ct_key).values),
+        } for r in cmd.replacement_nodes],
+    }
+
+
+def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_launches) -> None:
+    """Phase 4: multi-node consolidation of phase 3's clusters, every node a
+    candidate and no pending pods; then K8 and K9 against their twins at
+    this path's shapes."""
+    import numpy as np
+
+    from karpenter_core_tpu_torch.kernels import consolidate as k89
+    from karpenter_core_tpu_torch.ops import consolidate as consolidate_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.solver.consolidation import (
+        CudaConsolidationSearch,
+        fetch_planes,
+    )
+    from karpenter_core_tpu_torch.testing.workloads import (
+        build_provider,
+        consolidation_candidates,
+    )
+
+    mid_nodes, mid_bound = mid_cluster
+    t0 = time.perf_counter()
+    mid_search = CudaConsolidationSearch(*build_provider(MID_TYPES, N_PROVISIONERS))
+    mid_cmd = mid_search.compute_command(
+        consolidation_candidates(mid_nodes, mid_bound, MID_TYPES, N_PROVISIONERS), [],
+        mid_nodes, mid_bound)
+    mid = command_summary(mid_cmd)
+    print(json.dumps({"run": "consolidation mid-size", "wall_s": time.perf_counter() - t0,
+                      "passes": [len(sizes) for sizes, _ in mid_search.passes], **mid}),
+          flush=True)
+    if mid != MID_CONSOLIDATION:
+        fail(f"consolidation mid-size: {mid}, the JAX package's answer is {MID_CONSOLIDATION}")
+    del mid_search, mid_cmd
+
+    state_nodes, bound_pods = cluster
+    t0 = time.perf_counter()
+    candidates = consolidation_candidates(state_nodes, bound_pods, N_TYPES, N_PROVISIONERS)
+    candidates_s = time.perf_counter() - t0
+    search = CudaConsolidationSearch(*build_provider(N_TYPES, N_PROVISIONERS))
+    reset_launches()
+    solve_ops.host_syncs = 0
+    t0 = time.perf_counter()
+    cmd = search.compute_command(candidates, [], state_nodes, bound_pods)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    syncs = solve_ops.host_syncs
+    summary = command_summary(cmd)
+    k = summary["nodes_removed"]
+    print(json.dumps({
+        "run": "consolidation full-size", "candidates": len(candidates),
+        "candidates_s": candidates_s, "wall_s": wall_s, **search.stages,
+        "passes": [len(sizes) for sizes, _ in search.passes], "host_syncs": syncs, **summary,
+        "replacement_requests": [r.requests for r in cmd.replacement_nodes],
+        "launches": launches,
+    }), flush=True)
+    check_launched(launches, CONSOLIDATION_KERNELS, "consolidation path")
+    if [n.name for n in cmd.nodes_to_remove] != [c.node.name for c in candidates[:k]]:
+        fail("consolidation: the removed nodes are not a prefix of the candidate list")
+    if k:
+        sizes, out = next((sizes, out) for sizes, out in reversed(search.passes)
+                          if k in sizes.tolist())
+        lane = sizes.tolist().index(k)
+        n_new, failed = int(out.n_new[lane]), int(out.failed[lane])
+        uninit = bool(out.used_uninitialized[lane])
+        old_price = float(search._candidate_price_cumsum(candidates)[k - 1])
+        print(json.dumps({"chosen_lane": {
+            "k": k, "n_new": n_new, "failed": failed, "used_uninitialized": uninit,
+            "new_cost": float(out.new_cost[lane]), "removed_nodes_price": old_price,
+        }}), flush=True)
+        if failed or uninit or n_new > 1:
+            fail(f"consolidation: the chosen lane (k={k}) has failed={failed}, "
+                 f"uninit={uninit}, n_new={n_new}")
+
+    # maximality: no evaluated lane above k is valid, and k + 1 was evaluated
+    snapshot, prep = search.prepared
+    evaluated = sorted({int(size) for sizes, _ in search.passes for size in sizes})
+    valid_above = [size for sizes, out in search.passes
+                   for lane, size in enumerate(sizes.tolist())
+                   if size > k and search.lane_command(snapshot, out, lane,
+                                                       candidates[:size]) is not None]
+    print(json.dumps({"maximality": {"k": k, "evaluated": len(evaluated),
+                                     "next_evaluated": k + 1 in evaluated,
+                                     "valid_above_k": valid_above}}), flush=True)
+    if valid_above:
+        fail(f"consolidation: lanes {valid_above} above the chosen k={k} are valid")
+    if k < len(candidates) and k + 1 not in evaluated:
+        fail(f"consolidation: k={k} was chosen but k + 1 was never evaluated")
+
+    # the coarse pass again through the plain twins
+    coarse_sizes, coarse_out = search.passes[0]
+    t0 = time.perf_counter()
+    stack = consolidate_ops.run_lanes(prep, coarse_sizes, use_kernels=False)
+    plain_out = consolidate_ops.SweepOutputs(*fetch_planes(
+        consolidate_ops.finish_lanes(prep, stack, use_kernels=False)))
+    print(json.dumps({"run": "consolidation coarse pass, plain twins (use_kernels=False)",
+                      "lanes": len(coarse_sizes), "wall_s": time.perf_counter() - t0}),
+          flush=True)
+    for name in consolidate_ops.SweepOutputs._fields:
+        got, want = getattr(coarse_out, name), getattr(plain_out, name)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"consolidation: SweepOutputs.{name} differs in dtype or shape")
+        if name == "new_cost":
+            if not np.allclose(got, want, rtol=1e-6, atol=0):
+                fail("consolidation: new_cost differs beyond rtol 1e-6")
+        elif not np.array_equal(got, want):
+            fail(f"consolidation: SweepOutputs.{name} differs between the kernels and their "
+                 "plain twins")
+    print("consolidation path: every SweepOutputs leaf of the coarse pass equals the "
+          "plain-twin pass (new_cost bit-exact: "
+          f"{np.array_equal(coarse_out.new_cost, plain_out.new_cost)})", flush=True)
+
+    # -- K8 and K9 at this path's shapes: the coarse pass ---------------------
+    sizes_t = torch.as_tensor(coarse_sizes, dtype=torch.int32, device="cuda")
+    k8 = (prep.candidate_rank, prep.ex_state.open_, prep.cls.count, prep.ex_cls_count, sizes_t)
+    n_lanes, (n_cls, n_ex) = len(coarse_sizes), prep.ex_cls_count.shape
+    subset_f = (prep.candidate_rank[None, :] < sizes_t[:, None]).float()
+    counts_f = prep.ex_cls_count.float().t().contiguous()  # [E, C]
+    lane_open, lane_count = record_kernel(
+        records, "sweep_lanes", "karpenter_core_tpu_torch/csrc/sweep_lanes.cu",
+        "karpenter_core_tpu/ops/consolidate.py:69", launches["sweep_lanes"],
+        lambda: k89.sweep_lanes(*k8), lambda: k89.sweep_lanes_plain(*k8),
+        nbytes(*k8) + n_lanes * n_ex + n_lanes * n_cls * 4, 2 * n_lanes * n_cls * n_ex,
+        library_fn=lambda: torch.matmul(subset_f, counts_f),
+    )
+    library_exact = torch.equal(torch.matmul(subset_f, counts_f).to(torch.int32)
+                                + prep.cls.count[None, :], lane_count)
+    k9 = (stack.viable, stack.zone, stack.ct, stack.open_, stack.pod_count, stack.failed,
+          stack.assign_existing, prep.ex_static.init, prep.it_price)
+    _, n_slots, n_types = stack.viable.shape
+    n_offers = prep.it_price.shape[1] * prep.it_price.shape[2]
+    record_kernel(
+        records, "lane_finish", "karpenter_core_tpu_torch/csrc/lane_finish.cu",
+        "karpenter_core_tpu/ops/solve.py:2140", launches["lane_finish"],
+        lambda: k89.lane_finish(*k9), lambda: k89.lane_finish_plain(*k9),
+        nbytes(*k9) + n_lanes * (n_slots * 4 + 9),
+        n_lanes * (n_slots * n_types * n_offers + n_cls * n_ex),
+    )
+    # one lane; every slot closed (priced at nothing)
+    one_lane = k8[:4] + (sizes_t[-1:],)
+    if max_abs_err(k89.sweep_lanes(*one_lane), k89.sweep_lanes_plain(*one_lane)) != 0.0:
+        fail("sweep_lanes with one lane differs from its twin")
+    closed = (k9[0], k9[1], k9[2], torch.zeros_like(k9[3]), *k9[4:])
+    if max_abs_err(k89.lane_finish(*closed), k89.lane_finish_plain(*closed)) != 0.0:
+        fail("lane_finish with every slot closed differs from its twin")
+    print(f"consolidation path kernels exact: K8 (the coarse pass and one lane), K9 (the "
+          f"coarse pass and every slot closed); K8's matmul yardstick exact: {library_exact}",
+          flush=True)
+    for rec in records:
+        per_path = rec.setdefault("launches_per_path", {"cold": cold_launches[rec["name"]],
+                                                        "existing": existing_launches[rec["name"]]})
+        per_path["consolidation"] = launches[rec["name"]]
 
 
 def main() -> None:
@@ -426,9 +636,7 @@ def main() -> None:
         if len(results.new_nodes) != EXPECTED_NODES:
             fail(f"{label}: {len(results.new_nodes)} nodes, expected {EXPECTED_NODES}")
     print(json.dumps({"cold_run_launches": launches, "cold_run_host_syncs": syncs}), flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} never launched on the main path")
+    check_launched(launches, PROVISIONING_KERNELS, "cold path")
     kernel_out = solver.last_outputs
 
     plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
@@ -548,9 +756,11 @@ def main() -> None:
     print("extra cases exact: it_capacity bounded keys + zero-request class; "
           "fill_priority with preferences", flush=True)
 
-    existing_path(records, launches)
-    print("library_ms: null for all seven — no single PyTorch call computes any of "
-          "them", flush=True)
+    mid_cluster, cluster, existing_launches = existing_path(records, launches)
+    consolidation_path(records, mid_cluster, cluster, launches, existing_launches)
+    print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
+          "count plane; null for the others — no single PyTorch call computes them",
+          flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

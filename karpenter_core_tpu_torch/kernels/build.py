@@ -34,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("it_capacity", "fill_priority", "req_merge", "pack_bool", "existing_intake",
-           "existing_phase", "spread_quota")
+           "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

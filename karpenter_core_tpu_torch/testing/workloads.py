@@ -11,6 +11,8 @@ and 2/7 zone self-affinity over 7 label groups.  The main path runs it at
 ``build_cluster`` is the live cluster those pods meet on the existing-node
 path: N initialized nodes of the same catalog and provisioners, filled with
 bound pods of the same mix to a given share of their cpu.
+``consolidation_candidates`` lists that cluster's nodes as multi-node
+consolidation candidates, the input of ``CudaConsolidationSearch``.
 """
 
 from __future__ import annotations
@@ -79,16 +81,24 @@ def build_pods(n_pods: int) -> List[Pod]:
     return pods
 
 
-def build_inputs(n_pods: int, n_instance_types: int, n_provisioners: int,
-                 device=None, use_kernels: bool = True) -> Tuple[object, List[Pod]]:
-    """(CudaSolver, pods) for the headline workload (``device=None``: CUDA)."""
-    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
-
+def build_provider(n_instance_types: int, n_provisioners: int):
+    """(FakeCloudProvider, provisioners) of the headline workload: the fake
+    catalog of ``n_instance_types`` types and provisioners ``prov-{i}`` of
+    weight ``n_provisioners - i``."""
     provider = fake_cp.FakeCloudProvider(fake_cp.instance_types(n_instance_types))
     provisioners = [
         make_provisioner(name=f"prov-{i}", weight=n_provisioners - i)
         for i in range(n_provisioners)
     ]
+    return provider, provisioners
+
+
+def build_inputs(n_pods: int, n_instance_types: int, n_provisioners: int,
+                 device=None, use_kernels: bool = True) -> Tuple[object, List[Pod]]:
+    """(CudaSolver, pods) for the headline workload (``device=None``: CUDA)."""
+    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+
+    provider, provisioners = build_provider(n_instance_types, n_provisioners)
     solver = CudaSolver(provider, provisioners, device=device, use_kernels=use_kernels)
     return solver, build_pods(n_pods)
 
@@ -173,3 +183,48 @@ def build_cluster(n_nodes: int, n_instance_types: int, n_provisioners: int, fill
         if cursor[min(cursor)] >= n_nodes:
             break
     return nodes, bound
+
+
+def consolidation_candidates(state_nodes: list, bound_pods: List[Pod], n_instance_types: int,
+                             n_provisioners: int) -> list:
+    """The ``CandidateNode``s of a ``build_cluster`` cluster, sorted by
+    disruption cost (a stable sort, so ties keep node order).
+
+    Eligibility follows the reference's ``candidate_nodes``
+    (karpenter_core_tpu/controllers/deprovisioning.py:224, helpers.go:171-249):
+    a node is a candidate when it is not marked for deletion, its provisioner
+    exists, its instance type is in that provisioner's catalog, it has zone
+    and capacity-type labels and it is initialized.  No node of
+    ``build_cluster`` is nominated, and its provisioners set no expiry, so
+    each node's cost is the disruption cost of its pods."""
+    from karpenter_core_tpu_torch.controllers.deprovisioning import (
+        CandidateNode,
+        disruption_cost,
+    )
+
+    provider, provisioners = build_provider(n_instance_types, n_provisioners)
+    by_name = {p.name: p for p in provisioners}
+    catalogs = {
+        p.name: {it.name: it for it in provider.get_instance_types(p)} for p in provisioners
+    }
+    pods_on: dict = {}
+    for pod in bound_pods:
+        pods_on.setdefault(pod.spec.node_name, []).append(pod)
+    out = []
+    for state_node in state_nodes:
+        labels = state_node.node.metadata.labels
+        provisioner = by_name.get(labels.get(labels_api.PROVISIONER_NAME_LABEL_KEY, ""))
+        if state_node.marked() or provisioner is None:
+            continue
+        it = catalogs[provisioner.name].get(labels.get(labels_api.LABEL_INSTANCE_TYPE_STABLE, ""))
+        ct = labels.get(labels_api.LABEL_CAPACITY_TYPE)
+        zone = labels.get(labels_api.LABEL_TOPOLOGY_ZONE)
+        if it is None or not ct or not zone or not state_node.initialized():
+            continue
+        pods = pods_on.get(state_node.node.name, [])
+        out.append(CandidateNode(
+            node=state_node.node, state_node=state_node, instance_type=it, capacity_type=ct,
+            zone=zone, provisioner=provisioner, disruption_cost=disruption_cost(pods),
+            pods=pods,
+        ))
+    return sorted(out, key=lambda c: c.disruption_cost)

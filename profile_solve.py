@@ -1,6 +1,6 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing] [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -19,6 +19,13 @@ one JSON object with:
   - every kind of device copy and memset, with its count (a device-to-host
     copy is a point where the host waited for the device);
   - the ten device operations that took the most device time.
+
+With ``--consolidation`` the profiled call is instead a warm multi-node
+consolidation of that 5,000-node cluster (``CudaConsolidationSearch.
+compute_command``, every node a candidate, no pending pods: phase 4 of
+``chip_smoke.py``), traced with the CUDA activity only (its sweep runs some
+600,000 device operations); its stage split replaces the solve's, and the
+device's busy share is over the wall time of the call.
 
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
@@ -41,6 +48,8 @@ PORT_KERNELS = {
     "existing_mask_kernel": "existing_phase (mask)",
     "existing_commit_kernel": "existing_phase (commit)",
     "spread_quota_kernel": "spread_quota",
+    "sweep_lanes_kernel": "sweep_lanes",
+    "lane_finish_kernel": "lane_finish",
 }
 
 
@@ -52,11 +61,85 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_summary(prof) -> dict:
+    """The profiled window's device work: busy microseconds, the port's
+    kernels, copies and memsets, the ten heaviest operations."""
+    # device-side events only (kernels, copies, memsets): the host ops that
+    # launched them carry the same device time, which would count it twice
+    device_events = [
+        e for e in prof.key_averages()
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
+    ]
+    kernels = {}
+    for evt in device_events:
+        for prefix, name in PORT_KERNELS.items():
+            if prefix in evt.key:
+                rec = kernels.setdefault(name, {"launches": 0, "device_us": 0.0})
+                rec["launches"] += evt.count
+                rec["device_us"] += _device_us(evt)
+    for rec in kernels.values():
+        rec["device_us_per_launch"] = rec["device_us"] / max(rec["launches"], 1)
+    copies = {}
+    for evt in device_events:
+        if evt.key.startswith("Memcpy") or evt.key.startswith("Memset"):
+            rec = copies.setdefault(evt.key, {"count": 0, "device_us": 0.0})
+            rec["count"] += evt.count
+            rec["device_us"] += _device_us(evt)
+    top = sorted(device_events, key=_device_us, reverse=True)[:10]
+    return {
+        "device_busy_us": sum(_device_us(e) for e in device_events),
+        "device_ops": sum(e.count for e in device_events),
+        "port_kernels": kernels,
+        "copies": copies,
+        "top_device_ops": [
+            {"op": e.key[:80], "count": e.count, "device_us": _device_us(e)} for e in top
+        ],
+    }
+
+
+def profile_consolidation(prof_factory, smi: str) -> tuple:
+    """(profiler, report) of a warm multi-node consolidation of the
+    5,000-node cluster."""
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.solver.consolidation import CudaConsolidationSearch
+    from karpenter_core_tpu_torch.testing.workloads import (
+        build_cluster,
+        build_provider,
+        consolidation_candidates,
+    )
+
+    state_nodes, bound_pods = build_cluster(5000, 1000, 5, 0.6, 2024)
+    candidates = consolidation_candidates(state_nodes, bound_pods, 1000, 5)
+    search = CudaConsolidationSearch(*build_provider(1000, 5))
+    search.compute_command(candidates, [], state_nodes, bound_pods)  # warm-up
+    torch.cuda.synchronize()
+    solve_ops.host_syncs = 0
+    with prof_factory() as prof:
+        t0 = time.perf_counter()
+        cmd = search.compute_command(candidates, [], state_nodes, bound_pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof)
+    return prof, {
+        "card": smi, "path": "consolidation", "wall_s": wall, **search.stages,
+        "passes": [len(sizes) for sizes, _ in search.passes],
+        "action": cmd.action.value, "nodes_removed": len(cmd.nodes_to_remove),
+        "host_syncs": solve_ops.host_syncs,
+        "device_busy_share_of_call": summary["device_busy_us"] / 1e6 / wall,
+        "device_busy_share_of_sweep_s": summary["device_busy_us"] / 1e6 / sum(
+            search.stages["sweep_s"]),
+        **summary,
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
-    parser.add_argument("--existing", action="store_true",
-                        help="solve into the live 5,000-node cluster of chip_smoke.py phase 3")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--existing", action="store_true",
+                      help="solve into the live 5,000-node cluster of chip_smoke.py phase 3")
+    mode.add_argument("--consolidation", action="store_true",
+                      help="consolidate that cluster, as chip_smoke.py phase 4 does")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -74,6 +157,13 @@ def main() -> None:
     )
     print(smi.stdout.strip(), flush=True)
     build.build_all()
+    if args.consolidation:
+        prof, report = profile_consolidation(
+            lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
+        print(json.dumps(report), flush=True)
+        if args.trace:
+            prof.export_chrome_trace(args.trace)
+        return
     solver, pods = build_inputs(50_000, 1000, 5)
     cluster = build_cluster(5000, 1000, 5, 0.6, 2024) if args.existing else ([], [])
     ingest = PodIngest()
@@ -101,43 +191,16 @@ def main() -> None:
               f"{len(results.failed_pods)} failed", file=sys.stderr)
         sys.exit(1)
 
-    # device-side events only (kernels, copies, memsets): the host ops that
-    # launched them carry the same device time, which would count it twice
-    device_events = [
-        e for e in prof.key_averages()
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
-    ]
-    device_us = sum(_device_us(e) for e in device_events)
-    kernels = {}
-    for evt in device_events:
-        for prefix, name in PORT_KERNELS.items():
-            if prefix in evt.key:
-                rec = kernels.setdefault(name, {"launches": 0, "device_us": 0.0})
-                rec["launches"] += evt.count
-                rec["device_us"] += _device_us(evt)
-    for rec in kernels.values():
-        rec["device_us_per_launch"] = rec["device_us"] / max(rec["launches"], 1)
-    copies = {}
-    for evt in device_events:
-        if evt.key.startswith("Memcpy") or evt.key.startswith("Memset"):
-            rec = copies.setdefault(evt.key, {"count": 0, "device_us": 0.0})
-            rec["count"] += evt.count
-            rec["device_us"] += _device_us(evt)
-    top = sorted(device_events, key=_device_us, reverse=True)[:10]
+    summary = device_summary(prof)
     solve_window = wall - t_ingest
     print(json.dumps({
         "card": smi.stdout.strip(), "path": "existing" if args.existing else "cold",
         "wall_s": wall, "ingest_s": t_ingest, **solver.stages,
         "host_syncs": solve_ops.host_syncs,
-        "device_busy_us": device_us,
-        "device_busy_share_of_solve_call": device_us / 1e6 / solve_window,
-        "device_busy_share_of_solve_s": device_us / 1e6 / solver.stages["solve_s"],
-        "device_ops": sum(e.count for e in device_events),
-        "port_kernels": kernels,
-        "copies": copies,
-        "top_device_ops": [
-            {"op": e.key[:80], "count": e.count, "device_us": _device_us(e)} for e in top
-        ],
+        "device_busy_us": summary["device_busy_us"],
+        "device_busy_share_of_solve_call": summary["device_busy_us"] / 1e6 / solve_window,
+        "device_busy_share_of_solve_s": summary["device_busy_us"] / 1e6 / solver.stages["solve_s"],
+        **{k: v for k, v in summary.items() if k != "device_busy_us"},
     }), flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)

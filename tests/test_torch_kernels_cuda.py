@@ -15,7 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from karpenter_core_tpu_torch.kernels import capacity, existing, fill, packbits, reqmerge, spread
+from karpenter_core_tpu_torch.kernels import (
+    capacity,
+    consolidate,
+    existing,
+    fill,
+    packbits,
+    reqmerge,
+    spread,
+)
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 
@@ -199,3 +207,56 @@ def test_spread_quota_matches_plain(card, seed):
     ]
     t = [torch.as_tensor(np.asarray(a)).to(card) for a in args]
     _equal(spread.spread_quota(*t), spread.spread_quota_plain(*t))
+
+
+@pytest.mark.parametrize("n_lanes,n_ex,n_cls", [
+    (64, 6144, 16),  # the full-size sweep's shapes
+    (1, 6144, 16),   # one lane
+    (13, 1000, 9),   # E not a multiple of the block, C not a power of two
+    (5, 1, 1),
+])
+def test_sweep_lanes_matches_plain(card, n_lanes, n_ex, n_cls):
+    rng = np.random.default_rng(n_lanes * 7 + n_ex)
+    n_cand = max(n_ex * 4 // 5, 1)
+    rank = np.full(n_ex, 1 << 30, np.int32)
+    rank[rng.permutation(n_ex)[:n_cand]] = np.arange(n_cand, dtype=np.int32)
+    sizes = np.sort(rng.integers(1, n_cand + 1, n_lanes)).astype(np.int32)
+    args = [rank, rng.random(n_ex) < 0.9, rng.integers(0, 500, n_cls).astype(np.int32),
+            rng.integers(0, 40, (n_cls, n_ex)).astype(np.int32), sizes]
+    t = [torch.as_tensor(a).to(card) for a in args]
+    _equal(consolidate.sweep_lanes(*t), consolidate.sweep_lanes_plain(*t))
+
+
+def _finish_args(rng, dev, n_lanes, n_slots, n_it, n_cls, n_ex, closed=False, no_offer=False):
+    viable = rng.random((n_lanes, n_slots, n_it)) < 0.3
+    if no_offer:
+        viable[:, ::2] = False  # every other slot has no viable type: +inf price
+    price = (rng.integers(1, 4000, (n_it, 3, 2)) * 0.001).astype(np.float32)
+    price[rng.random((n_it, 3, 2)) < 0.2] = np.inf  # unavailable offerings
+    open_ = np.zeros((n_lanes, n_slots), bool) if closed else rng.random((n_lanes, n_slots)) < 0.7
+    assign = np.where(rng.random((n_lanes, n_cls, n_ex)) < 0.01,
+                      rng.integers(1, 4, (n_lanes, n_cls, n_ex)), 0).astype(np.int32)
+    init = rng.random(n_ex) < 0.97
+    assign[1::2][:, :, ~init] = 0  # odd lanes use no uninitialized node
+    args = [viable, rng.random((n_lanes, n_slots, 3)) < 0.7, rng.random((n_lanes, n_slots, 2)) < 0.7,
+            open_, rng.integers(0, 3, (n_lanes, n_slots)).astype(np.int32),
+            rng.integers(0, 5, (n_lanes, n_cls)).astype(np.int32), assign, init, price]
+    return [torch.as_tensor(a).to(dev) for a in args]
+
+
+@pytest.mark.parametrize("n_lanes,n_slots,n_it,n_cls,n_ex,closed,no_offer", [
+    (64, 16, 1000, 16, 6144, False, False),  # the full-size sweep's shapes
+    (1, 16, 1000, 16, 6144, False, False),   # one lane
+    (7, 16, 77, 9, 1000, False, True),       # E off the block; slots with no offering
+    (9, 16, 40, 3, 50, True, False),         # every slot closed
+])
+def test_lane_finish_matches_plain(card, n_lanes, n_slots, n_it, n_cls, n_ex, closed, no_offer):
+    args = _finish_args(np.random.default_rng(n_lanes + n_ex), card, n_lanes, n_slots, n_it,
+                        n_cls, n_ex, closed, no_offer)
+    got, want = consolidate.lane_finish(*args), consolidate.lane_finish_plain(*args)
+    _equal(got, want)
+    if closed:
+        assert not got[0].any() and not got[1].any()
+    if no_offer:
+        assert torch.isinf(got[0]).any()
+    assert not got[3][1::2].any()
