@@ -1,10 +1,10 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
-into an empty cluster and into a live 5,000-node cluster, and multi-node
-consolidation of that cluster.
+into an empty cluster and into a live 5,000-node cluster, multi-node
+consolidation of that cluster, and the warm repair under steady churn.
 
     python3 chip_smoke.py
 
-Builds the nine hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the twelve hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
@@ -44,6 +44,28 @@ csrc`` (one nvcc per source, all at once), then:
      leaf must equal the kernel run (``new_cost`` to rtol 1e-6, the one
      leaf whose f32 sum the reference lets vary with reduction order).
      Then K8 and K9 against their twins at this path's shapes.
+  5. churn path — the incremental session's serial delta tick
+     (``IncrementalSolveSession.solve``), with FallbackPolicy(enabled=True,
+     audit_interval=0, max_delta_fraction=0.5):
+     (a) the 50,000-pod backlog of phase 1, seeded with a full solve, then
+         5 ticks of ``testing.workloads.churn_tick`` (2 % of the pods
+         replaced in a rotating quarter of the classes).  Each tick first
+         re-solves the whole ingest from scratch (``CudaSolver``), then
+         runs the session.  Every tick must be a delta whose
+         ``node_signature()`` equals the re-solve's, with the JAX
+         package's evictions (999 / 999 / 999 / 999 / 1,001), freed-hole
+         slots (437 / 3 / 3 / 19 / 366) and windows (512 / 256 / 256 / 256
+         / 512), measured on the CPU; at the end 50,000 scheduled, 0
+         failed, 7,162 nodes.  A second session on ``use_kernels=False``
+         runs the same ticks: after each, every leaf of its carry and its
+         assignment planes must equal the kernel session's.  K10-K12 and
+         K1-K7 must have launched in the delta ticks (counts zeroed just
+         before each ``session.solve`` and read just after).
+     (b) the mid-size live cluster of phase 3 with its 10,000 pods, 4
+         ticks, each checked against a session that always solves in full
+         (FallbackPolicy(enabled=False)): every tick a delta with the same
+         signature, the JAX package's evictions and totals (``MID_CHURN``).
+     Then K10-K12 against their twins on (a)'s last tick's inputs.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
@@ -51,8 +73,11 @@ of CUDA-event timings of one call, wrapper included) beside its plain twin
 and its bound: bytes it must move over 3.35 TB/s, or operations over 67 T/s,
 whichever is larger (H100 SXM data-sheet peaks at 700 W).  K8's
 ``library_ms`` times one ``torch.matmul`` of the f32 lane-subset mask with
-the f32 count plane, which computes its displaced counts; no single PyTorch
-call computes any of the others, so theirs is null.
+the f32 count plane, which computes its displaced counts; K10's one
+``torch.matmul`` of ``free_new.T.float()`` with the class requests, which
+computes its ``used`` term; no single PyTorch call computes any of the
+others (K11 and K12 are gathers and scatters of 13 planes with a zone-count
+reduction), so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
@@ -93,10 +118,24 @@ MID_CONSOLIDATION = {
                       "zones": ["test-zone-1", "test-zone-2", "test-zone-3"],
                       "capacity_types": ["spot"]}],
 }
+# the JAX package's answer for 4 ticks of workloads.churn_tick on the
+# mid-size cluster and backlog above, through an IncrementalSolveSession with
+# FallbackPolicy(enabled=True, audit_interval=0, max_delta_fraction=0.5),
+# measured on the CPU; tests/test_torch_incremental.py holds both packages
+# to it
+MID_CHURN = {"ticks": 4, "evicted_existing": [149, 201, 201, 201], "evicted_new": [50, 0, 0, 0],
+             "aggregates": {"scheduled": 10_000, "failed": 0, "nodes": 1391}}
 # the kernels each path runs (K4 packs the provisioning decode's planes; the
 # sweep's fetch has no big plane)
 PROVISIONING_KERNELS = ("it_capacity", "fill_priority", "req_merge", "pack_bool",
                         "existing_intake", "existing_phase", "spread_quota")
+CHURN_KERNELS = PROVISIONING_KERNELS + ("repair_free", "repair_gather", "repair_scatter")
+# the JAX package's answers for phase 5 (a), measured on the CPU: evictions,
+# freed-hole slots and window slots per tick, and the totals after the last
+HEADLINE_CHURN = {"evicted": [999, 999, 999, 999, 1001], "hole_slots": [437, 3, 3, 19, 366],
+                  "window": [512, 256, 256, 256, 512],
+                  "aggregates": {"scheduled": N_PODS, "failed": 0, "nodes": EXPECTED_NODES}}
+CHURN_POLICY = {"enabled": True, "audit_interval": 0, "max_delta_fraction": 0.5}
 CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
                          "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
 
@@ -160,7 +199,7 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, consolidate, existing, fill, packbits, reqmerge, spread,
+        capacity, consolidate, existing, fill, packbits, repair, reqmerge, spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
@@ -168,17 +207,20 @@ def launch_counts() -> dict:
         "existing_intake": existing.intake_launches,
         "existing_phase": existing.phase_launches, "spread_quota": spread.launches,
         "sweep_lanes": consolidate.lanes_launches, "lane_finish": consolidate.finish_launches,
+        "repair_free": repair.free_launches, "repair_gather": repair.gather_launches,
+        "repair_scatter": repair.scatter_launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, consolidate, existing, fill, packbits, reqmerge, spread,
+        capacity, consolidate, existing, fill, packbits, repair, reqmerge, spread,
     )
     for mod in (capacity, fill, reqmerge, packbits, spread):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
+    repair.free_launches = repair.gather_launches = repair.scatter_launches = 0
 
 
 def check_launched(launches: dict, names, path: str) -> None:
@@ -432,10 +474,10 @@ def command_summary(cmd) -> dict:
     }
 
 
-def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_launches) -> None:
+def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_launches) -> dict:
     """Phase 4: multi-node consolidation of phase 3's clusters, every node a
     candidate and no pending pods; then K8 and K9 against their twins at
-    this path's shapes."""
+    this path's shapes.  Returns this path's launches."""
     import numpy as np
 
     from karpenter_core_tpu_torch.kernels import consolidate as k89
@@ -582,6 +624,225 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
         per_path = rec.setdefault("launches_per_path", {"cold": cold_launches[rec["name"]],
                                                         "existing": existing_launches[rec["name"]]})
         per_path["consolidation"] = launches[rec["name"]]
+    return launches
+
+
+def carry_leaves(carry) -> dict:
+    out = {"remaining": carry.remaining}
+    for group in ("state", "ex_state", "topo"):
+        tup = getattr(carry, group)
+        for f in tup._fields:
+            out[f"{group}.{f}"] = getattr(tup, f)
+    return out
+
+
+def same_lineage(got, want, label: str) -> None:
+    """Two sessions' lineages: every carry leaf and the assignment planes."""
+    import numpy as np
+
+    a, b = carry_leaves(got._warm.carry), carry_leaves(want._warm.carry)
+    for name, t in a.items():
+        if t.shape != b[name].shape or t.dtype != b[name].dtype or not torch.equal(t, b[name]):
+            fail(f"{label}: carry leaf {name} differs between the kernels and their plain twins")
+    if not (np.array_equal(got._warm.assign, want._warm.assign)
+            and np.array_equal(got._warm.assign_ex, want._warm.assign_ex)):
+        fail(f"{label}: the assignment planes differ between the kernels and their plain twins")
+
+
+def full_signature(solver, ingest, state_nodes=None, bound_pods=None):
+    """The node signature of a from-scratch solve of the ingest, and its
+    wall seconds (encode to decode)."""
+    from karpenter_core_tpu_torch.models.store import class_key
+    from karpenter_core_tpu_torch.solver.incremental import node_signature_of
+
+    t0 = time.perf_counter()
+    snapshot = solver.encode(ingest, state_nodes, bound_pods)
+    solver.solve_encoded(snapshot, state_nodes, bound_pods)
+    out = solver.last_outputs
+    assign, assign_ex = out.assign.cpu().numpy(), out.assign_existing.cpu().numpy()
+    wall_s = time.perf_counter() - t0
+    keys = [class_key(c) for c in snapshot.classes]
+    return node_signature_of(assign, keys) + node_signature_of(assign_ex, keys), wall_s
+
+
+def churn_path(records, mid_cluster, path_launches) -> None:
+    """Phase 5: the warm repair's serial delta tick, at the headline's full
+    width and on the mid-size live cluster; then K10-K12 against their twins
+    on the headline's last tick's inputs."""
+    from karpenter_core_tpu_torch.kernels import repair
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.solver.incremental import (
+        FallbackPolicy,
+        IncrementalSolveSession,
+    )
+    from karpenter_core_tpu_torch.testing.workloads import build_inputs, churn_tick
+
+    # -- (a) the headline backlog under 2 % churn -----------------------------
+    solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+    plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    session = IncrementalSolveSession(solver, FallbackPolicy(**CHURN_POLICY))
+    plain = IncrementalSolveSession(plain_solver, FallbackPolicy(**CHURN_POLICY))
+    t0 = time.perf_counter()
+    session.solve(ingest)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    plain.solve(ingest)
+    same_lineage(session, plain, "churn seed")
+    # record the last tick's K10-K12 inputs for the kernel checks below
+    recorded = {}
+    originals = {name: getattr(solve_ops, name) for name in
+                 ("repair_free", "gather_repair_window", "scatter_repair_window")}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            if kwargs.get("use_kernels", True):
+                recorded[name] = args
+            return originals[name](*args, **kwargs)
+        return call
+
+    launches = {name: 0 for name in launch_counts()}
+    reps = {}
+    ticks = []
+    for tick in range(len(HEADLINE_CHURN["evicted"])):
+        evicted, _ = churn_tick(ingest, tick, reps)
+        full_sig, full_s = full_signature(solver, ingest)
+        torch.cuda.synchronize()
+        for name in originals:
+            setattr(solve_ops, name, recording(name))
+        reset_launches()
+        solve_ops.host_syncs = 0
+        t0 = time.perf_counter()
+        session.solve(ingest)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        tick_launches = launch_counts()
+        syncs = solve_ops.host_syncs
+        for name, value in originals.items():
+            setattr(solve_ops, name, value)
+        for name, n in tick_launches.items():
+            launches[name] += n
+        plain.solve(ingest)
+        window = session.last_window
+        row = {"run": f"churn tick {tick}", "mode": session.last_mode,
+               "reason": session.last_reason, "wall_s": wall_s, **session.stages,
+               "full_resolve_s": full_s, "host_syncs": syncs, **session.last_evicted,
+               "window": None if window is None else len(window[0]),
+               "launches": {k: v for k, v in tick_launches.items() if v}}
+        print(json.dumps(row), flush=True)
+        ticks.append(row)
+        if session.last_mode != "delta":
+            fail(f"churn tick {tick}: {session.last_mode} ({session.last_reason}), not delta")
+        if session.node_signature() != full_sig:
+            fail(f"churn tick {tick}: the lineage differs from a full re-solve")
+        want = {k: HEADLINE_CHURN[k][tick] for k in ("evicted", "hole_slots", "window")}
+        got = {"evicted": len(evicted), "hole_slots": row["hole_slots"], "window": row["window"]}
+        if got != want or session.last_evicted["evicted"] != len(evicted):
+            fail(f"churn tick {tick}: {got}, the JAX package's answer is {want}")
+        if (plain.last_mode, plain.last_reason) != (session.last_mode, session.last_reason):
+            fail(f"churn tick {tick}: the plain-twin session took {plain.last_mode}")
+        same_lineage(session, plain, f"churn tick {tick}")
+    agg = session.aggregates()
+    print(json.dumps({"churn_headline": {"seed_full_s": seed_s, "aggregates": agg,
+                                         "launches": launches}}), flush=True)
+    if agg != HEADLINE_CHURN["aggregates"]:
+        fail(f"churn: {agg}, the JAX package's answer is {HEADLINE_CHURN['aggregates']}")
+    check_launched(launches, CHURN_KERNELS, "churn path")
+    print("churn path (a): 5 delta ticks identical to full re-solves, kernel lineage equal "
+          "to the plain-twin lineage after every tick", flush=True)
+    del plain, plain_solver
+
+    # -- (b) the mid-size live cluster ----------------------------------------
+    mid_nodes, mid_bound = mid_cluster
+    mid_solver, mid_pods = build_inputs(MID_PODS, MID_TYPES, N_PROVISIONERS)
+    mid_ingest = PodIngest()
+    mid_ingest.add_all(mid_pods)
+    mid = IncrementalSolveSession(mid_solver, FallbackPolicy(**CHURN_POLICY))
+    check = IncrementalSolveSession(mid_solver, FallbackPolicy(enabled=False))
+    t0 = time.perf_counter()
+    mid.solve(mid_ingest, mid_nodes, mid_bound)
+    check.solve(mid_ingest, mid_nodes, mid_bound)
+    print(json.dumps({"run": "churn mid-size seed (both sessions)",
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    reps = {}
+    evicted_ex, evicted_new = [], []
+    for tick in range(MID_CHURN["ticks"]):
+        churn_tick(mid_ingest, tick, reps)
+        t0 = time.perf_counter()
+        mid.solve(mid_ingest, mid_nodes, mid_bound)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        check.solve(mid_ingest, mid_nodes, mid_bound)
+        print(json.dumps({"run": f"churn mid-size tick {tick}", "mode": mid.last_mode,
+                          "wall_s": wall_s, **mid.stages, **mid.last_evicted}), flush=True)
+        if mid.last_mode != "delta" or mid.node_signature() != check.node_signature():
+            fail(f"churn mid-size tick {tick}: {mid.last_mode} ({mid.last_reason}), "
+                 "or the lineage differs from a full re-solve")
+        evicted_ex.append(mid.last_evicted["existing"])
+        evicted_new.append(mid.last_evicted["new"])
+    got = {"ticks": MID_CHURN["ticks"], "evicted_existing": evicted_ex,
+           "evicted_new": evicted_new, "aggregates": mid.aggregates()}
+    print(json.dumps({"churn_mid": got}), flush=True)
+    if got != MID_CHURN:
+        fail(f"churn mid-size: {got}, the JAX package's answer is {MID_CHURN}")
+    del mid, check, mid_solver
+
+    # -- K10-K12 on the headline's last tick's inputs --------------------------
+    carry, free_new, free_ex, requests, member, own_inv = recorded["repair_free"]
+    st, ex, topo = carry.state, carry.ex_state, carry.topo
+    k10 = (st.used, st.pod_count, topo.fwd_new, topo.inv_new, ex.used, ex.pod_count,
+           topo.fwd_ex, topo.inv_ex, free_new, free_ex, requests, member, own_inv)
+    k10_out = repair.repair_free(*k10)
+    n_cls, n_slots = free_new.shape
+    n_res, g1 = requests.shape[1], member.shape[1]
+    columns = n_slots + free_ex.shape[1]
+    free_t = free_new.t().float().contiguous()
+    record_kernel(
+        records, "repair_free", "karpenter_core_tpu_torch/csrc/repair_free.cu",
+        "karpenter_core_tpu/ops/solve.py:1960", launches["repair_free"],
+        lambda: repair.repair_free(*k10), lambda: repair.repair_free_plain(*k10),
+        nbytes(*k10) + nbytes(*k10_out), 2 * n_cls * columns * (n_res + 2 * g1 + 1),
+        library_fn=lambda: torch.matmul(free_t, requests),
+    )
+    freed, idx, n_open = recorded["gather_repair_window"]
+    rows = tuple(getattr(freed.state, f) for f in repair.ROW_PLANES)
+    k11 = (rows, freed.topo.fwd_new, freed.topo.inv_new, idx, n_open)
+    n_window = idx.shape[0]
+    row_bytes = sum(nbytes(p) // n_slots for p in rows)
+    bases_in = nbytes(freed.state.zone, freed.state.open_, freed.topo.fwd_new, freed.topo.inv_new)
+    n_zones = freed.state.zone.shape[1]
+    record_kernel(
+        records, "repair_gather", "karpenter_core_tpu_torch/csrc/repair_gather.cu",
+        "karpenter_core_tpu/ops/solve.py:2016", launches["repair_gather"],
+        lambda: repair.gather_window(*k11), lambda: repair.gather_window_plain(*k11),
+        2 * n_window * row_bytes + nbytes(idx) + bases_in + 2 * g1 * n_window * 4
+        + 3 * g1 * n_zones * 4 + 4,
+        n_slots * g1 * n_zones * 6,
+    )
+    full, window, idx_s, n_open_s = recorded["scatter_repair_window"]
+    w_rows = tuple(getattr(window.state, f) for f in repair.ROW_PLANES)
+    f_rows = tuple(getattr(full.state, f) for f in repair.ROW_PLANES)
+    k12 = (f_rows, full.topo.fwd_new, full.topo.inv_new, full.state.n_next, w_rows,
+           window.topo.fwd_new, window.topo.inv_new, window.state.n_next, idx_s, n_open_s)
+    n_win = idx_s.shape[0]
+    topo_row = 2 * g1 * 4  # fwd and inv, one int32 each per slot and group
+    record_kernel(
+        records, "repair_scatter", "karpenter_core_tpu_torch/csrc/repair_scatter.cu",
+        "karpenter_core_tpu/ops/solve.py:2070", launches["repair_scatter"],
+        lambda: repair.scatter_window(*k12), lambda: repair.scatter_window_plain(*k12),
+        (n_slots - n_win) * (row_bytes + topo_row) + n_win * (row_bytes + topo_row)
+        + nbytes(idx_s) + n_slots * (row_bytes + topo_row) + 12,
+        n_slots * 2,
+    )
+    print(f"churn path kernels exact: K10 (C={n_cls}, N={n_slots}, E={free_ex.shape[1]}), "
+          f"K11 and K12 (S={n_window} of N={n_slots})", flush=True)
+    for rec in records:
+        per_path = rec.setdefault("launches_per_path", {})
+        for path, counts in path_launches.items():
+            per_path.setdefault(path, counts[rec["name"]])
+        per_path["churn"] = launches[rec["name"]]
 
 
 def main() -> None:
@@ -757,9 +1018,14 @@ def main() -> None:
           "fill_priority with preferences", flush=True)
 
     mid_cluster, cluster, existing_launches = existing_path(records, launches)
-    consolidation_path(records, mid_cluster, cluster, launches, existing_launches)
+    consolidation_launches = consolidation_path(records, mid_cluster, cluster, launches,
+                                                existing_launches)
+    del cluster
+    churn_path(records, mid_cluster, {"cold": launches, "existing": existing_launches,
+                                      "consolidation": consolidation_launches})
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
-          "count plane; null for the others — no single PyTorch call computes them",
+          "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
+          "requests; null for the others — no single PyTorch call computes them",
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

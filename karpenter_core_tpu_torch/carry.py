@@ -6,6 +6,7 @@ reference package's, matched by field name without importing it — onto the
 port's torch NamedTuples on one device, so both packages' ``solve_core`` can
 be fed one encoded input.  Bools stay bool, every integer plane becomes
 int32 and every float plane float32: the reference's dtypes with x64 off.
+Packed mask words (uint32 in the reference) keep their bits as int32.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from karpenter_core_tpu_torch.ops import solve as solve_ops
 
 def to_tensor(a, device: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)  # packed mask words keep their bits
     if arr.dtype == np.bool_:
         dtype = torch.bool
     elif np.issubdtype(arr.dtype, np.integer):
@@ -30,7 +33,8 @@ def to_tensor(a, device: torch.device) -> torch.Tensor:
         raise TypeError(f"unsupported plane dtype {arr.dtype}")
     if arr.dtype != np.bool_ and arr.dtype.itemsize != 4:
         arr = arr.astype(np.int32 if dtype == torch.int32 else np.float32)
-    return torch.as_tensor(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+    return torch.as_tensor(np.ascontiguousarray(arr)).to(device=device, dtype=dtype).reshape(
+        arr.shape)
 
 
 def _req(t, device) -> mask_ops.ReqTensor:
@@ -59,4 +63,16 @@ def existing_from_numpy(ex_state, ex_static, device=None):
     return (
         _by_name(solve_ops.ExistingState, ex_state, dev),
         _by_name(solve_ops.ExistingStatic, ex_static, dev),
+    )
+
+
+def warm_carry_from_numpy(carry, device=None) -> solve_ops.WarmCarry:
+    """The port's ``WarmCarry`` on ``device`` from a reference ``WarmCarry``
+    fetched as numpy (``jax.device_get``), its masks packed as they are."""
+    dev = device_mod.resolve(device)
+    return solve_ops.WarmCarry(
+        state=_by_name(solve_ops.NodeState, carry.state, dev),
+        ex_state=_by_name(solve_ops.ExistingState, carry.ex_state, dev),
+        topo=_by_name(solve_ops.TopoCounts, carry.topo, dev),
+        remaining=to_tensor(carry.remaining, dev),
     )

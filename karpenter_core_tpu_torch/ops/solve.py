@@ -1,7 +1,7 @@
 """The bin-packing solve, in torch.
 
-The port of ``karpenter_core_tpu/ops/solve.py`` for the full solve (no warm
-carry): pods grouped into equivalence classes are scanned class by class;
+The port of ``karpenter_core_tpu/ops/solve.py``: pods grouped into
+equivalence classes are scanned class by class;
 each class step tries the existing nodes first, then new node slots, through
 the zone-spread committal block (its quotas from the water-fill rounds), the
 affinity / anti-affinity phases and the unconstrained phase — dense work
@@ -19,6 +19,15 @@ Device work goes through seven hand-written CUDA kernels (``kernels/``):
   K6 ``existing_mask`` / ``existing_commit``  an existing-node fill's caps
                           and priorities, and the state commit after it
   K7 ``spread_quota``     the zone-spread quota rounds (water-fill)
+
+A warm-start repair (``solver.incremental``) resumes the scan from a
+previous solve's final carry (``WarmCarry``) with only the delta pods
+counted (``solve_core(warm_carry=, repair_plan=)``); three more kernels
+reshape the carry around it:
+
+  K10 ``repair_free``     evicted pods' capacity and counts back to the carry
+  K11 ``gather_window``   the repair window's rows, and its out-of-window bases
+  K12 ``scatter_window``  the window written back over the full-width carry
 
 ``solve_core(..., use_kernels=False)`` runs their plain torch twins instead:
 the oracle a card run holds the kernels against.  On CPU tensors the
@@ -53,6 +62,7 @@ from karpenter_core_tpu_torch.kernels import capacity as k1
 from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import fill as k2
 from karpenter_core_tpu_torch.kernels import packbits as k4
+from karpenter_core_tpu_torch.kernels import repair as k1012
 from karpenter_core_tpu_torch.kernels import reqmerge as k3
 from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED
@@ -159,6 +169,32 @@ class SolveOutputs(NamedTuple):
     remaining: torch.Tensor = None  # f32[T, R]
 
 
+class WarmCarry(NamedTuple):
+    """The previous solve's final scan carry, the initial state of a
+    warm-start repair solve (see the reference's docstring): every placement
+    it committed (``state``, ``ex_state``), the topology-group counts and the
+    provisioner-limit budget.  Masks are packed."""
+
+    state: NodeState
+    ex_state: ExistingState
+    topo: TopoCounts
+    remaining: torch.Tensor  # f32[T, R]
+
+
+class RepairPlan(NamedTuple):
+    """The dirty-region plan of a repair solve: the per-class freed-hole
+    planes every fill refills first (capped at the freed count), and the
+    [G1, Z] topology counts of the new-node slots outside a bounded repair
+    window, which the zone derivations add as constants (all zeros when the
+    repair runs unwindowed)."""
+
+    pref_new: torch.Tensor  # i32[C, N]
+    pref_ex: torch.Tensor  # i32[C, E]
+    base_fwd_sing: torch.Tensor  # i32[G1, Z]
+    base_fwd_full: torch.Tensor  # i32[G1, Z]
+    base_inv_full: torch.Tensor  # i32[G1, Z]
+
+
 class Kernels(NamedTuple):
     """The device kernels the solve calls: the CUDA wrappers, or their plain
     torch twins (``use_kernels=False``)."""
@@ -171,14 +207,20 @@ class Kernels(NamedTuple):
     existing_mask: object
     existing_commit: object
     spread_quota: object
+    repair_free: object
+    gather_window: object
+    scatter_window: object
 
 
 KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool,
                   k56.existing_intake, k56.existing_mask, k56.existing_commit,
-                  k7.spread_quota)
+                  k7.spread_quota, k1012.repair_free, k1012.gather_window,
+                  k1012.scatter_window)
 PLAIN = Kernels(k1.it_capacity_plain, k2.fill_by_priority_plain,
                 k3.merge_compat_plain, k4.pack_bool_plain, k56.existing_intake_plain,
-                k56.existing_mask_plain, k56.existing_commit_plain, k7.spread_quota_plain)
+                k56.existing_mask_plain, k56.existing_commit_plain, k7.spread_quota_plain,
+                k1012.repair_free_plain, k1012.gather_window_plain,
+                k1012.scatter_window_plain)
 
 
 class Statics(NamedTuple):
@@ -985,15 +1027,27 @@ def solve_core(
     n_passes: int = 1,
     features: Optional[SnapshotFeatures] = None,
     use_kernels: bool = True,
+    warm_carry: Optional[WarmCarry] = None,
+    repair_plan: Optional[RepairPlan] = None,
 ) -> SolveOutputs:
-    """The cold solve: scan the classes ``n_passes`` times over empty slots.
+    """Scan the classes ``n_passes`` times: over empty slots (the cold
+    solve), or resumed from a previous solve's final carry.
 
     Inputs are tensors on one device (``carry.tensors_from_numpy``), with
     masks in the bool layout the encode produces; they are bit-packed here.
     ``n_passes`` > 1 re-scans still-failed pods (an affinity follower that
     scans before its target, or a preference ladder's next rung), rolling
     failed counts down ``relax_next`` between passes.  ``use_kernels=False``
-    runs the kernels' plain torch twins (the oracle on the card)."""
+    runs the kernels' plain torch twins (the oracle on the card).
+
+    ``warm_carry`` makes the call a warm-start REPAIR: ``state``,
+    ``ex_state``, topology counts and the limit budget resume from the carry
+    (its masks already packed), ``n_slots`` and ``existing_state`` are taken
+    from it, all seeding is skipped, and ``class_tensors.count`` holds only
+    the delta pods.  ``existing_static`` defaults to the empty planes.
+    ``repair_plan`` (warm path only) threads the freed-hole preferences into
+    every fill and the out-of-window bases into the zone derivations.
+    Nothing given is written into."""
     ft = (ALL_FEATURES if features is None else SnapshotFeatures(*features)).canonical()
     sa = StaticArrays(*statics_arrays)
     width = sa.valid.shape[-1]  # semantic slot count V+1, pre-packing
@@ -1005,16 +1059,38 @@ def solve_core(
     class_tensors = class_tensors._replace(mask=mask_ops.pack_mask(class_tensors.mask))
     statics = Statics(*sa, key_has_bounds=tuple(key_has_bounds), mask_v=width,
                       k=KERNELS if use_kernels else PLAIN)
-    dev = sa.it_alloc.device
-    n_zones = statics.tmpl_zone.shape[-1]
-    n_res = statics.it_alloc.shape[-1]
-    n_keys = sa.it.defined.shape[-1]
-    n_it = statics.it_alloc.shape[0]
-    n_ct = statics.tmpl_ct.shape[-1]
     n_classes = class_tensors.count.shape[0]
-    g1 = statics.grp_skew.shape[0]
     n_ports = class_tensors.ports.shape[-1] if n_classes else 1
 
+    if warm_carry is not None:
+        wc = WarmCarry(*warm_carry)
+        state = NodeState(*wc.state)
+        existing_state = wc.ex_state
+        if existing_static is None:
+            existing_static = empty_existing_static(
+                statics.it_alloc.shape[-1], n_classes, statics.grp_skew.shape[0],
+                device=sa.it_alloc.device)
+        topo = TopoCounts(*wc.topo)
+        remaining0 = wc.remaining
+    else:
+        state, existing_state, existing_static, topo, remaining0 = _cold_carry(
+            statics, n_slots, width, n_ports, existing_state, existing_static, n_classes)
+    return _scan(class_tensors, statics, existing_static, ft, n_passes,
+                 (state, existing_state, topo, remaining0), repair_plan)
+
+
+def _cold_carry(statics: Statics, n_slots: int, width: int, n_ports: int, existing_state,
+                existing_static, n_classes: int):
+    """The cold solve's initial carry: empty slots, the existing nodes'
+    topology seeding (topology.go:231-276) and the budget charge of open
+    owned nodes."""
+    dev = statics.it_alloc.device
+    n_zones = statics.tmpl_zone.shape[-1]
+    n_res = statics.it_alloc.shape[-1]
+    n_keys = statics.it.defined.shape[-1]
+    n_it = statics.it_alloc.shape[0]
+    n_ct = statics.tmpl_ct.shape[-1]
+    g1 = statics.grp_skew.shape[0]
     kmask0 = mask_ops.const_words("full", width, dev).expand(
         n_slots, n_keys, mask_ops.words_for(width)
     ).contiguous()
@@ -1058,8 +1134,23 @@ def solve_core(
         tmpl_onehot.to(F32)[:, :, None] * existing_static.node_capacity[:, None, :]
     ).sum(dim=0)  # [T, R]
     remaining0 = statics.tmpl_limits0 - used_budget
+    return state, existing_state, existing_static, topo, remaining0
 
-    carry = (state, existing_state, topo, remaining0)
+
+def _scan(class_tensors: ClassTensors, statics: Statics, existing_static, ft, n_passes: int,
+          carry, repair_plan: Optional[RepairPlan]) -> SolveOutputs:
+    """The class loop over a carry, ``n_passes`` times (the reference's
+    ``lax.scan`` with ``lax.cond(count > 0)`` around each step)."""
+    state, existing_state = carry[0], carry[1]
+    dev = state.used.device
+    n_zones = statics.tmpl_zone.shape[-1]
+    n_classes = class_tensors.count.shape[0]
+    n_slots = state.pod_count.shape[0]
+    base = pref_new = pref_ex = None
+    if repair_plan is not None:
+        base = (repair_plan.base_fwd_sing, repair_plan.base_fwd_full,
+                repair_plan.base_inv_full)
+        pref_new, pref_ex = repair_plan.pref_new, repair_plan.pref_ex
     n_ex = existing_state.pod_count.shape[0]
     assign = torch.zeros((n_classes, n_slots), dtype=I32, device=dev)
     assign_ex = torch.zeros((n_classes, n_ex), dtype=I32, device=dev)
@@ -1079,6 +1170,8 @@ def solve_core(
                 cls = ClassTensors(*(t[c] for t in class_tensors))._replace(count=count_left[c])
                 carry, (a, a_ex, f, s) = _class_step(
                     statics, existing_static, n_zones, carry, cls, c, features=ft,
+                    pref=None if repair_plan is None else (pref_new[c], pref_ex[c]),
+                    topo_base=base,
                 )
             else:
                 a = torch.zeros(n_slots, dtype=I32, device=dev)
@@ -1155,6 +1248,87 @@ def empty_existing_static(n_res, n_classes, n_groups1: int = 1, n_drivers: int =
         vol_limit=torch.full((1, n_drivers), UNLIMITED, dtype=I32, device=dev),
         cls_vol_add=torch.zeros((n_classes, 1, n_drivers), dtype=I32, device=dev),
         cls_vol_per_pod=torch.zeros((n_classes, n_drivers), dtype=I32, device=dev),
+    )
+
+
+# -- the warm repair's carry programs (K10-K12) --------------------------------
+
+
+def warm_carry_of(outputs: SolveOutputs) -> Optional[WarmCarry]:
+    """A solve's final carry, for a later repair solve (None when the
+    outputs lack the carry fields)."""
+    if outputs.topo is None or outputs.remaining is None:
+        return None
+    return WarmCarry(state=outputs.state, ex_state=outputs.ex_state, topo=outputs.topo,
+                     remaining=outputs.remaining)
+
+
+def _kernels(use_kernels: bool) -> Kernels:
+    return KERNELS if use_kernels else PLAIN
+
+
+def _rows(state: NodeState) -> tuple:
+    return tuple(getattr(state, f) for f in k1012.ROW_PLANES)
+
+
+def repair_free(warm_carry: WarmCarry, free_new, free_ex, cls_requests, member, own_inv,
+                use_kernels: bool = True) -> WarmCarry:
+    """Return evicted pods' capacity and topology counts to a warm carry
+    (K10; the reference's ``_repair_free_impl`` :1960).  ``free_new``
+    i32[C, N] / ``free_ex`` i32[C, E] count the pods of class c evicted from
+    each slot since the carry was produced; ``cls_requests`` f32[C, R] is the
+    per-pod request vector, ``member`` / ``own_inv`` i32[C, G1] the class's
+    topology membership and inverse-ownership rows.  One-way: requirement
+    masks, zone/ct commitments, ports and volume counters stay."""
+    wc = WarmCarry(*warm_carry)
+    st, ex, topo = NodeState(*wc.state), wc.ex_state, TopoCounts(*wc.topo)
+    (used, pod_count, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex,
+     inv_ex) = _kernels(use_kernels).repair_free(
+        st.used, st.pod_count, topo.fwd_new, topo.inv_new, ex.used, ex.pod_count, topo.fwd_ex,
+        topo.inv_ex, free_new, free_ex, cls_requests, member, own_inv)
+    return WarmCarry(
+        state=st._replace(used=used, pod_count=pod_count),
+        ex_state=ex._replace(used=used_ex, pod_count=pod_count_ex),
+        topo=TopoCounts(fwd_ex=fwd_ex, inv_ex=inv_ex, fwd_new=fwd_new, inv_new=inv_new),
+        remaining=wc.remaining,
+    )
+
+
+def gather_repair_window(warm_carry: WarmCarry, idx: torch.Tensor, n_open_w: int,
+                         use_kernels: bool = True):
+    """The repair's dirty slot window out of a full-width carry (K11; the
+    reference's :2016): ``idx`` i32[S] names the window's global slots (the
+    freed holes ascending, any open filler, then the fresh tail from the
+    carry's ``n_next``), ``n_open_w`` how many of them are open.  Returns the
+    windowed WarmCarry (existing planes and budget passed through whole) and
+    the ``(fwd_sing, fwd_full, inv_full)`` [G1, Z] counts of every open slot
+    outside the window."""
+    wc = WarmCarry(*warm_carry)
+    st, topo = NodeState(*wc.state), TopoCounts(*wc.topo)
+    w_rows, n_next, fwd_w, inv_w, bases = _kernels(use_kernels).gather_window(
+        _rows(st), topo.fwd_new, topo.inv_new, idx, int(n_open_w))
+    w_state = NodeState(*w_rows, n_next=n_next)
+    w_topo = TopoCounts(fwd_ex=topo.fwd_ex, inv_ex=topo.inv_ex, fwd_new=fwd_w, inv_new=inv_w)
+    return WarmCarry(state=w_state, ex_state=wc.ex_state, topo=w_topo,
+                     remaining=wc.remaining), bases
+
+
+def scatter_repair_window(warm_carry: WarmCarry, window_carry: WarmCarry, idx: torch.Tensor,
+                          n_open_w: int, use_kernels: bool = True) -> WarmCarry:
+    """A windowed repair's final carry written back over a copy of the
+    full-width carry (K12; the reference's :2070): per-slot planes to their
+    global slots, the existing-node state and the budget replaced whole, and
+    ``n_next`` advanced by the fresh slots the repair opened."""
+    wc, ww = WarmCarry(*warm_carry), WarmCarry(*window_carry)
+    gs, ws = NodeState(*wc.state), NodeState(*ww.state)
+    gt, wt = TopoCounts(*wc.topo), TopoCounts(*ww.topo)
+    rows, fwd_new, inv_new, n_next = _kernels(use_kernels).scatter_window(
+        _rows(gs), gt.fwd_new, gt.inv_new, gs.n_next, _rows(ws), wt.fwd_new, wt.inv_new,
+        ws.n_next, idx, int(n_open_w))
+    return WarmCarry(
+        state=NodeState(*rows, n_next=n_next), ex_state=ww.ex_state,
+        topo=TopoCounts(fwd_ex=wt.fwd_ex, inv_ex=wt.inv_ex, fwd_new=fwd_new, inv_new=inv_new),
+        remaining=ww.remaining,
     )
 
 

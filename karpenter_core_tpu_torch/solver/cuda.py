@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from karpenter_core_tpu_torch import carry
 from karpenter_core_tpu_torch import device as device_mod
@@ -202,7 +203,10 @@ class CudaSolver:
     ``use_kernels=False`` runs the kernels' plain torch twins instead — the
     oracle a card run holds the kernels against."""
 
-    # positions in _Fetch.small read by the slot-exhaustion check
+    # positions in _Fetch.small read by the slot-exhaustion check and the
+    # incremental session's bookkeeping
+    FETCH_ASSIGN = 0
+    FETCH_ASSIGN_EX = 1
     FETCH_FAILED = 2
     FETCH_N_NEXT = 8
 
@@ -612,12 +616,24 @@ class CudaSolver:
                          ex_static=ex_static, n_slots=n_slots, n_passes=snapshot.scan_passes,
                          features=features)
 
-    def run_prepared(self, prep: SolvePrep, n_slots: int = 0) -> solve_ops.SolveOutputs:
-        """Run the solve on a SolvePrep; returns device-resident outputs."""
+    def run_prepared(self, prep: SolvePrep, count=None, warm_carry=None, repair_plan=None,
+                     n_slots: int = 0) -> solve_ops.SolveOutputs:
+        """Run the solve on a SolvePrep; returns device-resident outputs.
+        ``count`` overrides the class-count vector (a repair passes only the
+        delta pods; uploaded as int32 on the prep's device); ``warm_carry``
+        resumes from a previous solve's final carry (``ops.solve.WarmCarry``,
+        whose existing-node state replaces the prep's) and ``repair_plan``
+        carries the freed-hole preferences and out-of-window bases
+        (``ops.solve.RepairPlan``)."""
+        cls = prep.cls
+        if count is not None:
+            cls = cls._replace(count=torch.as_tensor(
+                np.asarray(count, dtype=np.int32), device=cls.count.device))
         return solve_ops.solve_core(
-            prep.cls, prep.statics_arrays, n_slots or prep.n_slots, prep.key_has_bounds,
-            prep.ex_state, prep.ex_static, n_passes=prep.n_passes, features=prep.features,
-            use_kernels=self.use_kernels,
+            cls, prep.statics_arrays, n_slots or prep.n_slots, prep.key_has_bounds,
+            None if warm_carry is not None else prep.ex_state, prep.ex_static,
+            n_passes=prep.n_passes, features=prep.features, use_kernels=self.use_kernels,
+            warm_carry=warm_carry, repair_plan=repair_plan,
         )
 
     @classmethod

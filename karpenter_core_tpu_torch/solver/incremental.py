@@ -1,0 +1,674 @@
+"""Incremental warm-start solving: the serial delta tick of the warm repair.
+
+A trimmed copy of ``karpenter_core_tpu/solver/incremental.py``.  An
+``IncrementalSolveSession`` keeps the previous full solve's padded tensors
+(``solver.cuda.SolvePrep``), its final scan carry (``ops.solve.WarmCarry``,
+on the card) and host-side placement bookkeeping; each reconcile a
+``FallbackPolicy`` decides **full** vs **delta**:
+
+  full    encode → commit to the SnapshotStore → solve from scratch → adopt
+          the carry.  On the first solve, on any supply-side change (nodes,
+          bound pods, provisioners, catalog), on an unseen class, when the
+          delta fraction exceeds ``max_delta_fraction``, as the periodic
+          ``audit_interval`` audit, and when a repair ran out of room.
+  delta   no encode: the evicted pods' capacity and counts go back to the
+          carry (K10), a bounded window of dirty slots is gathered (K11),
+          the class scan resumes from the carry with counts for only the new
+          (and still-failed) pods through K1-K7, and the window is scattered
+          back (K12).
+
+    session = IncrementalSolveSession(solver, FallbackPolicy(...))
+    results = session.solve(ingest)                  # a models.columnar.PodIngest
+    results = session.solve(ingest, state_nodes, bound_pods)
+
+A delta tick returns only that tick's placements.  ``window_min`` is the
+repair window's smallest size (the reference's ``KC_DELTA_WINDOW``): None
+means ``min(256, n_slots // 4)``, 0 turns windowing off.  Nothing the
+session holds is written in place: every kernel returns fresh tensors.
+
+Left out, each for a later slice: the pipelined tick on CUDA streams
+(``deferred=``, ``PendingResults``, ``_PendingTick``, ``settle``,
+``_delta_dispatch_deferred``, ``_cancel_tick``, the staging ring) and carry
+donation; the tenant service's ``run_prepared`` hook and prebuilt
+PodClass lists as the population (the port takes a PodIngest); the fleet
+checkpoint's ``lineage_state``, ``export_lineage`` and ``adopt_restored``;
+``decide``'s ``mesh_changed`` (the mesh) and ``mode_changed`` (relax); the
+policy digest in the supply digest (a price change still re-anchors:
+``catalog_digest`` hashes every offering's price); the ``SOLVE_MODE``
+counter, the tracing span, the ``SOLVER_DISPATCH`` chaos hook and
+``from_env`` / ``incremental_enabled``.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from dataclasses import dataclass, field
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from karpenter_core_tpu_torch.models import store as store_mod
+from karpenter_core_tpu_torch.models.store import SnapshotStore, VersionedSnapshot, diff_members
+from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+MODE_FULL = "full"
+MODE_DELTA = "delta"
+
+
+@dataclass
+class FallbackPolicy:
+    """Per-reconcile full-vs-delta decision (module docstring)."""
+
+    enabled: bool = True
+    # delta fraction (added + evicted over population) above which a full
+    # solve is both faster and drift-free
+    max_delta_fraction: float = 0.25
+    # delta reconciles between full-solve audits (0 = never audit)
+    audit_interval: int = 16
+    # sessions whose decisions become real nodes repair only while the
+    # previous solve opened no new slot
+    materialized: bool = False
+
+    def decide(self, delta, delta_ticks: int, prev_slots_used: int,
+               known_classes=None) -> Tuple[str, str]:
+        """(mode, reason).  ``delta`` is a models.store.SnapshotDelta (None on
+        the first solve); ``delta_ticks`` counts repairs since the last full
+        solve; ``prev_slots_used`` the slots the lineage has opened;
+        ``known_classes`` the class keys the previous padded tensors can
+        express (an unseen key means the class axis moved)."""
+        if not self.enabled:
+            return MODE_FULL, "disabled"
+        if delta is None:
+            return MODE_FULL, "first"
+        if delta.node_side_changed:
+            return MODE_FULL, "supply-changed:" + ",".join(delta.changed_planes)
+        unknown = tuple(
+            k for k in delta.new_classes
+            if known_classes is None or k not in known_classes
+        )
+        if unknown:
+            return MODE_FULL, "class-shape"
+        if self.materialized and prev_slots_used > 0:
+            return MODE_FULL, "materialized-slots"
+        if self.audit_interval and delta_ticks >= self.audit_interval:
+            return MODE_FULL, "audit"
+        if delta.delta_fraction > self.max_delta_fraction:
+            return MODE_FULL, f"delta-fraction:{delta.delta_fraction:.3f}"
+        return MODE_DELTA, "delta"
+
+
+@dataclass
+class _WarmState:
+    """Everything one delta reconcile needs, carried from the last full solve
+    and updated by every repair."""
+
+    versioned: VersionedSnapshot
+    prep: object  # solver.cuda.SolvePrep (padded tensors on the card; reused)
+    carry: object  # ops.solve.WarmCarry (on the card)
+    assign: np.ndarray  # i32[C_pad, N] cumulative new-slot placements
+    assign_ex: np.ndarray  # i32[C_pad, E_pad] cumulative existing placements
+    n_next: int  # slots the scan has opened so far
+    members: Dict[tuple, Tuple[str, ...]]  # class key -> live member uids
+    class_index: Dict[tuple, int]  # class key -> class row
+    pod_loc: Dict[str, Tuple[int, str, int]]  # uid -> (row, "new"|"ex", idx)
+    row_key: Dict[int, tuple]  # class row -> class key
+    failed_pods: Dict[str, Tuple[int, object]]  # uid -> (row, Pod), unplaced
+    member_rows: torch.Tensor  # i32[C_pad, G1] topology membership (card)
+    own_inv_rows: torch.Tensor  # i32[C_pad, G1] inverse ownership (card)
+    supply: str
+    state_nodes: list = field(default_factory=list)
+    delta_ticks: int = 0
+    # lineage-placed pods that have since bound (IncrementalSolveSession.
+    # _absorb_bound)
+    materialized: set = field(default_factory=set)
+
+
+class IncrementalSolveSession:
+    """One warm-start solve lineage: full solves adopt state, delta solves
+    repair it (module docstring).  ``stages`` holds the wall seconds of the
+    last solve by stage: a delta tick's ``plan_s`` (diff, decision, eviction
+    planes), ``dispatch_s`` (uploads, K10, K11), ``repair_s`` (the resumed
+    scan and its fetch, which waits for the card) and ``decode_s`` (decode
+    and bookkeeping, K12 included); a full solve's ``full_s``."""
+
+    def __init__(self, solver, policy: Optional[FallbackPolicy] = None,
+                 window_min: Optional[int] = None) -> None:
+        self.solver = solver
+        self.policy = policy or FallbackPolicy()
+        self.window_min = window_min
+        self.store = SnapshotStore()
+        self._warm: Optional[_WarmState] = None
+        self.last_mode: Optional[str] = None
+        self.last_reason: Optional[str] = None
+        self.last_audit_drift_nodes: Optional[int] = None
+        self.last_window: Optional[Tuple[np.ndarray, int]] = None
+        self.last_evicted: Dict[str, int] = {}
+        self.mode_counts: Dict[str, int] = {MODE_FULL: 0, MODE_DELTA: 0}
+        self.stages: Dict[str, float] = {}
+        self._forced_reason: Optional[str] = None
+
+    def reset(self) -> None:
+        """Drop the warm lineage (the next solve is full)."""
+        self._warm = None
+
+    def force_full(self, reason: str) -> None:
+        """Make the NEXT solve a full re-anchor with this reason."""
+        self._forced_reason = reason
+
+    # -- the solve entry -------------------------------------------------------
+
+    def solve(self, ingest, state_nodes: Optional[list] = None,
+              bound_pods: Optional[list] = None):
+        """``solver.cuda.CudaSolveResults`` for the current population of
+        ``ingest`` (a ``models.columnar.PodIngest``): a full solve's every
+        decision, or a delta tick's own placements (new pods onto new or
+        existing capacity).  Raises models.snapshot.KernelUnsupported as
+        ``CudaSolver.solve`` does."""
+        t0 = time.perf_counter()
+        self.stages = {}
+        self.last_window = None
+        self.last_evicted = {}
+        members, by_uid = ingest.class_members(), ingest.get
+        if self._warm is not None:
+            self._absorb_bound({p.uid for p in (bound_pods or [])})
+        catalog = store_mod.catalog_digest(self.solver.provisioners, self.solver.instance_types)
+        # the comparison digest excludes bound pods this lineage placed itself
+        # (their binding is its own work materializing); the anchor a full
+        # solve stores is unfiltered
+        known = self._warm.materialized if self._warm is not None else ()
+        supply = store_mod.supply_digest(
+            state_nodes,
+            [p for p in (bound_pods or []) if p.uid not in known] if known else bound_pods,
+        ) + catalog
+        supply_anchor = supply if not known else (
+            store_mod.supply_digest(state_nodes, bound_pods) + catalog
+        )
+        w = self._warm
+        delta = None
+        if w is not None:
+            delta = diff_members(
+                w.members, members, from_version=w.versioned.version,
+                supply_changed=() if supply == w.supply else ("supply",),
+            )
+        mode, reason = self.policy.decide(
+            delta,
+            w.delta_ticks if w is not None else 0,
+            w.n_next if w is not None else 0,
+            known_classes=w.class_index if w is not None else None,
+        )
+        forced = self._forced_reason
+        if forced is not None:
+            mode, reason = MODE_FULL, forced
+            self._forced_reason = None
+        try:
+            if mode == MODE_DELTA:
+                results = self._delta_solve(delta, by_uid, t0)
+                if results is None:  # the repair ran out of room: escalate
+                    mode, reason = MODE_FULL, "slots-exhausted"
+            if mode == MODE_FULL:
+                t1 = time.perf_counter()
+                results = self._full_solve(ingest, members, state_nodes, bound_pods,
+                                           supply_anchor, reason)
+                self.stages["full_s"] = time.perf_counter() - t1
+        except Exception:
+            if forced is not None:
+                self._forced_reason = forced  # the re-anchor is still owed
+            raise
+        self.last_mode, self.last_reason = mode, reason
+        self.mode_counts[mode] = self.mode_counts.get(mode, 0) + 1
+        return results
+
+    def _absorb_bound(self, bound_uids) -> None:
+        """Lineage-placed pods that have since BOUND leave the pending
+        population as the lineage's own work materializing, not as
+        evictions: their capacity stays committed in the carry, they leave
+        the membership view, and the supply comparison excludes them."""
+        w = self._warm
+        moved = [uid for uid in w.pod_loc if uid in bound_uids]
+        if not moved:
+            return
+        trimmed: Dict[tuple, List[str]] = {}
+        for uid in moved:
+            row, _kind, _idx = w.pod_loc.pop(uid)
+            key = w.row_key.get(row)
+            if key is not None:
+                trimmed.setdefault(key, []).append(uid)
+            w.materialized.add(uid)
+        for key, uids in trimmed.items():
+            gone = set(uids)
+            left = tuple(u for u in w.members.get(key, ()) if u not in gone)
+            if left:
+                w.members[key] = left
+            else:
+                w.members.pop(key, None)
+
+    # -- full path -------------------------------------------------------------
+
+    def _full_solve(self, ingest, members, state_nodes, bound_pods, supply, reason):
+        solver = self.solver
+        prev_nodes = self.node_count() if self._warm is not None else None
+        try:
+            snapshot = solver.encode(ingest, state_nodes, bound_pods)
+            versioned = self.store.commit(snapshot, supply=supply)
+            prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
+            outputs = solver.run_prepared(prep)
+            fetched = solver.begin_fetch(outputs)
+            slots = outputs.assign.shape[1]
+            if solver.fetch_exhausted(fetched.small, slots):
+                # slot exhaustion: retry once with double capacity
+                outputs = solver.run_prepared(prep, n_slots=slots * 2)
+                fetched = solver.begin_fetch(outputs)
+            results = solver.decode(snapshot, outputs, state_nodes or [], fetched=fetched)
+        except Exception:
+            self._warm = None  # a half-built lineage must not seed repairs
+            raise
+        self._adopt(versioned, prep, outputs, fetched, members, supply, state_nodes,
+                    prev_nodes, reason)
+        return results
+
+    def _adopt(self, versioned, prep, outputs, fetched, members, supply, state_nodes,
+               prev_nodes, reason):
+        solver = self.solver
+        carry = solve_ops.warm_carry_of(outputs)
+        assign = np.asarray(fetched.small[solver.FETCH_ASSIGN], dtype=np.int32).copy()
+        assign_ex = np.asarray(fetched.small[solver.FETCH_ASSIGN_EX], dtype=np.int32).copy()
+        n_next = int(fetched.small[solver.FETCH_N_NEXT])
+        snapshot = versioned.snapshot
+        pod_loc, unplaced = _locate_pods(snapshot, assign, assign_ex)
+        all_pods = {p.uid: p for cls in snapshot.classes for p in cls.pods}
+        failed_pods = {uid: (row, all_pods[uid]) for uid, row in unplaced}
+        member_rows, own_inv_rows = _topology_rows(prep)
+        dev = solver.device
+        self.last_audit_drift_nodes = None
+        if prev_nodes is not None and reason.startswith("audit"):
+            fresh = int(np.sum(np.sum(assign, axis=0) > 0))
+            self.last_audit_drift_nodes = prev_nodes - fresh
+        self._warm = _WarmState(
+            versioned=versioned,
+            prep=prep,
+            carry=carry,
+            assign=assign,
+            assign_ex=assign_ex,
+            n_next=n_next,
+            members=dict(members),
+            class_index=versioned.index_of(),
+            pod_loc=pod_loc,
+            row_key={i: row.key for i, row in enumerate(versioned.rows)},
+            failed_pods=failed_pods,
+            member_rows=torch.as_tensor(member_rows, device=dev),
+            own_inv_rows=torch.as_tensor(own_inv_rows, device=dev),
+            supply=supply,
+            state_nodes=list(state_nodes or []),
+        )
+
+    # -- delta path ------------------------------------------------------------
+    #
+    # One delta tick is four stages run back to back: plan (host), dispatch
+    # (K10, K11 and the resumed scan), the exhaustion check on the fetched
+    # planes, decode and adopt (K12).
+
+    def _delta_plan(self, delta, by_uid):
+        """The host-side tick plan: eviction free planes, the delta count
+        vector, and the post-tick membership.  None when an unseen class key
+        means the padded tensors cannot express the delta."""
+        w = self._warm
+        c_pad = w.prep.cls.count.shape[0]
+        n_slots = w.assign.shape[1]
+        e_pad = w.assign_ex.shape[1]
+
+        # evictions: return departed pods' capacity and counts to the carry
+        free_new = np.zeros((c_pad, n_slots), dtype=np.int32)
+        free_ex = np.zeros((c_pad, e_pad), dtype=np.int32)
+        evicted_locs: List[Tuple[str, Tuple[int, str, int]]] = []
+        for key, uids in delta.evicted.items():
+            for uid in uids:
+                loc = w.pod_loc.get(uid)
+                if loc is None:
+                    continue  # was failed/unplaced: nothing to free
+                row, kind, idx = loc
+                (free_new if kind == "new" else free_ex)[row, idx] += 1
+                evicted_locs.append((uid, loc))
+
+        # additions (+ retry of previously-failed pods): a count vector with
+        # only the delta, scanned over the SAME padded tensors
+        evicted_set = {u for us in delta.evicted.values() for u in us}
+        pods_by_root: Dict[int, List[object]] = {}
+        for key, uids in delta.added.items():
+            row = w.class_index.get(key)
+            if row is None:
+                return None  # unseen class key: tensors can't express it
+            pods_by_root.setdefault(row, []).extend(by_uid(uid) for uid in uids)
+        # still-pending failures retry every repair tick under their own row
+        for uid, (row, pod) in w.failed_pods.items():
+            if uid not in evicted_set:
+                pods_by_root.setdefault(row, []).append(pod)
+        counts = np.zeros(c_pad, dtype=np.int32)
+        for row, pods in pods_by_root.items():
+            counts[row] = len(pods)
+
+        # membership after this tick lands: previous minus evicted plus added
+        members = {k: list(v) for k, v in w.members.items()}
+        for key, uids in delta.evicted.items():
+            gone = set(uids)
+            if key in members:
+                members[key] = [u for u in members[key] if u not in gone]
+        for key, uids in delta.added.items():
+            members.setdefault(key, []).extend(uids)
+        members_after = {k: tuple(v) for k, v in members.items() if v}
+        return {
+            "delta": delta, "free_new": free_new, "free_ex": free_ex,
+            "evicted_locs": evicted_locs, "pods_by_root": pods_by_root,
+            "counts": counts, "members_after": members_after,
+        }
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=self.solver.device)
+
+    def _delta_dispatch(self, plan):
+        """The repair on the card: K10 frees the evictions, K11 gathers the
+        bounded window (freed holes plus a fresh tail, whose hole planes are
+        also the fills' preference), the scan resumes from the carry, and the
+        small planes come back to the host (the tick's barrier)."""
+        w = self._warm
+        solver = self.solver
+        use_kernels = solver.use_kernels
+        free_new, free_ex = plan["free_new"], plan["free_ex"]
+        evicted_locs, counts = plan["evicted_locs"], plan["counts"]
+        n_slots = w.assign.shape[1]
+        t0 = time.perf_counter()
+        g1 = w.member_rows.shape[1]
+        n_zones = w.prep.statics_arrays.tmpl_zone.shape[1]
+        hole_slots = sorted({loc[2] for _, loc in evicted_locs if loc[1] == "new"})
+        window = _window_indices(hole_slots, w.n_next, n_slots, self.window_min)
+        self.last_window = window
+        carry = w.carry
+        free_ex_t = self._upload(free_ex)
+        if evicted_locs:
+            carry = solve_ops.repair_free(
+                carry, self._upload(free_new), free_ex_t, w.prep.cls.requests, w.member_rows,
+                w.own_inv_rows, use_kernels=use_kernels,
+            )
+        idx_t = None
+        if window is not None:
+            idx, n_open_w = window
+            idx_t = self._upload(idx)
+            run_carry, base = solve_ops.gather_repair_window(carry, idx_t, n_open_w,
+                                                             use_kernels=use_kernels)
+            repair_plan = solve_ops.RepairPlan(
+                pref_new=self._upload(free_new[:, idx]), pref_ex=free_ex_t,
+                base_fwd_sing=base[0], base_fwd_full=base[1], base_inv_full=base[2],
+            )
+            keep_carry = carry
+        else:
+            zeros_gz = torch.zeros((g1, n_zones), dtype=torch.int32, device=solver.device)
+            repair_plan = solve_ops.RepairPlan(
+                pref_new=self._upload(free_new), pref_ex=free_ex_t, base_fwd_sing=zeros_gz,
+                base_fwd_full=zeros_gz, base_inv_full=zeros_gz,
+            )
+            run_carry, keep_carry = carry, None
+        t1 = time.perf_counter()
+        outputs = solver.run_prepared(w.prep, count=counts, warm_carry=run_carry,
+                                      repair_plan=repair_plan)
+        fetched = solver.begin_fetch(outputs)
+        self.stages["dispatch_s"] = t1 - t0
+        self.stages["repair_s"] = time.perf_counter() - t1
+        # decode consumes a delta VIEW of the snapshot: same planes, classes
+        # carry only this tick's pods
+        delta_view = _delta_view(w.versioned.snapshot, plan["pods_by_root"])
+        return {
+            "plan": plan, "outputs": outputs, "fetched": fetched, "window": window,
+            "idx": idx_t, "keep_carry": keep_carry, "delta_view": delta_view,
+            "state_nodes": w.state_nodes,
+        }
+
+    def _delta_exhausted(self, disp) -> bool:
+        """Out of slots or window: the repair could not place everything it
+        was given room for; the tick escalates to a full solve."""
+        w_slots = (
+            len(disp["window"][0]) if disp["window"] is not None
+            else disp["outputs"].assign.shape[1]
+        )
+        return self.solver.fetch_exhausted(disp["fetched"].small, w_slots)
+
+    def _delta_results(self, disp):
+        """Decode over the delta view, dropping node decisions the repair
+        placed nothing on (previously-decided nodes are not re-launched)."""
+        results = self.solver.decode(disp["delta_view"], disp["outputs"], disp["state_nodes"],
+                                     fetched=disp["fetched"])
+        results.new_nodes = [d for d in results.new_nodes if d.pods]
+        return results
+
+    def _delta_adopt(self, disp) -> None:
+        """Fold the repair's placements into the lineage."""
+        w = self._warm
+        solver = self.solver
+        plan = disp["plan"]
+        window = disp["window"]
+        outputs = disp["outputs"]
+        small = disp["fetched"].small
+        c_pad = w.prep.cls.count.shape[0]
+        n_slots = w.assign.shape[1]
+        assign_d = np.asarray(small[solver.FETCH_ASSIGN], dtype=np.int32)
+        assign_ex_d = np.asarray(small[solver.FETCH_ASSIGN_EX], dtype=np.int32)
+        n_next_h = int(small[solver.FETCH_N_NEXT])
+        loc_d, unplaced = _locate_pods(disp["delta_view"], assign_d, assign_ex_d)
+        if window is not None:
+            # scatter the windowed repair back to the full-width lineage:
+            # assignment columns, pod locations and the carry (K12)
+            idx, n_open_w = window
+            new_carry = solve_ops.scatter_repair_window(
+                disp["keep_carry"], solve_ops.warm_carry_of(outputs), disp["idx"], n_open_w,
+                use_kernels=solver.use_kernels,
+            )
+            assign_g = np.zeros((c_pad, n_slots), dtype=np.int32)
+            assign_g[:, idx] = assign_d
+            assign_d = assign_g
+            loc_d = {
+                uid: (row, kind, int(idx[i]) if kind == "new" else i)
+                for uid, (row, kind, i) in loc_d.items()
+            }
+            n_next_h = w.n_next + (n_next_h - n_open_w)
+        else:
+            new_carry = solve_ops.warm_carry_of(outputs)
+        for uid, loc in plan["evicted_locs"]:
+            row, kind, slot = loc
+            (w.assign if kind == "new" else w.assign_ex)[row, slot] -= 1
+            del w.pod_loc[uid]
+        w.assign += assign_d
+        w.assign_ex += assign_ex_d
+        w.pod_loc.update(loc_d)
+        # every non-evicted failure was retried this tick, so the repair's
+        # unplaced tail IS the new failure set
+        delta_pods = {p.uid: p for pods in plan["pods_by_root"].values() for p in pods}
+        w.failed_pods = {uid: (row, delta_pods[uid]) for uid, row in unplaced}
+        w.carry = new_carry
+        w.n_next = n_next_h
+        w.members = plan["members_after"]
+        w.delta_ticks += 1
+
+    def _delta_solve(self, delta, by_uid, t_start: float):
+        """The serial delta tick: plan → dispatch (and barrier) → exhaustion
+        check → decode → adopt.  None escalates to a full solve."""
+        plan = self._delta_plan(delta, by_uid)
+        if plan is None:
+            return None
+        locs = [loc for _, loc in plan["evicted_locs"]]
+        self.last_evicted = {
+            "evicted": delta.evicted_count,
+            "new": sum(1 for loc in locs if loc[1] == "new"),
+            "existing": sum(1 for loc in locs if loc[1] == "ex"),
+            "hole_slots": len({loc[2] for loc in locs if loc[1] == "new"}),
+        }
+        self.stages["plan_s"] = time.perf_counter() - t_start
+        try:
+            disp = self._delta_dispatch(plan)
+        except BaseException:
+            self._warm = None  # the next solve re-anchors from scratch
+            raise
+        if self._delta_exhausted(disp):
+            return None
+        t0 = time.perf_counter()
+        results = self._delta_results(disp)
+        self._delta_adopt(disp)
+        self.stages["decode_s"] = time.perf_counter() - t0
+        return results
+
+    # -- aggregate views -------------------------------------------------------
+
+    def node_count(self) -> int:
+        w = self._warm
+        if w is None:
+            return 0
+        return int(np.sum(np.sum(w.assign, axis=0) > 0))
+
+    def aggregates(self) -> Dict[str, int]:
+        """The session lineage's current placement totals."""
+        w = self._warm
+        if w is None:
+            return {"scheduled": 0, "failed": 0, "nodes": 0}
+        return {
+            "scheduled": int(w.assign.sum() + w.assign_ex.sum()),
+            "failed": len(w.failed_pods),
+            "nodes": self.node_count(),
+        }
+
+    def node_signature(self):
+        """Canonical multiset of per-node class loads, labeled by stable
+        class identity (order- and row-index-independent)."""
+        w = self._warm
+        if w is None:
+            return ()
+        keys = [w.row_key.get(i, i) for i in range(w.assign.shape[0])]
+        return node_signature_of(w.assign, keys) + node_signature_of(w.assign_ex, keys)
+
+
+_WINDOW_MIN = 256
+_WINDOW_FRESH = 64
+
+
+def _window_indices(hole_slots, n_next: int, n_slots: int, window_min: Optional[int] = None):
+    """The bounded repair window's global slot indices: every freed-hole slot
+    (ascending), open filler below ``n_next`` if the power-of-two bucket
+    needs it, then the fresh tail.  Returns (idx i32[S], open_count), or
+    None when windowing is off (``window_min`` 0), the bucket would not
+    shrink the solve, or the geometry doesn't fit: the repair then runs at
+    full width, which is always correct.  ``window_min`` None means
+    ``min(256, n_slots // 4)``."""
+    if window_min == 0:
+        return None
+    min_s = max(int(window_min), 1) if window_min is not None else min(_WINDOW_MIN, n_slots // 4)
+    # fresh headroom scales down with tiny fleets so small solves window too
+    fresh_headroom = min(_WINDOW_FRESH, max(8, n_slots // 16))
+    want = max(min_s, len(hole_slots) + fresh_headroom)
+    s = 1
+    while s < want:
+        s <<= 1
+    if s >= n_slots:
+        return None
+    fresh = list(range(n_next, min(n_next + (s - len(hole_slots)), n_slots)))
+    filler_needed = s - len(hole_slots) - len(fresh)
+    open_w = list(hole_slots)
+    if filler_needed > 0:
+        holes = set(hole_slots)
+        filler = []
+        slot = n_next - 1
+        while slot >= 0 and len(filler) < filler_needed:
+            if slot not in holes:
+                filler.append(slot)
+            slot -= 1
+        if len(filler) < filler_needed:
+            return None
+        open_w = sorted(open_w + filler)
+    idx = np.asarray(open_w + fresh, dtype=np.int32)
+    return idx, len(open_w)
+
+
+def node_signature_of(assign: np.ndarray, keys=None):
+    """Sorted tuple of per-node (class, count) loads, empty slots dropped.
+    ``keys`` maps class row -> a stable class identity (the raw row index
+    without it)."""
+    sig = []
+    arr = np.asarray(assign)
+    # class keys may hold unorderable members: canonicalize by repr
+    for col in range(arr.shape[1]):
+        loads = tuple(sorted(
+            (
+                ((keys[int(c)] if keys is not None else int(c)), int(arr[c, col]))
+                for c in np.nonzero(arr[:, col])[0]
+            ),
+            key=repr,
+        ))
+        if loads:
+            sig.append(loads)
+    return tuple(sorted(sig, key=repr))
+
+
+def _locate_pods(snapshot, assign, assign_ex):
+    """uid -> (class row, "new"|"ex", index) plus the unplaced tail as
+    (uid, root row) pairs, in the cursor order ``CudaSolver.decode``
+    consumes pods (ladder rows share their root's cursor)."""
+    n_classes = len(snapshot.classes)
+    if snapshot.cls_root is not None:
+        root_of = [int(r) for r in snapshot.cls_root]
+    else:
+        root_of = list(range(n_classes))
+    cursors = [0] * n_classes
+    loc: Dict[str, Tuple[int, str, int]] = {}
+    unplaced: List[Tuple[str, int]] = []
+    for c in range(n_classes):
+        r = root_of[c]
+        pods = snapshot.classes[r].pods
+        cursor = cursors[r]
+        ex_idx = np.nonzero(assign_ex[c] > 0)[0]
+        for e, take in zip(ex_idx.tolist(), assign_ex[c][ex_idx].tolist()):
+            for pod in pods[cursor:cursor + take]:
+                loc[pod.uid] = (c, "ex", int(e))
+            cursor += take
+        node_idx = np.nonzero(assign[c] > 0)[0]
+        for n, take in zip(node_idx.tolist(), assign[c][node_idx].tolist()):
+            for pod in pods[cursor:cursor + take]:
+                loc[pod.uid] = (c, "new", int(n))
+            cursor += take
+        cursors[r] = cursor
+    for c in range(n_classes):
+        if root_of[c] != c:
+            continue
+        unplaced.extend((p.uid, c) for p in snapshot.classes[c].pods[cursors[c]:])
+    return loc, unplaced
+
+
+def _topology_rows(prep) -> Tuple[np.ndarray, np.ndarray]:
+    """(member, own_inv) i32[C_pad, G1] rows for ``ops.solve.repair_free``:
+    which group counts each class's placements incremented — membership
+    from the padded grp_member plane, inverse ownership from the owned anti
+    slots (preferred terms register no inverse counts)."""
+    member = prep.statics_arrays.grp_member.cpu().numpy().astype(np.int32)
+    c_pad, g1 = member.shape
+    own_inv = np.zeros((c_pad, g1), dtype=np.int32)
+    groups = prep.cls.groups.cpu().numpy()
+    anti_soft = prep.cls.anti_soft.cpu().numpy()
+    g_dummy = g1 - 1
+    for c in range(c_pad):
+        g_zan, g_han = int(groups[c, 4]), int(groups[c, 5])
+        if g_zan < g_dummy and not bool(anti_soft[c, 0]):
+            own_inv[c, g_zan] += 1
+        if g_han < g_dummy and not bool(anti_soft[c, 1]):
+            own_inv[c, g_han] += 1
+    return member, own_inv
+
+
+def _delta_view(snapshot, pods_by_root: Dict[int, List[object]]):
+    """A shallow snapshot view whose root classes carry only this tick's pods
+    (additions and retried failures); every plane is shared."""
+    view = copy.copy(snapshot)
+    classes = []
+    for c, cls in enumerate(snapshot.classes):
+        if cls.is_ladder_variant:
+            classes.append(cls)
+            continue
+        classes.append(dc_replace(cls, pods=list(pods_by_root.get(c, ()))))
+    view.classes = classes
+    return view

@@ -13,10 +13,13 @@ path: N initialized nodes of the same catalog and provisioners, filled with
 bound pods of the same mix to a given share of their cpu.
 ``consolidation_candidates`` lists that cluster's nodes as multi-node
 consolidation candidates, the input of ``CudaConsolidationSearch``.
+``churn_tick`` is one tick of steady churn on a ``PodIngest``, the input of
+the warm repair (``solver.incremental``).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Tuple
 
 import numpy as np
@@ -28,6 +31,7 @@ from karpenter_core_tpu_torch.apis.objects import (
     PodAffinityTerm,
     Taint,
     TopologySpreadConstraint,
+    new_uid,
 )
 from karpenter_core_tpu_torch.cloudprovider import fake as fake_cp
 from karpenter_core_tpu_torch.testing.factories import make_node, make_pod, make_provisioner
@@ -228,3 +232,44 @@ def consolidation_candidates(state_nodes: list, bound_pods: List[Pod], n_instanc
             pods=pods,
         ))
     return sorted(out, key=lambda c: c.disruption_cost)
+
+
+def churn_tick(ingest, tick: int, reps: dict, churn_fraction: float = 0.02,
+               class_fraction: float = 0.25) -> Tuple[List[str], List[Pod]]:
+    """One tick of steady churn on a ``PodIngest`` — the reference
+    benchmark's churn loop (bench.py ``churn_line``): the population stays
+    the same size while ``churn_fraction`` of it is replaced, concentrated
+    in a rotating window of ``class_fraction`` of the classes (the classes
+    in ``repr`` order of their signatures, the window starting at
+    ``tick * window``).  Each class of the window gives up its oldest
+    members, its share of the target rounded (at least one, at most all);
+    each eviction is replaced by a copy of the class's representative — its
+    first member when the class first churned, kept in ``reps`` by
+    signature — with a fresh uid, the name ``churn-{tick}-{i}`` and no
+    node.  Returns (evicted uids in order, added pods)."""
+    members = ingest.class_members()
+    sigs = sorted(members, key=repr)
+    window = max(int(len(sigs) * class_fraction), 1)
+    start = (tick * window) % max(len(sigs), 1)
+    dirty = [sigs[(start + i) % len(sigs)] for i in range(window)]
+    target = max(int(len(ingest) * churn_fraction), 1)
+    pool = sum(len(members[s]) for s in dirty)
+    evictions: List[str] = []
+    replacements: List[Pod] = []
+    for sig in dirty:
+        uids = members[sig]
+        take = min(max(round(target * len(uids) / max(pool, 1)), 1), len(uids))
+        if sig not in reps:
+            reps[sig] = copy.deepcopy(ingest.get(uids[0]))
+        evictions.extend(uids[:take])
+        for _ in range(take):
+            pod = copy.deepcopy(reps[sig])
+            pod.metadata.name = f"churn-{tick}-{len(replacements)}"
+            pod.metadata.uid = new_uid()
+            pod.spec.node_name = ""
+            replacements.append(pod)
+    for uid in evictions:
+        ingest.remove(uid)
+    for pod in replacements:
+        ingest.add(pod)
+    return evictions, replacements

@@ -1,6 +1,6 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing | --consolidation] [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation | --churn] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -27,6 +27,15 @@ compute_command``, every node a candidate, no pending pods: phase 4 of
 600,000 device operations); its stage split replaces the solve's, and the
 device's busy share is over the wall time of the call.
 
+With ``--churn`` the profiled call is one warm delta tick of the
+incremental session on that backlog (phase 5 (a) of ``chip_smoke.py``):
+the session is seeded with a full solve and runs four ticks of
+``testing.workloads.churn_tick`` unprofiled, then the fifth (a 512-slot
+window) under the profiler.  It reports the tick's stage split (plan,
+dispatch, repair, decode), its host reads (device-to-host copies and the
+scan's skip decisions), the device's busy share of the tick and each
+kernel's device time, K10-K12 included.
+
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
 """
@@ -50,6 +59,9 @@ PORT_KERNELS = {
     "spread_quota_kernel": "spread_quota",
     "sweep_lanes_kernel": "sweep_lanes",
     "lane_finish_kernel": "lane_finish",
+    "repair_free_kernel": "repair_free",
+    "repair_gather_kernel": "repair_gather",
+    "repair_scatter_kernel": "repair_scatter",
 }
 
 
@@ -132,6 +144,50 @@ def profile_consolidation(prof_factory, smi: str) -> tuple:
     }
 
 
+def profile_churn(prof_factory, smi: str) -> tuple:
+    """(profiler, report) of one warm delta tick of the headline backlog
+    under 2 % churn."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.solver.incremental import (
+        FallbackPolicy,
+        IncrementalSolveSession,
+    )
+    from karpenter_core_tpu_torch.testing.workloads import build_inputs, churn_tick
+
+    solver, pods = build_inputs(50_000, 1000, 5)
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    session = IncrementalSolveSession(
+        solver, FallbackPolicy(enabled=True, audit_interval=0, max_delta_fraction=0.5))
+    session.solve(ingest)
+    reps = {}
+    for tick in range(4):  # warm-up ticks, both window sizes
+        churn_tick(ingest, tick, reps)
+        session.solve(ingest)
+    churn_tick(ingest, 4, reps)
+    torch.cuda.synchronize()
+    solve_ops.host_syncs = 0
+    with prof_factory() as prof:
+        t0 = time.perf_counter()
+        session.solve(ingest)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if session.last_mode != "delta":
+        print(f"FAIL: the profiled tick was {session.last_mode} ({session.last_reason})",
+              file=sys.stderr)
+        sys.exit(1)
+    summary = device_summary(prof)
+    d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
+    return prof, {
+        "card": smi, "path": "churn", "wall_s": wall, **session.stages,
+        **session.last_evicted, "window": len(session.last_window[0]),
+        "host_syncs": solve_ops.host_syncs, "device_to_host_copies": d2h,
+        "device_busy_share_of_tick": summary["device_busy_us"] / 1e6 / wall,
+        **summary,
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
@@ -140,6 +196,8 @@ def main() -> None:
                       help="solve into the live 5,000-node cluster of chip_smoke.py phase 3")
     mode.add_argument("--consolidation", action="store_true",
                       help="consolidate that cluster, as chip_smoke.py phase 4 does")
+    mode.add_argument("--churn", action="store_true",
+                      help="one warm delta tick under steady churn, as chip_smoke.py phase 5")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -157,9 +215,14 @@ def main() -> None:
     )
     print(smi.stdout.strip(), flush=True)
     build.build_all()
-    if args.consolidation:
-        prof, report = profile_consolidation(
-            lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
+    if args.consolidation or args.churn:
+        if args.consolidation:
+            prof, report = profile_consolidation(
+                lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
+        else:
+            prof, report = profile_churn(
+                lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                smi.stdout.strip())
         print(json.dumps(report), flush=True)
         if args.trace:
             prof.export_chrome_trace(args.trace)

@@ -21,6 +21,7 @@ from karpenter_core_tpu_torch.kernels import (
     existing,
     fill,
     packbits,
+    repair,
     reqmerge,
     spread,
 )
@@ -260,3 +261,93 @@ def test_lane_finish_matches_plain(card, n_lanes, n_slots, n_it, n_cls, n_ex, cl
     if no_offer:
         assert torch.isinf(got[0]).any()
     assert not got[3][1::2].any()
+
+
+# -- K10-K12: the warm repair's carry programs ----------------------------------
+
+
+def _free_args(rng, dev, n_new, n_ex, n_cls=16, g1=8):
+    """A carry's freed planes with sparse evictions, a slot freed by two
+    classes on each side, and inexact requests (so the f32 sum's order
+    shows)."""
+    free_new = np.where(rng.random((n_cls, n_new)) < 0.02, rng.integers(1, 3, (n_cls, n_new)), 0)
+    free_ex = np.where(rng.random((n_cls, n_ex)) < 0.05, rng.integers(1, 3, (n_cls, n_ex)), 0)
+    free_new[2, 5] = free_new[7, 5] = 1  # slot 5 freed by two classes
+    free_ex[3, 0] = free_ex[11, 0] = 2
+    req = (rng.integers(1, 40, (n_cls, 3)) * 0.1).astype(np.float32)
+    args = [
+        (rng.integers(0, 400, (n_new, 3)) * 0.1).astype(np.float32),
+        rng.integers(0, 6, n_new), rng.integers(0, 4, (g1, n_new)), rng.integers(0, 2, (g1, n_new)),
+        (rng.integers(0, 400, (n_ex, 3)) * 0.1).astype(np.float32),
+        rng.integers(0, 6, n_ex), rng.integers(0, 4, (g1, n_ex)), rng.integers(0, 2, (g1, n_ex)),
+        free_new, free_ex, req, rng.integers(0, 2, (n_cls, g1)), rng.integers(0, 2, (n_cls, g1)),
+    ]
+    return [torch.as_tensor(a if a.dtype == np.float32 else a.astype(np.int32)).to(dev)
+            for a in args]
+
+
+@pytest.mark.parametrize("n_new,n_ex", [(8192, 1), (8192, 1536), (77, 6144)])
+def test_repair_free_matches_plain(card, n_new, n_ex):
+    args = _free_args(np.random.default_rng(n_new + n_ex), card, n_new, n_ex)
+    before = [a.clone() for a in args]
+    got, want = repair.repair_free(*args), repair.repair_free_plain(*args)
+    _equal(got, want)
+    _equal(args, before)  # nothing given is written into
+    assert (got[1] >= 0).all() and (got[2] >= 0).all()
+
+
+def _rows(rng, dev, n, n_it=1000, k=8, words=1, z=3, ct=2, p=4):
+    """Random per-slot planes in ROW_PLANES order (kmask words use bit 31)."""
+    b = lambda *shape: rng.random(shape) < 0.5  # noqa: E731
+    planes = [
+        (rng.integers(0, 64, (n, 3)) * 0.25).astype(np.float32),
+        rng.integers(-2**31, 2**31, (n, k, words), dtype=np.int64).astype(np.int32),
+        b(n, k), b(n, k), rng.normal(size=(n, k)).astype(np.float32),
+        rng.normal(size=(n, k)).astype(np.float32), b(n, z), b(n, ct), b(n, n_it), b(n, p),
+        rng.integers(0, 30, n).astype(np.int32), rng.integers(0, 5, n).astype(np.int32),
+        rng.random(n) < 0.8,
+    ]
+    return tuple(torch.as_tensor(a).to(dev) for a in planes)
+
+
+def _window(n_slots, holes, n_next, window_min):
+    from karpenter_core_tpu_torch.solver.incremental import _window_indices
+
+    idx, n_open = _window_indices(holes, n_next, n_slots, window_min)
+    return idx, n_open
+
+
+@pytest.mark.parametrize("n_slots,holes,n_next,window_min", [
+    (8192, list(range(3, 7000, 16)), 7162, 256),   # 437 holes: a 512-slot window
+    (8192, [17, 4001, 6000], 7162, 256),            # three holes and a fresh tail
+    (4096, [5, 9], 4090, 64),                       # filler rows below n_next
+    (1000, [0, 998], 999, 16),                      # N off the word; filler and one fresh
+])
+def test_repair_window_gather_and_scatter_match_plain(card, n_slots, holes, n_next, window_min):
+    rng = np.random.default_rng(n_slots + len(holes))
+    rows = _rows(rng, card, n_slots, n_it=1000 if n_slots > 1000 else 77, z=3)
+    g1 = 8
+    fwd = torch.as_tensor(rng.integers(0, 5, (g1, n_slots)).astype(np.int32)).to(card)
+    inv = torch.as_tensor(rng.integers(0, 3, (g1, n_slots)).astype(np.int32)).to(card)
+    idx_np, n_open = _window(n_slots, holes, n_next, window_min)
+    idx = torch.as_tensor(idx_np).to(card)
+    before = [t.clone() for t in rows + (fwd, inv)]
+    got = repair.gather_window(rows, fwd, inv, idx, n_open)
+    want = repair.gather_window_plain(rows, fwd, inv, idx, n_open)
+    _equal(got[0], want[0])
+    _equal(got[1:4] + got[4], want[1:4] + want[4])
+    assert int(got[1]) == n_open
+    assert int(want[4][1].sum()) > 0
+    # the repair's window state, perturbed, written back
+    w_rows = _rows(np.random.default_rng(1), card, len(idx_np), n_it=rows[8].shape[1])
+    w_fwd = torch.as_tensor(rng.integers(0, 9, (g1, len(idx_np))).astype(np.int32)).to(card)
+    w_inv = torch.as_tensor(rng.integers(0, 9, (g1, len(idx_np))).astype(np.int32)).to(card)
+    n_next_t = torch.tensor(n_next, dtype=torch.int32, device=card)
+    w_next = torch.tensor(n_open + 5, dtype=torch.int32, device=card)
+    args = (rows, fwd, inv, n_next_t, w_rows, w_fwd, w_inv, w_next, idx, n_open)
+    got = repair.scatter_window(*args)
+    want = repair.scatter_window_plain(*args)
+    _equal(got[0], want[0])
+    _equal(got[1:], want[1:])
+    assert int(got[3]) == n_next + 5
+    _equal(rows + (fwd, inv), before)  # the full-width carry stays as it was
