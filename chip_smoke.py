@@ -1,10 +1,11 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
 into an empty cluster and into a live 5,000-node cluster, multi-node
-consolidation of that cluster, and the warm repair under steady churn.
+consolidation of that cluster, the warm repair under steady churn, and the
+policy objective.
 
     python3 chip_smoke.py
 
-Builds the twelve hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the fourteen hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
@@ -14,10 +15,15 @@ csrc`` (one nvcc per source, all at once), then:
      same inputs, measured on the CPU.  Every ``SolveOutputs`` leaf must equal
      the same solve run with ``use_kernels=False`` (the kernels' plain torch
      twins) on the card, and every kernel must have launched in the cold run
-     (launch counters are zeroed just before it and read just after).
-  2. kernels K1-K4 — each against its plain twin on the card, on inputs
-     taken from the cold path's final state (its real shapes), plus a small
-     bounded-keys case for K1 and a hole-preference case for K2.
+     (launch counters are zeroed just before it and read just after).  A
+     further warm solve with ``KC_ENCODE_DEVICE_FINISH=1`` pads the class
+     planes on the card (K15): every leaf must equal the host-padded solve's
+     and K15 must have launched.
+  2. kernels K1-K4 and K15 — each against its plain twin on the card, on
+     inputs taken from the cold path's final state and encode (their real
+     shapes), plus a small bounded-keys case for K1, a hole-preference case
+     for K2 and K2's multi-block path at N = 32,768 (the main path's plane
+     four times over, and a quota whose int32 prefix sums wrap).
   3. existing-node path — first a mid-size solve (10,000 pods x 100 types
      into a 1,000-node cluster) whose counts must equal the JAX package's
      answer on the same inputs, measured on the CPU; then the same 50,000
@@ -28,8 +34,9 @@ csrc`` (one nvcc per source, all at once), then:
      Every leaf must equal the plain-twin solve; every existing node's final
      usage must stay within its allocatable; no tainted node may take a pod;
      scheduled + failed + residual must be 50,000; every kernel K1-K7 must
-     have launched in the cold run.  Then K5-K7 against their twins at this
-     path's shapes.
+     have launched in the cold run.  The warm outputs are decoded again
+     under the policy objective (no re-solve): K13's selection must equal its
+     twin's.  Then K5-K7 against their twins at this path's shapes.
 
   4. consolidation path — multi-node consolidation with every node a
      candidate and no pending pods, through
@@ -65,7 +72,25 @@ csrc`` (one nvcc per source, all at once), then:
          ticks, each checked against a session that always solves in full
          (FallbackPolicy(enabled=False)): every tick a delta with the same
          signature, the JAX package's evictions and totals (``MID_CHURN``).
-     Then K10-K12 against their twins on (a)'s last tick's inputs.
+     Then K10-K12 against their twins on (a)'s last tick's inputs, and K10
+     on dense evictions with full-mantissa requests.
+  6. policy path — (a) the headline backlog through
+     ``CudaSolver(..., policy=PolicyConfig(enabled=True))`` after the policy
+     benchmark's price move (bench.py ``policy_line``: every type's zone-2
+     spot offering at 0.6x its first offering), cold and warm, with the
+     ``decode.objective`` stage (``objective_s``).  The selection must equal
+     the JAX package's (``POLICY_HEADLINE``: active slots, the histogram of
+     selected zone and capacity type, ``fleet_cost`` and ``fleet_expected``)
+     and, leaf for leaf, a ``use_kernels=False`` run; every node's launch
+     lists must pin its selected offering; K13 and K1-K7 must have launched
+     in the cold run.  Then K13 against its twin on that final state, and
+     with full-mantissa risks and throughputs under non-zero knobs.
+     (b) the mid-size consolidation of phase 4 under the policy: the command
+     must equal the JAX package's (``MID_POLICY_CONSOLIDATION``), in one
+     pass (cost-delta scoring does not refine).  (c) the mid-size session:
+     after an interruption-rate change the next tick must be a full solve
+     with the reference's reason (``POLICY_ESCALATION_REASON``), the ticks
+     around it deltas.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
@@ -77,7 +102,8 @@ the f32 count plane, which computes its displaced counts; K10's one
 ``torch.matmul`` of ``free_new.T.float()`` with the class requests, which
 computes its ``used`` term; no single PyTorch call computes any of the
 others (K11 and K12 are gathers and scatters of 13 planes with a zone-count
-reduction), so theirs is null.
+reduction, K13 a masked argmin with the spot tie rule and two ordered sums,
+K15 the padding of sixteen planes with a group remap), so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
@@ -87,6 +113,7 @@ run without one.
 
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -130,12 +157,29 @@ MID_CHURN = {"ticks": 4, "evicted_existing": [149, 201, 201, 201], "evicted_new"
 PROVISIONING_KERNELS = ("it_capacity", "fill_priority", "req_merge", "pack_bool",
                         "existing_intake", "existing_phase", "spread_quota")
 CHURN_KERNELS = PROVISIONING_KERNELS + ("repair_free", "repair_gather", "repair_scatter")
+POLICY_KERNELS = PROVISIONING_KERNELS + ("select_offerings",)
 # the JAX package's answers for phase 5 (a), measured on the CPU: evictions,
 # freed-hole slots and window slots per tick, and the totals after the last
 HEADLINE_CHURN = {"evicted": [999, 999, 999, 999, 1001], "hole_slots": [437, 3, 3, 19, 366],
                   "window": [512, 256, 256, 256, 512],
                   "aggregates": {"scheduled": N_PODS, "failed": 0, "nodes": EXPECTED_NODES}}
 CHURN_POLICY = {"enabled": True, "audit_interval": 0, "max_delta_fraction": 0.5}
+# the JAX package's multi-node consolidation command for the mid-size cluster
+# under PolicyConfig(enabled=True) (cost-delta scoring, no refinement),
+# measured on the CPU; tests/test_torch_policy.py holds both packages to it
+MID_POLICY_CONSOLIDATION = {"action": "delete", "nodes_removed": 255, "replacements": []}
+# phase 6 (a): the headline backlog under PolicyConfig(enabled=True) after the
+# policy benchmark's price move (bench.py policy_line: zone-2 spot at 0.6x the
+# type's first offering).  The JAX package's select_offerings, run on the CPU
+# over this solve's final state planes and objective planes as a card run
+# left them, gives this selection, every leaf equal to the card's; the
+# solve's 7,162 nodes are the JAX package's full-size answer (EXPECTED_NODES)
+POLICY_HEADLINE = {"active": 7162, "hist": {"test-zone-1/spot": 8, "test-zone-2/spot": 7153,
+                                            "test-zone-3/on-demand": 1},
+                   "fleet_cost": 580.57568359375, "fleet_expected": 580.57568359375}
+# the reason both packages' sessions give a full solve after a policy input
+# changed (tests/test_torch_policy.py holds both to it)
+POLICY_ESCALATION_REASON = "supply-changed:supply"
 CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
                          "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
 
@@ -199,7 +243,8 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, consolidate, existing, fill, packbits, repair, reqmerge, spread,
+        capacity, classfinish, consolidate, existing, fill, objective, packbits, repair, reqmerge,
+        spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
@@ -208,15 +253,17 @@ def launch_counts() -> dict:
         "existing_phase": existing.phase_launches, "spread_quota": spread.launches,
         "sweep_lanes": consolidate.lanes_launches, "lane_finish": consolidate.finish_launches,
         "repair_free": repair.free_launches, "repair_gather": repair.gather_launches,
-        "repair_scatter": repair.scatter_launches,
+        "repair_scatter": repair.scatter_launches, "select_offerings": objective.launches,
+        "class_finish": classfinish.launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, consolidate, existing, fill, packbits, repair, reqmerge, spread,
+        capacity, classfinish, consolidate, existing, fill, objective, packbits, repair, reqmerge,
+        spread,
     )
-    for mod in (capacity, fill, reqmerge, packbits, spread):
+    for mod in (capacity, fill, reqmerge, packbits, spread, objective, classfinish):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
@@ -229,13 +276,13 @@ def check_launched(launches: dict, names, path: str) -> None:
             fail(f"kernel {name} never launched on the {path}")
 
 
-def same_leaves(got_outputs, want_outputs, label: str) -> None:
+def same_leaves(got_outputs, want_outputs, label: str, want_name="the plain-twin solve") -> None:
     want = leaves(want_outputs)
     for name, got in leaves(got_outputs).items():
         if got.shape != want[name].shape or got.dtype != want[name].dtype or not torch.equal(
                 got, want[name]):
-            fail(f"{label}: SolveOutputs.{name} differs between the kernels and their plain twins")
-    print(f"{label}: every SolveOutputs leaf equals the plain-twin solve", flush=True)
+            fail(f"{label}: SolveOutputs.{name} differs from {want_name}")
+    print(f"{label}: every SolveOutputs leaf equals {want_name}", flush=True)
 
 
 def leaves(outputs) -> dict:
@@ -291,10 +338,14 @@ def existing_path(records, cold_launches):
     K5-K7 against their twins at this path's shapes.  Returns the mid-size
     and the full-size cluster, each (state_nodes, bound_pods), and this
     path's launches."""
+    import numpy as np
+
     from karpenter_core_tpu_torch.kernels import existing, fill, reqmerge, spread
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import masks as mask_ops
     from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.ops.objective import select_for_state
+    from karpenter_core_tpu_torch.policy import PolicyConfig, planes_of
     from karpenter_core_tpu_torch.testing.workloads import build_cluster, build_inputs
 
     # the mid-size solve whose answer the JAX package gave on the CPU
@@ -356,6 +407,29 @@ def existing_path(records, cold_launches):
     if not bool((out.ex_state.used <= prep.ex_static.alloc + 1e-4).all()):
         fail("an existing node's final usage exceeds its allocatable")
     print("existing path: every existing node's usage within its allocatable", flush=True)
+
+    # the policy objective over this path's outputs: decode again, no re-solve
+    solver.policy = PolicyConfig(enabled=True)
+    before = launch_counts()["select_offerings"]
+    policy_res = solver.decode(snapshot, out, state_nodes)
+    selection = solver.last_selection
+    plain_sel = select_for_state(out.state, planes_of(snapshot), solver.policy,
+                                 snapshot.capacity_types, use_kernels=False)
+    if any(not np.array_equal(a, b) for a, b in zip(selection, plain_sel)):
+        fail("existing path: the policy selection differs from its plain twin's")
+    launches["select_offerings"] = launch_counts()["select_offerings"] - before
+    if launches["select_offerings"] != 1:
+        fail("existing path: the policy decode did not launch select_offerings once")
+    print(json.dumps({"run": "existing warm outputs decoded under the policy",
+                      "objective_s": solver.stages["objective_s"],
+                      "active": int(selection.active.sum()),
+                      "selected": sum(d.selected is not None for d in policy_res.new_nodes),
+                      "new_nodes": len(policy_res.new_nodes),
+                      "fleet_cost": policy_res.fleet_cost,
+                      "fleet_expected": policy_res.fleet_expected_cost}), flush=True)
+    if policy_res.fleet_cost is None or not all(d.selected for d in policy_res.new_nodes):
+        fail("existing path: a new node of the policy decode has no selected offering")
+    solver.policy = None
 
     plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
     ingest = PodIngest()
@@ -665,7 +739,7 @@ def full_signature(solver, ingest, state_nodes=None, bound_pods=None):
     return node_signature_of(assign, keys) + node_signature_of(assign_ex, keys), wall_s
 
 
-def churn_path(records, mid_cluster, path_launches) -> None:
+def churn_path(records, mid_cluster, path_launches) -> dict:
     """Phase 5: the warm repair's serial delta tick, at the headline's full
     width and on the mid-size live cluster; then K10-K12 against their twins
     on the headline's last tick's inputs."""
@@ -806,6 +880,16 @@ def churn_path(records, mid_cluster, path_launches) -> None:
         nbytes(*k10) + nbytes(*k10_out), 2 * n_cls * columns * (n_res + 2 * g1 + 1),
         library_fn=lambda: torch.matmul(free_t, requests),
     )
+    # K10 on dense evictions (most slots freed by several classes) and
+    # full-mantissa requests, where the order of the fused class sum shows
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    dense = (torch.randint(0, 8, tuple(free_new.shape), generator=gen, dtype=torch.int32).cuda(),
+             torch.randint(0, 8, tuple(free_ex.shape), generator=gen, dtype=torch.int32).cuda(),
+             (torch.rand(tuple(requests.shape), generator=gen) * 4).cuda())
+    k10_dense = k10[:8] + dense + (member, own_inv)
+    err = max_abs_err(repair.repair_free(*k10_dense), repair.repair_free_plain(*k10_dense))
+    if err != 0.0:
+        fail(f"repair_free on dense full-mantissa input differs from its twin: {err}")
     freed, idx, n_open = recorded["gather_repair_window"]
     rows = tuple(getattr(freed.state, f) for f in repair.ROW_PLANES)
     k11 = (rows, freed.topo.fwd_new, freed.topo.inv_new, idx, n_open)
@@ -836,19 +920,177 @@ def churn_path(records, mid_cluster, path_launches) -> None:
         + nbytes(idx_s) + n_slots * (row_bytes + topo_row) + 12,
         n_slots * 2,
     )
-    print(f"churn path kernels exact: K10 (C={n_cls}, N={n_slots}, E={free_ex.shape[1]}), "
-          f"K11 and K12 (S={n_window} of N={n_slots})", flush=True)
+    print(f"churn path kernels exact: K10 (C={n_cls}, N={n_slots}, E={free_ex.shape[1]}; and on "
+          f"dense full-mantissa input), K11 and K12 (S={n_window} of N={n_slots})", flush=True)
     for rec in records:
         per_path = rec.setdefault("launches_per_path", {})
         for path, counts in path_launches.items():
             per_path.setdefault(path, counts[rec["name"]])
         per_path["churn"] = launches[rec["name"]]
+    return launches
+
+
+def policy_path(records, mid_cluster, path_launches) -> None:
+    """Phase 6: the policy objective — the headline backlog under the policy
+    at full width (K13 on its final state against its twin), the mid-size
+    consolidation under cost-delta scoring, and the mid-size session's
+    escalation when an offering's interruption rate moves."""
+    import numpy as np
+
+    from karpenter_core_tpu_torch.kernels import objective
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import objective as objective_ops
+    from karpenter_core_tpu_torch.policy import PolicyConfig, planes_of
+    from karpenter_core_tpu_torch.solver.consolidation import CudaConsolidationSearch
+    from karpenter_core_tpu_torch.solver.incremental import (
+        FallbackPolicy,
+        IncrementalSolveSession,
+    )
+    from karpenter_core_tpu_torch.testing.workloads import (
+        build_inputs,
+        build_provider,
+        churn_tick,
+        consolidation_candidates,
+        move_spot_market,
+    )
+
+    # -- (a) the headline backlog, zone-2 spot at 0.6x, the policy on ----------
+    config = PolicyConfig(enabled=True)
+    solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, policy=config)
+    move_spot_market(solver.cloud_provider)
+    reset_launches()
+    runs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        ingest_s = time.perf_counter() - t0
+        results = solver.solve(ingest)
+        torch.cuda.synchronize()
+        runs.append((label, ingest_s, dict(solver.stages), time.perf_counter() - t0, results))
+        if label == "cold":
+            launches = launch_counts()
+    selection = solver.last_selection
+    for label, ingest_s, stages, total_s, results in runs:
+        hist = {}
+        for d in results.new_nodes:
+            if d.selected is not None:
+                key = f"{d.selected['zone']}/{d.selected['capacity_type']}"
+                hist[key] = hist.get(key, 0) + 1
+        got = {"active": sum(hist.values()), "hist": dict(sorted(hist.items())),
+               "fleet_cost": results.fleet_cost, "fleet_expected": results.fleet_expected_cost}
+        print(json.dumps({"run": f"policy {label}", "wall_s": total_s, "ingest_s": ingest_s,
+                          **stages, "decode.objective_s": stages["objective_s"],
+                          "nodes": len(results.new_nodes), **got}), flush=True)
+        if got != POLICY_HEADLINE or len(results.new_nodes) != EXPECTED_NODES:
+            fail(f"policy {label}: {got}, the JAX package's answer is {POLICY_HEADLINE}")
+        for d in results.new_nodes:
+            if d.zones != [d.selected["zone"]] or d.capacity_types != [
+                    d.selected["capacity_type"]] or d.instance_type_names[0] != d.selected[
+                    "instance_type"]:
+                fail(f"policy {label}: a node's launch lists do not pin its selected offering")
+    print(json.dumps({"policy_cold_run_launches": launches}), flush=True)
+    check_launched(launches, POLICY_KERNELS, "policy path")
+    plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, policy=config,
+                                   use_kernels=False)
+    move_spot_market(plain_solver.cloud_provider)
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    t0 = time.perf_counter()
+    plain_solver.solve(ingest)
+    torch.cuda.synchronize()
+    print(json.dumps({"run": "policy plain twins (use_kernels=False)",
+                      "wall_s": time.perf_counter() - t0, **plain_solver.stages}), flush=True)
+    for name, a, b in zip(selection._fields, selection, plain_solver.last_selection):
+        if not np.array_equal(a, b):
+            fail(f"policy: selection leaf {name} differs from the use_kernels=False run")
+    print("policy path (a): every selection leaf equals the plain-twin run; the JAX "
+          "package's selection pinned", flush=True)
+    del plain_solver
+
+    # K13 on that final state, against its twin
+    state = solver.last_outputs.state
+    snapshot = solver.encode(ingest)
+    planes = planes_of(snapshot)
+    is_spot = torch.tensor([c == "spot" for c in snapshot.capacity_types], device="cuda")
+    k13 = (state.viable, state.zone, state.ct, state.open_, state.pod_count,
+           torch.as_tensor(planes.price).cuda(), torch.as_tensor(planes.risk).cuda(),
+           torch.as_tensor(planes.throughput).cuda(), is_spot, objective_ops.weights_of(config))
+    n_slots, n_types = state.viable.shape
+    cells = planes.price.size
+    record_kernel(
+        records, "select_offerings", "karpenter_core_tpu_torch/csrc/select_offerings.cu",
+        "karpenter_core_tpu/ops/objective.py:87", launches["select_offerings"],
+        lambda: objective.select_offerings(*k13), lambda: objective.select_offerings_plain(*k13),
+        nbytes(*k13[:9]) + n_slots * (5 * 4 + 1) + 8, 8 * n_slots * cells + 5 * cells,
+    )
+    # full-mantissa risks and throughputs with every knob non-zero
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    knobs = objective_ops.weights_of(PolicyConfig(
+        enabled=True, cost_weight=0.7310001, throughput_weight=0.3330001,
+        risk_aversion=0.6170001))
+    fuzz = k13[:6] + (torch.rand(tuple(planes.risk.shape), generator=gen).cuda(),
+                      torch.rand(tuple(planes.throughput.shape), generator=gen).cuda(),
+                      is_spot, knobs)
+    err = max_abs_err(objective.select_offerings(*fuzz), objective.select_offerings_plain(*fuzz))
+    if err != 0.0:
+        fail(f"select_offerings with non-zero knobs differs from its twin: {err}")
+    print("policy path kernel exact: K13 (the final state; full-mantissa knobs)", flush=True)
+    rec = records[-1]
+    rec["launches_per_path"] = {**{path: counts["select_offerings"]
+                                   for path, counts in path_launches.items()},
+                                "policy": launches["select_offerings"]}
+    for other in records[:-1]:
+        other["launches_per_path"]["policy"] = launches[other["name"]]
+    del solver
+
+    # -- (b) the mid-size consolidation under cost-delta scoring -----------------
+    mid_nodes, mid_bound = mid_cluster
+    t0 = time.perf_counter()
+    search = CudaConsolidationSearch(*build_provider(MID_TYPES, N_PROVISIONERS), policy=config)
+    cmd = search.compute_command(
+        consolidation_candidates(mid_nodes, mid_bound, MID_TYPES, N_PROVISIONERS), [],
+        mid_nodes, mid_bound)
+    summary = command_summary(cmd)
+    print(json.dumps({"run": "consolidation mid-size, policy on",
+                      "wall_s": time.perf_counter() - t0,
+                      "passes": [len(sizes) for sizes, _ in search.passes], **summary}), flush=True)
+    if summary != MID_POLICY_CONSOLIDATION or len(search.passes) != 1:
+        fail(f"policy consolidation: {summary}, the JAX package's answer is "
+             f"{MID_POLICY_CONSOLIDATION} in one pass")
+    del search, cmd
+
+    # -- (c) the mid-size session escalates on an interruption-rate change ------
+    mid_solver, mid_pods = build_inputs(MID_PODS, MID_TYPES, N_PROVISIONERS)
+    mid_ingest = PodIngest()
+    mid_ingest.add_all(mid_pods)
+    session = IncrementalSolveSession(mid_solver, FallbackPolicy(**CHURN_POLICY))
+    modes, reps = [], {}
+    for tick in range(4):
+        if tick == 2:
+            mid_solver.cloud_provider.set_interruption_rate(f"fake-it-{MID_TYPES - 1}", 0.3)
+        if tick:
+            churn_tick(mid_ingest, tick, reps)
+        session.solve(mid_ingest, mid_nodes, mid_bound)
+        torch.cuda.synchronize()
+        modes.append((session.last_mode, session.last_reason))
+    print(json.dumps({"run": "churn mid-size, interruption rate moved before tick 2",
+                      "ticks": modes}), flush=True)
+    want = [("full", "first"), ("delta", None), ("full", POLICY_ESCALATION_REASON),
+            ("delta", None)]
+    if [(m, r if m == "full" else None) for m, r in modes] != want:
+        fail(f"policy escalation: {modes}, expected {want}")
+    print("policy path (b, c): the consolidation command and the escalation equal the JAX "
+          "package's", flush=True)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    from karpenter_core_tpu_torch.kernels import build, capacity, fill, packbits, reqmerge
+    from karpenter_core_tpu_torch import carry
+    from karpenter_core_tpu_torch.kernels import (
+        build, capacity, classfinish, fill, packbits, reqmerge,
+    )
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import masks as mask_ops
     from karpenter_core_tpu_torch.ops import solve as solve_ops
@@ -910,10 +1152,29 @@ def main() -> None:
                       "wall_s": time.perf_counter() - t0, **plain_solver.stages,
                       "nodes": len(plain_res.new_nodes)}), flush=True)
     same_leaves(kernel_out, plain_solver.last_outputs, "cold path")
+    del plain_solver, plain_res
+
+    # the same warm solve with the class planes padded on the card (K15)
+    os.environ["KC_ENCODE_DEVICE_FINISH"] = "1"
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.solve(ingest)
+    torch.cuda.synchronize()
+    finish_launches = launch_counts()
+    del os.environ["KC_ENCODE_DEVICE_FINISH"]
+    print(json.dumps({"run": "warm, KC_ENCODE_DEVICE_FINISH=1", "wall_s": time.perf_counter() - t0,
+                      **solver.stages, "launches": finish_launches}), flush=True)
+    check_launched(finish_launches, ("class_finish",), "cold path with device-side class finish")
+    same_leaves(solver.last_outputs, kernel_out, "cold path, classes finished on the card",
+                "the host-padded solve")
+    launches["class_finish"] = finish_launches["class_finish"]
 
     # -- 2. kernels against their plain twins, at the main path's shapes ------
     state = kernel_out.state
-    prep = solver.prepare_encoded(solver.encode(ingest))
+    snapshot = solver.encode(ingest)
+    prep = solver.prepare_encoded(snapshot)
     st = solve_ops.StaticArrays(*prep.statics_arrays)
     v = st.valid.shape[-1]
     st = st._replace(it=mask_ops.pack_req(st.it), valid=mask_ops.pack_mask(st.valid))
@@ -965,6 +1226,43 @@ def main() -> None:
         nbytes(quota, cap_n, priority) + n_slots * 4,
         n_slots * 32 * 4,
     )
+    # K2's multi-block path at N = 32,768: the main path's plane four times
+    # over (duplicate priorities, so the sort's stability shows), then a
+    # quota whose int32 prefix sums wrap
+    k2 = records[-1]
+    cap_m, pri_m = cap_n.repeat(4), priority.repeat(4)
+    quota_m = torch.tensor(int(cap_m.sum()) // 2, dtype=torch.int32, device="cuda")
+    big, wrap = torch.full_like(cap_m, 2**30), torch.tensor(2**31 - 1, dtype=torch.int32,
+                                                            device="cuda")
+    for args in ((quota_m, cap_m, pri_m), (wrap, big, pri_m)):
+        err = max_abs_err(fill.fill_by_priority(*args), fill.fill_by_priority_plain(*args))
+        if err != 0.0:
+            fail(f"fill_priority at N = {cap_m.shape[0]} differs from its twin: {err}")
+    n_m = cap_m.shape[0]
+    k2["multi_block"] = {
+        "n": n_m, "ms": time_ms(lambda: fill.fill_by_priority(quota_m, cap_m, pri_m)),
+        "plain_ms": time_ms(lambda: fill.fill_by_priority_plain(quota_m, cap_m, pri_m)),
+        "bound_ms": (12 * n_m + 4) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    print(f"fill_priority multi-block N={n_m}: ms {k2['multi_block']['ms']:.4f} "
+          f"plain_ms {k2['multi_block']['plain_ms']:.4f} exact (and a wrapping quota)", flush=True)
+    # K15: the headline's compact class rows into its bucket
+    cls_c, sa_c, _ = solve_ops.prepare_host(snapshot)
+    compact = solve_ops.ClassTensors(*(carry.to_tensor(a, "cuda") for a in cls_c))
+    g1_old = sa_c.grp_skew.shape[0]
+    ext = classfinish.Extents(
+        solve_ops.bucket(cls_c.count.shape[0]), solve_ops.bucket(sa_c.valid.shape[0]),
+        solve_ops.bucket(sa_c.valid.shape[1] - 1), g1_old,
+        solve_ops.bucket(g1_old - 1, floor=4) + 1, solve_ops.bucket(cls_c.ports.shape[-1], floor=4))
+    finished = record(
+        "class_finish", "karpenter_core_tpu_torch/csrc/class_finish.cu",
+        "karpenter_core_tpu/ops/solve.py:2623", launches["class_finish"],
+        lambda: classfinish.finish_class_planes(compact, ext),
+        lambda: classfinish.finish_class_planes_plain(compact, ext),
+        nbytes(tuple(compact)) + nbytes(tuple(prep.cls)), sum(t.numel() for t in prep.cls),
+    )
+    if max_abs_err(finished, tuple(prep.cls)) != 0.0:
+        fail("class_finish differs from the host padding of the same rows")
     # K4 bit-pack of the final viable plane
     record(
         "pack_bool", "karpenter_core_tpu_torch/csrc/pack_bool.cu",
@@ -1021,12 +1319,15 @@ def main() -> None:
     consolidation_launches = consolidation_path(records, mid_cluster, cluster, launches,
                                                 existing_launches)
     del cluster
-    churn_path(records, mid_cluster, {"cold": launches, "existing": existing_launches,
-                                      "consolidation": consolidation_launches})
+    path_launches = {"cold": launches, "existing": existing_launches,
+                     "consolidation": consolidation_launches}
+    churn_launches = churn_path(records, mid_cluster, path_launches)
+    policy_path(records, mid_cluster, {**path_launches, "churn": churn_launches})
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
           "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
-          "requests; null for the others — no single PyTorch call computes them",
-          flush=True)
+          "requests; null for the others — no single PyTorch call computes them (K13: a "
+          "masked argmin with the spot tie rule and ordered sums; K15: sixteen padded planes "
+          "with a group remap)", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

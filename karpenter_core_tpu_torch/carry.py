@@ -16,10 +16,14 @@ import torch
 
 from karpenter_core_tpu_torch import device as device_mod
 from karpenter_core_tpu_torch.ops import masks as mask_ops
+from karpenter_core_tpu_torch.ops import objective as objective_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
+from karpenter_core_tpu_torch.policy.planes import ObjectivePlanes
 
 
 def to_tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a plane already finished on a device
+        return a.to(device)
     arr = np.asarray(a)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)  # packed mask words keep their bits
@@ -76,3 +80,17 @@ def warm_carry_from_numpy(carry, device=None) -> solve_ops.WarmCarry:
         topo=_by_name(solve_ops.TopoCounts, carry.topo, dev),
         remaining=to_tensor(carry.remaining, dev),
     )
+
+
+def objective_planes_from_numpy(planes, device=None) -> ObjectivePlanes:
+    """The port's ``ObjectivePlanes`` as f32 tensors on ``device`` from
+    numpy price / risk / throughput planes (either package's
+    ``ObjectivePlanes``, matched by field name)."""
+    dev = device_mod.resolve(device)
+    return ObjectivePlanes(*(to_tensor(getattr(planes, f), dev) for f in ObjectivePlanes._fields))
+
+
+def weights_from_config(config) -> objective_ops.ObjectiveWeights:
+    """K13's weights from either package's ``PolicyConfig`` (its knobs read
+    by name, rounded to float32 as the reference's ``weights_of`` does)."""
+    return objective_ops.weights_of(config)

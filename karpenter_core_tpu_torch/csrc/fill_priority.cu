@@ -21,9 +21,25 @@
 // and add nothing to the scan.  The quota is read from device memory, so the
 // caller never synchronises to pass it.  ITEMS is 1..16: N <= 16384, twice
 // the main path's slot count (the slot-exhaustion retry doubles it).
+//
+// Above 16,384 slots (an existing cluster that large, or a retry past it)
+// a multi-block path takes over, in five launches on the caller's stream:
+//   1. iota: the slot indices, the sort's values;
+//   2. CUB's device-wide radix sort of (priority, index) pairs.  An LSD
+//      radix sort is stable, and the values enter in index order, so equal
+//      priorities keep index order as jnp.argsort does;
+//   3. tile_sums: the uint32 sum of the sorted caps of each 1,024-slot tile;
+//   4. tile_offsets: one block's exclusive scan of the tile sums;
+//   5. clip_scatter: each tile's exclusive scan (warp shuffles, then the
+//      warps' totals), plus its tile offset, gives every slot's `before`;
+//      the clipped fill is scattered to the slot's index.
+// The wrapper allocates the scratch (kc_fill_priority_scratch_bytes).  The
+// scans run on uint32, as the one-block path does, so the int32 wraparound
+// of the reference's cumsum stays defined; the quota is read on the device.
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
+#include <cub/device/device_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,9 +104,155 @@ int launch(int n, const void* quota, const void* cap, const void* priority, void
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the multi-block path ------------------------------------------------------
+
+constexpr int kTileThreads = 256;
+constexpr int kTileItems = 4;
+constexpr int kTile = kTileThreads * kTileItems;
+constexpr int kOneBlock = kThreads * 16;
+
+size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
+
+__global__ void iota_kernel(int n, int32_t* __restrict__ idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) idx[i] = i;
+}
+
+// the exclusive prefix of `v` over the block's threads, and the block total
+__device__ __forceinline__ unsigned int block_exclusive_scan(unsigned int v, unsigned int* total) {
+  __shared__ unsigned int warp_sums[kTileThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned int incl = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned int up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  unsigned int warp_base = 0, all = 0;
+  for (int w = 0; w < kTileThreads / 32; ++w) {
+    if (w < warp) warp_base += warp_sums[w];
+    all += warp_sums[w];
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+  *total = all;
+  return warp_base + incl - v;
+}
+
+__global__ void __launch_bounds__(kTileThreads) tile_sums_kernel(
+    int n, const int32_t* __restrict__ cap, const int32_t* __restrict__ order,
+    unsigned int* __restrict__ tile_sums) {
+  const int base = blockIdx.x * kTile + threadIdx.x * kTileItems;
+  unsigned int local = 0;
+  for (int j = 0; j < kTileItems; ++j) {
+    if (base + j < n) local += static_cast<unsigned int>(cap[order[base + j]]);
+  }
+  unsigned int total;
+  block_exclusive_scan(local, &total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kTileThreads) tile_offsets_kernel(
+    int tiles, unsigned int* __restrict__ tile_sums) {
+  // in place: tile sums -> exclusive tile offsets, kTileThreads tiles a round
+  unsigned int carry = 0;
+  for (int start = 0; start < tiles; start += kTileThreads) {
+    const int t = start + threadIdx.x;
+    const unsigned int v = t < tiles ? tile_sums[t] : 0u;
+    unsigned int total;
+    const unsigned int excl = block_exclusive_scan(v, &total);
+    if (t < tiles) tile_sums[t] = carry + excl;
+    carry += total;
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads) clip_scatter_kernel(
+    int n, const int32_t* __restrict__ quota_p, const int32_t* __restrict__ cap,
+    const int32_t* __restrict__ order, const unsigned int* __restrict__ tile_offsets,
+    int32_t* __restrict__ out) {
+  const int base = blockIdx.x * kTile + threadIdx.x * kTileItems;
+  unsigned int c[kTileItems];
+  int idx[kTileItems];
+  unsigned int local = 0;
+  for (int j = 0; j < kTileItems; ++j) {
+    idx[j] = base + j < n ? order[base + j] : -1;
+    c[j] = idx[j] >= 0 ? static_cast<unsigned int>(cap[idx[j]]) : 0u;
+    local += c[j];
+  }
+  unsigned int total;
+  unsigned int before = tile_offsets[blockIdx.x] + block_exclusive_scan(local, &total);
+  const unsigned int quota = static_cast<unsigned int>(*quota_p);
+  for (int j = 0; j < kTileItems; ++j) {
+    if (idx[j] >= 0) {
+      const int cj = static_cast<int>(c[j]);
+      int a = static_cast<int>(quota - before);  // int32 wraparound, as the reference
+      a = a < 0 ? 0 : a;
+      a = a > cj ? cj : a;
+      out[idx[j]] = a;
+    }
+    before += c[j];
+  }
+}
+
+size_t cub_bytes(int n) {
+  size_t bytes = 0;
+  cub::DeviceRadixSort::SortPairs(nullptr, bytes, static_cast<const int*>(nullptr),
+                                  static_cast<int*>(nullptr), static_cast<const int*>(nullptr),
+                                  static_cast<int*>(nullptr), n);
+  return bytes;
+}
+
+// scratch layout: indices in, keys out, indices out, tile sums, CUB's storage
+size_t multi_scratch_bytes(int n) {
+  const size_t tiles = (static_cast<size_t>(n) + kTile - 1) / kTile;
+  return 3 * align_up(static_cast<size_t>(n) * 4) + align_up(tiles * 4) + align_up(cub_bytes(n));
+}
+
+int launch_multi(int n, const void* quota, const void* cap, const void* priority, void* out,
+                 void* scratch, cudaStream_t stream) {
+  unsigned char* p = static_cast<unsigned char*>(scratch);
+  const size_t plane = align_up(static_cast<size_t>(n) * 4);
+  int32_t* idx_in = reinterpret_cast<int32_t*>(p);
+  int32_t* keys_out = reinterpret_cast<int32_t*>(p + plane);
+  int32_t* idx_out = reinterpret_cast<int32_t*>(p + 2 * plane);
+  const int tiles = (n + kTile - 1) / kTile;
+  unsigned int* tile_sums = reinterpret_cast<unsigned int*>(p + 3 * plane);
+  void* cub_tmp = p + 3 * plane + align_up(static_cast<size_t>(tiles) * 4);
+  size_t cub_size = cub_bytes(n);
+
+  iota_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, idx_in);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cub::DeviceRadixSort::SortPairs(cub_tmp, cub_size, static_cast<const int*>(priority),
+                                        keys_out, idx_in, idx_out, n, 0, 32, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_sums_kernel<<<tiles, kTileThreads, 0, stream>>>(n, static_cast<const int32_t*>(cap),
+                                                        idx_out, tile_sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_offsets_kernel<<<1, kTileThreads, 0, stream>>>(tiles, tile_sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  clip_scatter_kernel<<<tiles, kTileThreads, 0, stream>>>(
+      n, static_cast<const int32_t*>(quota), static_cast<const int32_t*>(cap), idx_out,
+      tile_sums, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int kc_fill_priority_max_n() { return kThreads * 16; }
+extern "C" int kc_fill_priority_max_n() { return kOneBlock; }
+
+extern "C" size_t kc_fill_priority_scratch_bytes(int n) {
+  return n > kOneBlock ? multi_scratch_bytes(n) : 0;
+}
+
+extern "C" int kc_fill_priority_multi(int n, const void* quota, const void* cap,
+                                      const void* priority, void* out, void* scratch,
+                                      void* stream_p) {
+  if (n <= 0) return 0;
+  return launch_multi(n, quota, cap, priority, out, scratch, static_cast<cudaStream_t>(stream_p));
+}
 
 extern "C" int kc_fill_priority(int n, const void* quota, const void* cap,
                                 const void* priority, void* out, void* stream_p) {

@@ -22,12 +22,11 @@
 // take the existing nodes), each looping over the classes; consecutive
 // threads read consecutive columns of every [C, N] and [G1, N] plane.
 //
-// Arithmetic matches the reference bit for bit where the reference's own
-// sum order cannot matter, and the plain twin everywhere: the f32 sum runs
-// over the classes in ascending order, each product and each sum rounded
-// on its own (`__fmul_rn`, `__fadd_rn`, then `__fsub_rn`), never an FMA,
-// which nvcc would otherwise contract it into.  int32 sums wrap as the
-// reference's do (unsigned arithmetic), in any order.
+// Arithmetic matches the reference and the plain twin bit for bit: the f32
+// sum is XLA's CPU dot behind the reference's einsum, from 0, one fused
+// multiply-add a class, classes ascending (`__fmaf_rn`), then `__fsub_rn`
+// from the usage.  int32 sums wrap as the reference's do (unsigned
+// arithmetic), in any order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +68,7 @@ __global__ void __launch_bounds__(kThreads) repair_free_kernel(
     float sum = 0.0f;
     for (int c = 0; c < n_cls; ++c) {
       const float f = static_cast<float>(s.free_[(size_t)c * cols + j]);
-      sum = __fadd_rn(sum, __fmul_rn(f, req[c * n_res + r]));
+      sum = __fmaf_rn(f, req[c * n_res + r], sum);
     }
     s.used_out[(size_t)j * n_res + r] = __fsub_rn(s.used[(size_t)j * n_res + r], sum);
   }

@@ -5,7 +5,9 @@
 that accepts wins" of scheduler.go:183-190.  The sort must be STABLE — empty
 slots all share pod count 0, and ``jnp.argsort`` keeps their index order —
 and the cumsum stays int32 and wraps exactly as the reference's does.
-The CUDA source is ``csrc/fill_priority.cu``.
+The CUDA source is ``csrc/fill_priority.cu``: one block up to
+``kc_fill_priority_max_n()`` = 16,384 slots, a multi-block sort, scan and
+scatter above it (any N, as the reference takes).
 """
 
 from __future__ import annotations
@@ -40,14 +42,23 @@ def fill_by_priority(quota: torch.Tensor, cap: torch.Tensor,
     for name, t, shape in (("quota", quota, ()), ("cap", cap, (n,)), ("priority", priority, (n,))):
         build.check_input(name, t, torch.int32, shape, cap.device)
     lib = build.load("fill_priority")
-    if n > lib.kc_fill_priority_max_n():
-        raise ValueError(f"fill_priority takes at most {lib.kc_fill_priority_max_n()} slots, got {n}")
     out = torch.empty_like(cap)
-    fn = lib.kc_fill_priority
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    rc = fn(n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(cap.device).cuda_stream)
+    stream = torch.cuda.current_stream(cap.device).cuda_stream
+    if n <= lib.kc_fill_priority_max_n():
+        fn = lib.kc_fill_priority
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+        rc = fn(n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(), stream)
+    else:
+        size = lib.kc_fill_priority_scratch_bytes
+        size.argtypes = [ctypes.c_int]
+        size.restype = ctypes.c_size_t
+        scratch = torch.empty(size(n), dtype=torch.uint8, device=cap.device)
+        fn = lib.kc_fill_priority_multi
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+        rc = fn(n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), stream)
     build.check(rc, "fill_priority")
     launches += 1
     return out

@@ -8,7 +8,7 @@ device programs of karpenter_core_tpu/ops/solve.py reshape the carry:
 (:1960): evicted pods' capacity and counts go back to the carry, on the new
 slots and the existing nodes alike::
 
-    used[n]      -= sum_c free[c, n] * req[c]        (f32, classes in order)
+    used[n]      -= sum_c free[c, n] * req[c]        (f32, one FMA a class, in order)
     pod_count[n]  = max(pod_count[n] - sum_c free[c, n], 0)
     fwd[g, n]     = max(fwd[g, n] - sum_c member[c, g] * free[c, n], 0)
     inv[g, n]     = max(inv[g, n] - sum_c own_inv[c, g] * free[c, n], 0)
@@ -31,9 +31,10 @@ by the fresh slots the repair opened.
 The per-slot planes travel as a tuple in ``ROW_PLANES`` order (NodeState's
 fields but ``n_next``).  ``idx`` holds unique slot indices in [0, N); a
 wrapper cannot check that without reading the device, so it does not.  The
-f32 sum of K10 runs over the classes in ascending order, each product and
-sum rounded on its own (never fused), and its twin does the same, so the
-two agree bit for bit; every int32 sum wraps as the reference's does.
+f32 sum of K10 is XLA's CPU dot behind the reference's einsum: from 0, one
+fused multiply-add a class, classes ascending (``fma_f32`` in the twin,
+``__fmaf_rn`` in the kernel), so the three agree bit for bit; every int32
+sum wraps as the reference's does.
 
 Each wrapper runs its plain torch twin for CPU tensors and launches its
 kernel for CUDA tensors; the twins are the CPU path and the kernels' oracle.
@@ -47,6 +48,7 @@ import ctypes
 import torch
 
 from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
 
 I32 = torch.int32
 F32 = torch.float32
@@ -80,7 +82,7 @@ def _free_side_plain(used, pod_count, fwd, inv, free, requests, member, own_inv)
     inv_sub = torch.zeros_like(inv)
     for c in range(free.shape[0]):
         f = free[c]
-        s = s + f.to(F32)[:, None] * requests[c][None, :]
+        s = fma_f32(f.to(F32)[:, None], requests[c][None, :], s)
         freed = freed + f
         fwd_sub = fwd_sub + member[c][:, None] * f[None, :]
         inv_sub = inv_sub + own_inv[c][:, None] * f[None, :]

@@ -53,12 +53,14 @@ Only the production configuration exists here: bit-packed masks
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.kernels import capacity as k1
+from karpenter_core_tpu_torch.kernels import classfinish as k15
 from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import fill as k2
 from karpenter_core_tpu_torch.kernels import packbits as k4
@@ -1474,13 +1476,25 @@ def _pad_req(t, k_new: int, v_new: int) -> HostReq:
     )
 
 
-def pad_planes(cls, statics_arrays, key_has_bounds, ex_state=None, ex_static=None):
+def encode_device_finish_enabled() -> bool:
+    """``KC_ENCODE_DEVICE_FINISH=1`` opts the prepare path into device-side
+    class-plane finishing (K15); off by default, as in the reference."""
+    return os.environ.get("KC_ENCODE_DEVICE_FINISH", "0") == "1"
+
+
+def pad_planes(cls, statics_arrays, key_has_bounds, ex_state=None, ex_static=None,
+               device_finish=False, device=None, use_kernels=True):
     """Bucket-pad host kernel inputs (prepare_host output, and the numpy
     existing-node planes of ``CudaSolver.encode_existing``) so nearby problem
     sizes share shapes: padded classes have count 0, padded keys are
     undefined everywhere, padded value slots are False, padded groups clone
     the dummy "none" row, padded existing nodes are closed.  Returns (cls,
-    statics_arrays, key_has_bounds, ex_state, ex_static)."""
+    statics_arrays, key_has_bounds, ex_state, ex_static).
+
+    ``device_finish`` pads the class planes on ``device`` instead (K15,
+    ``kernels/classfinish.py``, or its twin with ``use_kernels=False``): the
+    compact class rows are uploaded and the returned ``cls`` holds tensors
+    there, cell for cell equal to the host padding."""
     sa = StaticArrays(*statics_arrays)
     c_old = cls.count.shape[0]
     k_old = sa.valid.shape[0]
@@ -1493,27 +1507,35 @@ def pad_planes(cls, statics_arrays, key_has_bounds, ex_state=None, ex_static=Non
     g1_new = bucket(g1_old - 1, floor=4) + 1
     p_new = bucket(p_old, floor=4)
 
-    groups = np.asarray(cls.groups)
-    groups = np.where(groups >= g1_old - 1, g1_new - 1, groups)
-    cls_t = _pad_req(HostReq(cls.mask, cls.defined, cls.negative, cls.gt, cls.lt), k_new, v_new)
-    cls = ClassTensors(
-        mask=_pad_axis(cls_t.mask, 0, c_new, True),
-        defined=_pad_axis(cls_t.defined, 0, c_new, False),
-        negative=_pad_axis(cls_t.negative, 0, c_new, False),
-        gt=_pad_axis(cls_t.gt, 0, c_new, -np.inf),
-        lt=_pad_axis(cls_t.lt, 0, c_new, np.inf),
-        zone=_pad_axis(np.asarray(cls.zone), 0, c_new, True),
-        ct=_pad_axis(np.asarray(cls.ct), 0, c_new, True),
-        it=_pad_axis(np.asarray(cls.it), 0, c_new, True),
-        requests=_pad_axis(np.asarray(cls.requests), 0, c_new, 0),
-        count=_pad_axis(np.asarray(cls.count), 0, c_new, 0),
-        tol=_pad_axis(np.asarray(cls.tol), 0, c_new, False),
-        ports=_pad_axis(_pad_axis(np.asarray(cls.ports), -1, p_new, False), 0, c_new, False),
-        groups=_pad_axis(groups, 0, c_new, g1_new - 1),
-        relax_next=_pad_axis(np.asarray(cls.relax_next), 0, c_new, -1),
-        anti_soft=_pad_axis(np.asarray(cls.anti_soft), 0, c_new, False),
-        root=_pad_axis(np.asarray(cls.root), 0, c_new, 0),
-    )
+    if device_finish:
+        from karpenter_core_tpu_torch import carry
+
+        compact = ClassTensors(*(carry.to_tensor(a, device) for a in cls))
+        finish = k15.finish_class_planes if use_kernels else k15.finish_class_planes_plain
+        cls = ClassTensors(*finish(compact, k15.Extents(c_new, k_new, v_new, g1_old, g1_new,
+                                                         p_new)))
+    else:
+        groups = np.asarray(cls.groups)
+        groups = np.where(groups >= g1_old - 1, g1_new - 1, groups)
+        cls_t = _pad_req(HostReq(cls.mask, cls.defined, cls.negative, cls.gt, cls.lt), k_new, v_new)
+        cls = ClassTensors(
+            mask=_pad_axis(cls_t.mask, 0, c_new, True),
+            defined=_pad_axis(cls_t.defined, 0, c_new, False),
+            negative=_pad_axis(cls_t.negative, 0, c_new, False),
+            gt=_pad_axis(cls_t.gt, 0, c_new, -np.inf),
+            lt=_pad_axis(cls_t.lt, 0, c_new, np.inf),
+            zone=_pad_axis(np.asarray(cls.zone), 0, c_new, True),
+            ct=_pad_axis(np.asarray(cls.ct), 0, c_new, True),
+            it=_pad_axis(np.asarray(cls.it), 0, c_new, True),
+            requests=_pad_axis(np.asarray(cls.requests), 0, c_new, 0),
+            count=_pad_axis(np.asarray(cls.count), 0, c_new, 0),
+            tol=_pad_axis(np.asarray(cls.tol), 0, c_new, False),
+            ports=_pad_axis(_pad_axis(np.asarray(cls.ports), -1, p_new, False), 0, c_new, False),
+            groups=_pad_axis(groups, 0, c_new, g1_new - 1),
+            relax_next=_pad_axis(np.asarray(cls.relax_next), 0, c_new, -1),
+            anti_soft=_pad_axis(np.asarray(cls.anti_soft), 0, c_new, False),
+            root=_pad_axis(np.asarray(cls.root), 0, c_new, 0),
+        )
     statics_arrays = sa._replace(
         it=_pad_req(sa.it, k_new, v_new),
         tmpl=_pad_req(sa.tmpl, k_new, v_new),

@@ -13,8 +13,11 @@ boundary is exact.
 
 ``candidates`` are ``controllers.deprovisioning.CandidateNode``s sorted by
 disruption cost; ``state_nodes`` the cluster's ``state.cluster.StateNode``s
-and ``bound_pods`` the pods bound to them.  The policy objective's
-cost-delta scoring is not ported yet: the largest valid prefix wins.
+and ``bound_pods`` the pods bound to them.  With a ``policy.PolicyConfig``
+that enables the objective (``CudaConsolidationSearch(..., policy=...)``)
+lanes are scored by fleet-cost saving instead: the removed nodes' current
+price less the lane's replacement cost (K9's ``new_cost``), the largest
+saving winning, the larger prefix on a tie.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 MAX_LANES = 64
 
 
-def search_largest_prefix(n, evaluate):
+def search_largest_prefix(n, evaluate, refine: bool = True):
     """Largest valid consolidation prefix via batched lane sweeps.
 
     ``evaluate(sizes) -> (best_command_or_None, best_k)`` runs one sweep
@@ -54,13 +57,17 @@ def search_largest_prefix(n, evaluate):
     shrinking it ~MAX_LANES x each time — the boundary pins exactly in
     ceil(log64(n)) passes (2 up to 4096 candidates, 3 to 256k) against the
     reference's ~log2(n) sequential simulations
-    (multinodeconsolidation.go:86-113)."""
+    (multinodeconsolidation.go:86-113).
+
+    ``refine=False`` stops after the coarse pass: cost-delta scoring picks
+    its optimum within a pass, and the refinement's larger-k-wins bracket
+    would let a larger prefix with a smaller saving displace it."""
     if n <= MAX_LANES:
         sizes = np.arange(1, n + 1, dtype=np.int32)
     else:
         sizes = np.unique(np.round(np.linspace(1, n, MAX_LANES)).astype(np.int32))
     best, best_k = evaluate(sizes)
-    if n <= MAX_LANES or best is None:
+    if n <= MAX_LANES or best is None or not refine:
         return best
 
     lo = best_k
@@ -113,9 +120,12 @@ class CudaConsolidationSearch:
     (snapshot, ``SweepPrep``) the passes ran on."""
 
     def __init__(self, cloud_provider, provisioners, device=None,
-                 use_kernels: bool = True) -> None:
+                 use_kernels: bool = True, policy=None) -> None:
+        # policy (policy.PolicyConfig): enabled, lanes are scored by fleet-cost
+        # saving; None or disabled keeps the largest valid prefix
+        self.policy = policy
         self.solver = CudaSolver(cloud_provider, provisioners, device=device,
-                                 use_kernels=use_kernels)
+                                 use_kernels=use_kernels, policy=policy)
         self.it_by_name = {
             it.name: it
             for p in self.solver.provisioners
@@ -187,6 +197,7 @@ class CudaConsolidationSearch:
         best = search_largest_prefix(
             len(candidates),
             lambda sizes: self._evaluate_sweep(snapshot, prep, sizes, candidates),
+            refine=not self._cost_scoring(),
         )
         return best if best is not None else Command(Action.DO_NOTHING)
 
@@ -201,22 +212,40 @@ class CudaConsolidationSearch:
                 prices[i] = offering.price
         return np.cumsum(prices)
 
+    def _cost_scoring(self) -> bool:
+        return self.policy is not None and getattr(self.policy, "enabled", False)
+
     def _evaluate_sweep(self, snapshot, prep, sizes, candidates):
-        """(best command, its prefix size) across the given lane sizes: the
-        reference's scoring, the LARGEST valid prefix wins.  The pass's nine
-        planes come to the host in one copy."""
+        """(best command, its prefix size) across the given lane sizes.  By
+        default the LARGEST valid prefix wins.  With the policy objective on,
+        the largest fleet-cost saving wins — the first k candidates' current
+        price less the lane's replacement cost (0 for a DELETE), NaN (an
+        unpriced candidate) counting as -inf — and the larger k a tie.  The
+        pass's nine planes come to the host in one copy."""
         t0 = time.perf_counter()
         out = consolidate_ops.SweepOutputs(*fetch_planes(
             consolidate_ops.sweep(prep, sizes, use_kernels=self.solver.use_kernels)))
         self.stages["sweep_s"].append(time.perf_counter() - t0)
         self.passes.append((np.asarray(sizes), out))
         t0 = time.perf_counter()
+        cost_scoring = self._cost_scoring()
+        old_cum = self._candidate_price_cumsum(candidates) if cost_scoring else None
         best: Optional[Command] = None
         best_k = 0
+        best_saving = -np.inf
         for lane, k in enumerate(sizes.tolist()):
             cmd = self.lane_command(snapshot, out, lane, candidates[:k])
-            if cmd is not None:
+            if cmd is None:
+                continue
+            if not cost_scoring:
                 best, best_k = cmd, k
+                continue
+            lane_cost = 0.0 if cmd.action == Action.DELETE else float(out.new_cost[lane])
+            saving = float(old_cum[k - 1]) - lane_cost if k >= 1 else 0.0
+            if np.isnan(saving):
+                saving = -np.inf  # an unpriceable subset is never preferred
+            if saving > best_saving or (saving == best_saving and k > best_k):
+                best, best_k, best_saving = cmd, k, saving
         self.stages["decode_s"] += time.perf_counter() - t0
         return best, best_k
 

@@ -14,6 +14,13 @@ The encode half is the reference's, copied; the device half runs
 ``state_nodes`` are ``state.cluster.StateNode``s; ``bound_pods`` the pods
 already bound to them (their topology groups, anti-affinity terms and host
 ports count against the pending pods).
+
+With a ``policy.PolicyConfig`` that enables the objective
+(``CudaSolver(provider, provisioners, policy=PolicyConfig(enabled=True))``),
+decode also picks each new node's offering (K13, ``ops.objective``):
+``decision.selected`` names the (instance type, zone, capacity type) the
+launch lands on, and ``results.fleet_cost`` / ``fleet_expected_cost`` sum
+their prices.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ from karpenter_core_tpu_torch.models.snapshot import (
     pod_port_keys,
     term_namespaces,
 )
+from karpenter_core_tpu_torch.ops import objective as objective_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
+from karpenter_core_tpu_torch.policy import planes as policy_planes
 from karpenter_core_tpu_torch.scheduling import Requirement, Requirements, Taints, VolumeUsage
 from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
 from karpenter_core_tpu_torch.solver.scheduler import _daemon_overhead
@@ -98,13 +107,20 @@ class _LazyPlanes:
 
 class CudaNodeDecision:
     """One node the solve decided to create.  Instance-type/zone name lists
-    and the request vector materialize lazily from the fetched planes."""
+    and the request vector materialize lazily from the fetched planes.
 
-    __slots__ = ("provisioner_name", "pods", "_snapshot", "_planes", "_slot")
+    ``selected`` is the policy objective's offering for this node (a dict of
+    instance_type, zone, capacity_type, price and expected; set by decode
+    when the policy is on): the zone and capacity type are then pinned to it
+    and the selected type comes first.  None keeps the feasibility-only
+    lists."""
+
+    __slots__ = ("provisioner_name", "pods", "selected", "_snapshot", "_planes", "_slot")
 
     def __init__(self, provisioner_name, snapshot, planes, slot):
         self.provisioner_name = provisioner_name
         self.pods: List[Pod] = []
+        self.selected: Optional[dict] = None
         self._snapshot = snapshot
         self._planes = planes
         self._slot = slot
@@ -112,15 +128,24 @@ class CudaNodeDecision:
     @property
     def instance_type_names(self) -> List[str]:
         row = self._planes.viable[self._slot]
-        return [self._snapshot.it_names[i] for i in np.nonzero(row)[0]]
+        names = [self._snapshot.it_names[i] for i in np.nonzero(row)[0]]
+        if self.selected is not None:
+            chosen = self.selected["instance_type"]
+            if chosen in names:
+                names = [chosen] + [n for n in names if n != chosen]
+        return names
 
     @property
     def zones(self) -> List[str]:
+        if self.selected is not None:
+            return [self.selected["zone"]]
         row = self._planes.zone[self._slot]
         return [self._snapshot.zones[z] for z in np.nonzero(row)[0]]
 
     @property
     def capacity_types(self) -> List[str]:
+        if self.selected is not None:
+            return [self.selected["capacity_type"]]
         row = self._planes.ct[self._slot]
         return [self._snapshot.capacity_types[c] for c in np.nonzero(row)[0]]
 
@@ -162,6 +187,10 @@ class CudaSolveResults:
     # zone-restricted pods is pinned there
     existing_committed_zones: Dict[str, str] = field(default_factory=dict)
     n_slots_used: int = 0
+    # the policy objective's sums of the selected offerings' prices over the
+    # new nodes, raw and risk-weighted; None when the policy is off
+    fleet_cost: Optional[float] = None
+    fleet_expected_cost: Optional[float] = None
 
 
 @dataclass
@@ -201,7 +230,8 @@ class CudaSolver:
     """Solves pending pods against the provisioners' catalogs on one device
     (``device=None``: the CUDA card; raises when there is none).
     ``use_kernels=False`` runs the kernels' plain torch twins instead — the
-    oracle a card run holds the kernels against."""
+    oracle a card run holds the kernels against.  ``policy`` is a
+    ``policy.PolicyConfig``: None or disabled decodes feasibility only."""
 
     # positions in _Fetch.small read by the slot-exhaustion check and the
     # incremental session's bookkeeping
@@ -218,8 +248,10 @@ class CudaSolver:
         kube_client=None,
         device=None,
         use_kernels: bool = True,
+        policy=None,
     ) -> None:
         self.device = device_mod.resolve(device)
+        self.policy = policy
         # resolves PVC -> CSI driver for the volume attach-limit planes
         # (volumeusage.go:65-90); duck-typed (scheduling.volumeusage).  None
         # treats every volume as unconstrained, as the host path does
@@ -243,6 +275,8 @@ class CudaSolver:
         # solve, decode), and the last solve's raw device outputs
         self.stages: Dict[str, float] = {}
         self.last_outputs: Optional[solve_ops.SolveOutputs] = None
+        # the last policy decode's ops.objective.ObjectiveSelection (numpy)
+        self.last_selection: Optional[objective_ops.ObjectiveSelection] = None
 
     # -- encode (host, numpy) -------------------------------------------------
 
@@ -277,7 +311,9 @@ class CudaSolver:
         """The reference's ``_encode_with_classes_impl``: the existing nodes'
         label sets widen the vocabulary, the bound pods' required
         anti-affinity terms become groups and their host ports join the
-        port universe.  (No mesh catalog padding, no policy planes.)"""
+        port universe, and the objective planes ride the snapshot (the price
+        sheet, risk priors and throughput weights; attached whether or not
+        the policy is on).  No mesh catalog padding."""
         extra = [Requirements.from_labels(n.node.metadata.labels) for n in (state_nodes or [])]
         extra_anti = []
         for pod in bound_pods or []:
@@ -315,6 +351,8 @@ class CudaSolver:
             classes=classes,
         )
         snapshot.class_volumes = self._resolve_class_volumes(snapshot.classes, state_nodes)
+        policy_planes.attach_planes(snapshot, self._it_by_name, config=self.policy,
+                                    provider=self.cloud_provider)
         return snapshot
 
     def _resolve_class_volumes(self, classes, state_nodes) -> list:
@@ -608,6 +646,8 @@ class CudaSolver:
         cls, statics_arrays, key_has_bounds = solve_ops.prepare_host(snapshot)
         cls, statics_arrays, key_has_bounds, ex_state, ex_static = solve_ops.pad_planes(
             cls, statics_arrays, key_has_bounds, ex_state, ex_static,
+            device_finish=solve_ops.encode_device_finish_enabled(), device=self.device,
+            use_kernels=self.use_kernels,
         )
         cls_t, sa_t, khb = carry.tensors_from_numpy(cls, statics_arrays, key_has_bounds, self.device)
         if ex_state is not None:
@@ -755,7 +795,41 @@ class CudaSolver:
                         snapshot.zones[z]
                     )
         results.new_nodes = [nodes[n] for n in sorted(nodes)]
+        self._apply_policy_selection(snapshot, outputs, results)
         return results
+
+    def _apply_policy_selection(self, snapshot: EncodedSnapshot,
+                                outputs: solve_ops.SolveOutputs,
+                                results: CudaSolveResults) -> None:
+        """The policy objective folded into decode (the reference's
+        ``decode.objective`` stage): one K13 launch over every slot's
+        feasible offering cells, stamped onto the new nodes so the launch
+        lands on the selected offering.  Nothing runs unless the policy is
+        on; its wall seconds land in ``stages["objective_s"]``."""
+        config = self.policy
+        if config is None or not getattr(config, "enabled", False):
+            return
+        planes = policy_planes.planes_of(snapshot)
+        if planes is None:
+            return
+        t0 = time.perf_counter()
+        selection = objective_ops.select_for_state(
+            outputs.state, planes, config, snapshot.capacity_types, use_kernels=self.use_kernels)
+        for decision in results.new_nodes:
+            n = decision._slot
+            if not bool(selection.active[n]):
+                continue
+            decision.selected = {
+                "instance_type": snapshot.it_names[int(selection.sel_it[n])],
+                "zone": snapshot.zones[int(selection.sel_zone[n])],
+                "capacity_type": snapshot.capacity_types[int(selection.sel_ct[n])],
+                "price": float(selection.price[n]),
+                "expected": float(selection.expected[n]),
+            }
+        results.fleet_cost = float(selection.fleet_cost)
+        results.fleet_expected_cost = float(selection.fleet_expected)
+        self.last_selection = selection
+        self.stages["objective_s"] = time.perf_counter() - t0
 
     def to_launchable(self, decision: CudaNodeDecision) -> LaunchableNode:
         """A node decision as a launch-path object: the provisioner's template

@@ -33,9 +33,7 @@ donation; the tenant service's ``run_prepared`` hook and prebuilt
 PodClass lists as the population (the port takes a PodIngest); the fleet
 checkpoint's ``lineage_state``, ``export_lineage`` and ``adopt_restored``;
 ``decide``'s ``mesh_changed`` (the mesh) and ``mode_changed`` (relax); the
-policy digest in the supply digest (a price change still re-anchors:
-``catalog_digest`` hashes every offering's price); the ``SOLVE_MODE``
-counter, the tracing span, the ``SOLVER_DISPATCH`` chaos hook and
+``SOLVE_MODE`` counter, the tracing span, the ``SOLVER_DISPATCH`` chaos hook and
 ``from_env`` / ``incremental_enabled``.
 """
 
@@ -53,6 +51,7 @@ import torch
 from karpenter_core_tpu_torch.models import store as store_mod
 from karpenter_core_tpu_torch.models.store import SnapshotStore, VersionedSnapshot, diff_members
 from karpenter_core_tpu_torch.ops import solve as solve_ops
+from karpenter_core_tpu_torch.policy import planes as policy_planes
 
 MODE_FULL = "full"
 MODE_DELTA = "delta"
@@ -174,7 +173,13 @@ class IncrementalSolveSession:
         members, by_uid = ingest.class_members(), ingest.get
         if self._warm is not None:
             self._absorb_bound({p.uid for p in (bound_pods or [])})
-        catalog = store_mod.catalog_digest(self.solver.provisioners, self.solver.instance_types)
+        # the policy side of the supply: offering prices, interruption
+        # priors, the objective's knobs and the provider's pending-ICE set.
+        # A change of any escalates the next tick to a full solve
+        catalog = store_mod.catalog_digest(
+            self.solver.provisioners, self.solver.instance_types
+        ) + policy_planes.policy_input_digest(
+            self.solver.instance_types, self.solver.policy, provider=self.solver.cloud_provider)
         # the comparison digest excludes bound pods this lineage placed itself
         # (their binding is its own work materializing); the anchor a full
         # solve stores is unfiltered

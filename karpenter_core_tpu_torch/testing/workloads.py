@@ -98,13 +98,58 @@ def build_provider(n_instance_types: int, n_provisioners: int):
 
 
 def build_inputs(n_pods: int, n_instance_types: int, n_provisioners: int,
-                 device=None, use_kernels: bool = True) -> Tuple[object, List[Pod]]:
-    """(CudaSolver, pods) for the headline workload (``device=None``: CUDA)."""
+                 device=None, use_kernels: bool = True, policy=None) -> Tuple[object, List[Pod]]:
+    """(CudaSolver, pods) for the headline workload (``device=None``: CUDA;
+    ``policy``: a ``policy.PolicyConfig``)."""
     from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 
     provider, provisioners = build_provider(n_instance_types, n_provisioners)
-    solver = CudaSolver(provider, provisioners, device=device, use_kernels=use_kernels)
+    solver = CudaSolver(provider, provisioners, device=device, use_kernels=use_kernels,
+                        policy=policy)
     return solver, build_pods(n_pods)
+
+
+def move_spot_market(provider, factor: float = 0.6, zone: str = "test-zone-2") -> None:
+    """The reference's policy benchmark's price move (bench.py
+    ``policy_line``): every type's spot offering in ``zone`` drops to
+    ``factor`` times the type's first offering's price, through
+    ``set_price``."""
+    for it in provider.get_instance_types(None):
+        provider.set_price(it.name, it.offerings[0].price * factor,
+                           capacity_type=labels_api.CAPACITY_TYPE_SPOT, zone=zone)
+
+
+def objective_case(rng, n: int, n_it: int, n_z: int, n_ct: int) -> dict:
+    """Seeded inputs of the offering selection (K13), as numpy arrays:
+    full-mantissa prices (a fifth of the cells without an offering), risks
+    and throughputs, random slot masks, and edge rows first — row 0 allows
+    nothing; row 1 only type 0, whose throughput is NaN (a NaN score);
+    row 2 only type 1, whose throughput is +inf (a -inf score, or NaN at a
+    zero throughput weight); row 3 only type 2, whose offerings cost -0.0
+    and +0.0 (tied scores).  The last capacity type is spot."""
+    price = (rng.random((n_it, n_z, n_ct)) * 5).astype(np.float32)
+    price[rng.random((n_it, n_z, n_ct)) < 0.2] = np.inf
+    risk = rng.random((n_it, n_z, n_ct)).astype(np.float32)
+    throughput = rng.random(n_it).astype(np.float32)
+    viable = rng.random((n, n_it)) < 0.5
+    zone = rng.random((n, n_z)) < 0.7
+    ct = rng.random((n, n_ct)) < 0.8
+    edge = min(n, 4) if n_it >= 3 else 0
+    if edge:
+        viable[:edge] = False
+        zone[:edge] = True
+        ct[:edge] = True
+        for row in range(1, edge):
+            viable[row, row - 1] = True
+        throughput[0], throughput[1] = np.nan, np.inf
+        price[:3] = np.where(np.isfinite(price[:3]), price[:3], np.float32(1.5))
+        price[2] = np.float32(0.0)
+        price[2].reshape(-1)[::2] = np.float32(-0.0)
+    return dict(
+        viable=viable, zone=zone, ct=ct, open_=rng.random(n) < 0.8,
+        pod_count=rng.integers(0, 3, n).astype(np.int32), price=price, risk=risk,
+        throughput=throughput, is_spot=np.arange(n_ct) == n_ct - 1,
+    )
 
 
 def build_cluster(n_nodes: int, n_instance_types: int, n_provisioners: int, fill: float,

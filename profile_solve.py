@@ -1,6 +1,6 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing | --consolidation | --churn] [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation | --churn | --policy] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -36,12 +36,19 @@ dispatch, repair, decode), its host reads (device-to-host copies and the
 scan's skip decisions), the device's busy share of the tick and each
 kernel's device time, K10-K12 included.
 
+With ``--policy`` the profiled solve is the main path under
+``PolicyConfig(enabled=True)`` after the policy benchmark's price move
+(phase 6 (a) of ``chip_smoke.py``), with ``KC_ENCODE_DEVICE_FINISH=1``, so
+K13's three launches and K15 run in it; ``objective_s`` is its
+``decode.objective`` stage.
+
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
 """
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,6 +69,10 @@ PORT_KERNELS = {
     "repair_free_kernel": "repair_free",
     "repair_gather_kernel": "repair_gather",
     "repair_scatter_kernel": "repair_scatter",
+    "cell_scores_kernel": "select_offerings (scores)",
+    "select_kernel": "select_offerings (select)",
+    "fleet_sum_kernel": "select_offerings (sums)",
+    "class_finish_kernel": "class_finish",
 }
 
 
@@ -198,6 +209,9 @@ def main() -> None:
                       help="consolidate that cluster, as chip_smoke.py phase 4 does")
     mode.add_argument("--churn", action="store_true",
                       help="one warm delta tick under steady churn, as chip_smoke.py phase 5")
+    mode.add_argument("--policy", action="store_true",
+                      help="the solve under the policy objective, as chip_smoke.py phase 6 (a), "
+                           "with the class planes finished on the card")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -207,7 +221,12 @@ def main() -> None:
     from karpenter_core_tpu_torch.kernels import build
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import solve as solve_ops
-    from karpenter_core_tpu_torch.testing.workloads import build_cluster, build_inputs
+    from karpenter_core_tpu_torch.policy import PolicyConfig
+    from karpenter_core_tpu_torch.testing.workloads import (
+        build_cluster,
+        build_inputs,
+        move_spot_market,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -227,7 +246,11 @@ def main() -> None:
         if args.trace:
             prof.export_chrome_trace(args.trace)
         return
-    solver, pods = build_inputs(50_000, 1000, 5)
+    solver, pods = build_inputs(50_000, 1000, 5,
+                                policy=PolicyConfig(enabled=True) if args.policy else None)
+    if args.policy:
+        move_spot_market(solver.cloud_provider)
+        os.environ["KC_ENCODE_DEVICE_FINISH"] = "1"
     cluster = build_cluster(5000, 1000, 5, 0.6, 2024) if args.existing else ([], [])
     ingest = PodIngest()
     ingest.add_all(pods)
@@ -257,7 +280,8 @@ def main() -> None:
     summary = device_summary(prof)
     solve_window = wall - t_ingest
     print(json.dumps({
-        "card": smi.stdout.strip(), "path": "existing" if args.existing else "cold",
+        "card": smi.stdout.strip(),
+        "path": "existing" if args.existing else "policy" if args.policy else "cold",
         "wall_s": wall, "ingest_s": t_ingest, **solver.stages,
         "host_syncs": solve_ops.host_syncs,
         "device_busy_us": summary["device_busy_us"],

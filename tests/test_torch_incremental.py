@@ -27,7 +27,9 @@ must be exact and f32 bit for bit.
 
 import copy
 import dataclasses
+import math
 import random
+from fractions import Fraction
 from types import SimpleNamespace
 
 import jax
@@ -320,36 +322,41 @@ def test_repair_programs_match_reference(anchor, monkeypatch):
     assert int(tsc.state.n_next) == int(a.jcarry.state.n_next) + (int(tout.state.n_next) - n_open)
 
 
+def _round_f32(x: Fraction) -> np.float32:
+    """An exact rational rounded once to float32, ties to even."""
+    if x == 0:
+        return np.float32(0.0)
+    mag = abs(x)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    while Fraction(2) ** e > mag:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= mag:
+        e += 1
+    scale = Fraction(2) ** (e - 23)
+    return np.float32(math.copysign(float(round(mag / scale) * scale), x))
+
+
 def _class_sum(free, req, fused):
     """sum_c free[c, n] * req[c] in f32, classes ascending: each product and
-    sum rounded on its own, or one fused multiply-add a class (exact in
-    f64 here, then rounded once)."""
+    sum rounded on its own, or one fused multiply-add a class (computed
+    exactly in rationals, then rounded once: a correctly rounded FMA)."""
     acc = np.zeros((free.shape[1], req.shape[1]), np.float32)
     for c in range(free.shape[0]):
         f = free[c].astype(np.float32)[:, None]
         if fused:
-            acc = (acc.astype(np.float64) + f.astype(np.float64) * req[c].astype(np.float64)
-                   ).astype(np.float32)
+            acc = np.array([[_round_f32(Fraction(float(a)) + Fraction(float(fn)) * Fraction(float(r)))
+                             for a, r in zip(row, req[c])] for row, fn in zip(acc, f[:, 0])],
+                           np.float32).reshape(acc.shape)
         else:
             acc = (acc + (f * req[c][None, :]).astype(np.float32)).astype(np.float32)
     return acc
 
 
-def test_repair_free_sum_order_against_xla(anchor):
-    """K10's f32 sum on requests that are not short binary fractions (a
-    cpu request of 0.1 is not exact in f32): the port sums the classes in
-    ascending order rounding each product and sum (its CUDA kernel with
-    ``__fmul_rn`` / ``__fadd_rn``), while XLA's CPU dot behind the
-    reference's einsum fuses one multiply-add a class in the same order.
-    They agree wherever one class was freed from a column, and may differ
-    in the last bit where two were (ROADMAP.md queue 3)."""
+def _check_repair_free_sum(anchor, req, free_new, free_ex):
+    """Both packages' ``used`` after freeing, from zero usage (so each side
+    is exactly minus its class sum), against the correctly rounded fused
+    class sum, everywhere."""
     a = anchor
-    rng = np.random.default_rng(0)
-    req = (rng.random((a.free_new.shape[0], 3)) * 4).astype(np.float32)  # full mantissas
-    # dense evictions: most columns freed by several classes
-    free_new = rng.integers(0, 8, a.free_new.shape).astype(np.int32)
-    free_ex = rng.integers(0, 8, a.free_ex.shape).astype(np.int32)
-    # zero usage, so each side's result is exactly minus its class sum
     carry = a.jcarry._replace(
         state=a.jcarry.state._replace(used=np.zeros_like(a.jcarry.state.used)),
         ex_state=a.jcarry.ex_state._replace(used=np.zeros_like(a.jcarry.ex_state.used)))
@@ -360,12 +367,37 @@ def test_repair_free_sum_order_against_xla(anchor):
     fused_new, rounded_new = (_class_sum(free_new, req, fused=f) for f in (True, False))
     assert (fused_new != rounded_new).any()  # the two orders do differ on this input
     for side, free in (("state", free_new), ("ex_state", free_ex)):
-        ref = np.asarray(getattr(jfreed, side).used)
-        got = getattr(tfreed, side).used.numpy()
-        np.testing.assert_array_equal(ref, -_class_sum(free, req, fused=True))
-        np.testing.assert_array_equal(got, -_class_sum(free, req, fused=False))
-        single = (free > 0).sum(axis=0) <= 1
-        np.testing.assert_array_equal(ref[single], got[single])
+        want = -_class_sum(free, req, fused=True)
+        np.testing.assert_array_equal(np.asarray(getattr(jfreed, side).used), want)
+        np.testing.assert_array_equal(getattr(tfreed, side).used.numpy(), want)
+
+
+def test_repair_free_sum_order_against_xla(anchor):
+    """K10's f32 sum on requests that are not short binary fractions (a
+    cpu request of 0.1 is not exact in f32), with dense evictions (most
+    columns freed by several classes): XLA's CPU dot behind the reference's
+    einsum fuses one multiply-add a class, classes ascending, and the port
+    (its twin with ``fma_f32``, its CUDA kernel with ``__fmaf_rn``) does
+    the same, so both equal that sum bit for bit in every column."""
+    rng = np.random.default_rng(0)
+    req = (rng.random((anchor.free_new.shape[0], 3)) * 4).astype(np.float32)  # full mantissas
+    free_new = rng.integers(0, 8, anchor.free_new.shape).astype(np.int32)
+    free_ex = rng.integers(0, 8, anchor.free_ex.shape).astype(np.int32)
+    _check_repair_free_sum(anchor, req, free_new, free_ex)
+
+
+def test_repair_free_sum_order_wide_exponents(anchor):
+    """The same on requests whose exponents span 2^-20 .. 2^20: a class sum
+    and the next product can lie so far apart that ``f * req + sum`` needs
+    more than float64's 53 bits, where rounding to float64 and then to
+    float32 could land on a float32 midpoint (the twin's round-to-odd step
+    keeps it correctly rounded)."""
+    rng = np.random.default_rng(1)
+    shape = (anchor.free_new.shape[0], 3)
+    req = (rng.random(shape) * np.exp2(rng.integers(-20, 21, shape))).astype(np.float32)
+    free_new = rng.integers(0, 8, anchor.free_new.shape).astype(np.int32)
+    free_ex = rng.integers(0, 8, anchor.free_ex.shape).astype(np.int32)
+    _check_repair_free_sum(anchor, req, free_new, free_ex)
 
 
 @pytest.mark.parametrize("windowed", (True, False))

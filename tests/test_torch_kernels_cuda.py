@@ -17,9 +17,11 @@ import torch
 
 from karpenter_core_tpu_torch.kernels import (
     capacity,
+    classfinish,
     consolidate,
     existing,
     fill,
+    objective,
     packbits,
     repair,
     reqmerge,
@@ -27,6 +29,7 @@ from karpenter_core_tpu_torch.kernels import (
 )
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
+from karpenter_core_tpu_torch.testing import workloads
 
 pytestmark = pytest.mark.cuda
 
@@ -98,7 +101,7 @@ def test_req_merge_matches_plain(card, n, k, v, bounds):
     _equal(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1025, 8192, 16384])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 8192, 16384, 32768, 100003])
 def test_fill_priority_matches_plain(card, n):
     rng = np.random.default_rng(n)
     cap = torch.as_tensor(rng.integers(0, 5, n).astype(np.int32)).to(card)
@@ -296,6 +299,22 @@ def test_repair_free_matches_plain(card, n_new, n_ex):
     assert (got[1] >= 0).all() and (got[2] >= 0).all()
 
 
+@pytest.mark.parametrize("wide", (False, True))
+def test_repair_free_dense_full_mantissa_matches_plain(card, wide):
+    """Dense evictions (most columns freed by several classes) on
+    full-mantissa requests, and requests spanning 2^-20 .. 2^20: the
+    kernel's fused class sum equals the twin's bit for bit."""
+    rng = np.random.default_rng(11 + wide)
+    args = _free_args(rng, card, 8192, 1536)
+    req = rng.random((16, 3))
+    if wide:
+        req = req * np.exp2(rng.integers(-20, 21, (16, 3)))
+    args[10] = torch.as_tensor((req * 4).astype(np.float32)).to(card)
+    args[8] = torch.as_tensor(rng.integers(0, 8, (16, 8192)).astype(np.int32)).to(card)
+    args[9] = torch.as_tensor(rng.integers(0, 8, (16, 1536)).astype(np.int32)).to(card)
+    _equal(repair.repair_free(*args), repair.repair_free_plain(*args))
+
+
 def _rows(rng, dev, n, n_it=1000, k=8, words=1, z=3, ct=2, p=4):
     """Random per-slot planes in ROW_PLANES order (kmask words use bit 31)."""
     b = lambda *shape: rng.random(shape) < 0.5  # noqa: E731
@@ -351,3 +370,47 @@ def test_repair_window_gather_and_scatter_match_plain(card, n_slots, holes, n_ne
     _equal(got[1:], want[1:])
     assert int(got[3]) == n_next + 5
     _equal(rows + (fwd, inv), before)  # the full-width carry stays as it was
+
+
+# -- K13: the policy objective's offering selection -----------------------------
+
+
+@pytest.mark.parametrize("n,n_it,n_z,n_ct,knobs", [
+    (8192, 1000, 3, 2, (1.0, 0.0, 0.0, True)),                 # the headline's shapes
+    (8192, 1000, 3, 2, (0.7310001, 0.3330001, 0.6170001, True)),
+    (300, 40, 3, 2, (0.2023, 0.9241, 0.8531, False)),
+    (86, 38, 3, 1, (1.0, 0.0, 0.25, True)),
+    (250, 24, 1, 2, (1.0, 0.0, 0.0, False)),                   # 0 * inf: a NaN score
+    (100003, 7, 2, 2, (3.0, 1.5, 1.0, True)),                  # three sum levels
+])
+def test_select_offerings_matches_plain(card, n, n_it, n_z, n_ct, knobs):
+    case = workloads.objective_case(np.random.default_rng(n + n_it), n, n_it, n_z, n_ct)
+    t = {k: torch.as_tensor(v).to(card) for k, v in case.items()}
+    args = (t["viable"], t["zone"], t["ct"], t["open_"], t["pod_count"], t["price"], t["risk"],
+            t["throughput"], t["is_spot"], objective.Weights(*knobs))
+    got, want = objective.select_offerings(*args), objective.select_offerings_plain(*args)
+    _equal(got, want)
+    assert not bool(got[5][0]) and not bool(got[5][1])  # nothing allowed; a NaN score
+
+
+# -- K15: device-side class finishing -------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_class_finish_matches_plain(card, seed):
+    rng = np.random.default_rng(seed)
+    c, k, v, g1, p = (int(rng.integers(1, 20)), int(rng.integers(1, 9)),
+                      int(rng.integers(1, 40)), int(rng.integers(2, 12)), int(rng.integers(1, 6)))
+    b = lambda *shape: torch.as_tensor(rng.random(shape) < 0.5)  # noqa: E731
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32))  # noqa: E731
+    i = lambda hi, *shape: torch.as_tensor(rng.integers(-1, hi, shape).astype(np.int32))  # noqa: E731
+    cls = solve_ops.ClassTensors(
+        mask=b(c, k, v + 1), defined=b(c, k), negative=b(c, k), gt=f(c, k), lt=f(c, k),
+        zone=b(c, 3), ct=b(c, 2), it=b(c, 1000), requests=f(c, 3), count=i(50, c),
+        tol=b(c, 5), ports=b(c, p), groups=i(g1, c, 6), relax_next=i(c, c), anti_soft=b(c, 2),
+        root=i(c, c))
+    ext = classfinish.Extents(solve_ops.bucket(c), solve_ops.bucket(k), solve_ops.bucket(v), g1,
+                              solve_ops.bucket(g1 - 1, floor=4) + 1,
+                              solve_ops.bucket(p, floor=4))
+    cls = solve_ops.ClassTensors(*(x.to(card) for x in cls))
+    _equal(classfinish.finish_class_planes(cls, ext), classfinish.finish_class_planes_plain(cls, ext))
