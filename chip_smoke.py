@@ -1,11 +1,11 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
 into an empty cluster and into a live 5,000-node cluster, multi-node
-consolidation of that cluster, the warm repair under steady churn, and the
-policy objective.
+consolidation of that cluster, the warm repair under steady churn, the
+policy objective and the relax solver family.
 
     python3 chip_smoke.py
 
-Builds the fourteen hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the eighteen hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
@@ -92,6 +92,26 @@ csrc`` (one nvcc per source, all at once), then:
      with the reference's reason (``POLICY_ESCALATION_REASON``), the ticks
      around it deltas.
 
+  7. relax path — (a) the headline backlog after the price move through
+     ``CudaSolver(..., policy=PolicyConfig(enabled=True,
+     solver_mode="relax"))``, cold and warm, with the stage split
+     (``relax_s``: the dispatch to the verdict read; ``relax_repair_s``: the
+     repair after it).  It must equal the
+     JAX package's answer (``RELAX_HEADLINE``: mode, the relax verdict,
+     nodes, scheduled, failed, ``fleet_cost``, ``n_next``) and, leaf for
+     leaf, a ``use_kernels=False`` run; K14, K16-K18, K1 and K3 must have
+     launched inside ``relax_core``, K1-K7 in the repair after it and K13 in
+     the policy decode.  (b) Phase 1's backlog with no policy under
+     ``KC_SOLVER_MODE=relax`` (weights 1, 0, 0), pinned the same way
+     (``RELAX_OFF``).  (c) ``bench.py relax_line``'s fleet, both legs
+     (``RELAX_LINE``), and a 2,500-pod fleet of the headline's four sizes
+     whose leftover takes the repair window (``RELAX_WINDOW``; K11 and K12
+     must launch).  (d) K14 and K16-K18 against their twins at (a)'s
+     shapes, K16 stopped at ``max_iters=1``, ``relax_core`` on a class of
+     3,000,000 pods with seeds 0, 1 and 7 (kernels against twins, and the
+     JAX package's 112 / 112 / 106 placed), and K18 given half the slots it
+     filled (so it spills).
+
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
 of CUDA-event timings of one call, wrapper included) beside its plain twin
@@ -103,7 +123,9 @@ the f32 count plane, which computes its displaced counts; K10's one
 computes its ``used`` term; no single PyTorch call computes any of the
 others (K11 and K12 are gathers and scatters of 13 planes with a zone-count
 reduction, K13 a masked argmin with the spot tie rule and two ordered sums,
-K15 the padding of sixteen planes with a group remap), so theirs is null.
+K15 the padding of sixteen planes with a group remap, K14 and K16-K18 the
+relax family's masked minima, iterated sorts and scans, seeded rounding and
+slot gathers), so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
@@ -180,6 +202,27 @@ POLICY_HEADLINE = {"active": 7162, "hist": {"test-zone-1/spot": 8, "test-zone-2/
 # the reason both packages' sessions give a full solve after a policy input
 # changed (tests/test_torch_policy.py holds both to it)
 POLICY_ESCALATION_REASON = "supply-changed:supply"
+# phase 7: the relax family, the JAX package's answers on the same inputs,
+# measured on the CPU.  (a) the headline backlog after the price move under
+# PolicyConfig(enabled=True, solver_mode="relax"); (b) phase 1's backlog (no
+# price move, no policy: weights 1, 0, 0) under KC_SOLVER_MODE=relax.  Both
+# repair at full width (the leftover does not fit a window)
+RELAX_HEADLINE = {"mode": "relax", "iters": 8, "converged": True, "rounded_violations": 0,
+                  "placed": 19813, "leftover": 30187, "nodes": 7142, "scheduled": N_PODS,
+                  "failed": 0, "fleet_cost": 579.3824462890625, "n_next": 7142}
+RELAX_OFF = {"mode": "relax", "iters": 7, "converged": True, "rounded_violations": 0,
+             "placed": 20805, "leftover": 29195, "nodes": 7143, "scheduled": N_PODS, "failed": 0,
+             "fleet_cost": None, "n_next": 7143}
+# (c)'s fleets: bench.py relax_line (4,000 pods of one size x 24 types after
+# the price move, both legs), and 2,500 pods of the headline's four sizes,
+# whose leftover takes the repair window (192 of 256 slots, 102 of them
+# relax's); tests/test_torch_relax_solve.py holds both packages to them
+RELAX_LINE = {"fleet_cost_delta": 0.0, "relax_iters": 11, "relax_leftover": 5, "scan_nodes": 86,
+              "relax_nodes": 86, "fleet_cost": 33.096595764160156}
+RELAX_WINDOW = {"mode": "relax", "iters": 12, "leftover": 82, "placed": 2418, "nodes": 103,
+                "fleet_cost": 39.333587646484375, "failed": 0, "slots": 256, "window": 192}
+RELAX_KERNELS = ("relax_cost", "simplex_pgd", "relax_round", "relax_materialize", "it_capacity",
+                 "req_merge")
 CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
                          "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
 
@@ -243,8 +286,8 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, objective, packbits, repair, reqmerge,
-        spread,
+        capacity, classfinish, consolidate, existing, fill, objective, packbits, relax, repair,
+        reqmerge, spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
@@ -254,20 +297,24 @@ def launch_counts() -> dict:
         "sweep_lanes": consolidate.lanes_launches, "lane_finish": consolidate.finish_launches,
         "repair_free": repair.free_launches, "repair_gather": repair.gather_launches,
         "repair_scatter": repair.scatter_launches, "select_offerings": objective.launches,
-        "class_finish": classfinish.launches,
+        "class_finish": classfinish.launches, "relax_cost": relax.cost_launches,
+        "simplex_pgd": relax.pgd_launches, "relax_round": relax.round_launches,
+        "relax_materialize": relax.materialize_launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, objective, packbits, repair, reqmerge,
-        spread,
+        capacity, classfinish, consolidate, existing, fill, objective, packbits, relax, repair,
+        reqmerge, spread,
     )
     for mod in (capacity, fill, reqmerge, packbits, spread, objective, classfinish):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
     repair.free_launches = repair.gather_launches = repair.scatter_launches = 0
+    relax.cost_launches = relax.pgd_launches = relax.round_launches = 0
+    relax.materialize_launches = 0
 
 
 def check_launched(launches: dict, names, path: str) -> None:
@@ -930,11 +977,12 @@ def churn_path(records, mid_cluster, path_launches) -> dict:
     return launches
 
 
-def policy_path(records, mid_cluster, path_launches) -> None:
+def policy_path(records, mid_cluster, path_launches) -> dict:
     """Phase 6: the policy objective — the headline backlog under the policy
     at full width (K13 on its final state against its twin), the mid-size
     consolidation under cost-delta scoring, and the mid-size session's
-    escalation when an offering's interruption rate moves."""
+    escalation when an offering's interruption rate moves.  Returns (a)'s
+    cold-run launches."""
     import numpy as np
 
     from karpenter_core_tpu_torch.kernels import objective
@@ -1082,6 +1130,258 @@ def policy_path(records, mid_cluster, path_launches) -> None:
         fail(f"policy escalation: {modes}, expected {want}")
     print("policy path (b, c): the consolidation command and the escalation equal the JAX "
           "package's", flush=True)
+    return launches
+
+
+def relax_summary(solver, results) -> dict:
+    stats = solver.last_relax_stats or {}
+    return {"mode": solver.last_solve_mode, "iters": stats.get("iters"),
+            "converged": stats.get("converged"),
+            "rounded_violations": stats.get("rounded_violations"),
+            "placed": stats.get("placed"), "leftover": stats.get("leftover"),
+            "nodes": len(results.new_nodes),
+            "scheduled": sum(len(n.pods) for n in results.new_nodes),
+            "failed": len(results.failed_pods), "fleet_cost": results.fleet_cost,
+            "n_next": results.n_slots_used}
+
+
+def relax_path(records, path_launches) -> dict:
+    """Phase 7: the relax family — the headline backlog through the relax
+    solver with the policy on and off, the two small fleets (relax_line's
+    and the window's), then K14 and K16-K18 against their twins at the
+    headline's shapes and in three edge cases.  Returns this path's
+    launches (the cold relax solve of (a))."""
+    from karpenter_core_tpu_torch.cloudprovider import fake as fake_cp
+    from karpenter_core_tpu_torch.kernels import relax as kr
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.policy import PolicyConfig
+    from karpenter_core_tpu_torch.relax import kernel as relax_kernel
+    from karpenter_core_tpu_torch.relax import prng
+    from karpenter_core_tpu_torch.relax import solve as relax_solve
+    from karpenter_core_tpu_torch.solver import modes
+    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+    from karpenter_core_tpu_torch.testing import make_pod, make_provisioner
+    from karpenter_core_tpu_torch.testing.workloads import (
+        HEADLINE_SIZES,
+        build_inputs,
+        move_spot_market,
+        relax_fleet,
+    )
+
+    # launches inside relax_core, read as it returns: the rest of a solve's
+    # launches are its repair's and its decode's
+    inner = {}
+    core = relax_kernel.relax_core
+
+    def counted_core(*args, **kwargs):
+        out = core(*args, **kwargs)
+        inner["relax"] = launch_counts()
+        return out
+
+    relax_kernel.relax_core = counted_core
+
+    def run(solver, pods, label, pin, plain_solver=None):
+        runs = []
+        for lap in ("cold", "warm"):
+            t0 = time.perf_counter()
+            ingest = PodIngest()
+            ingest.add_all(pods)
+            ingest_s = time.perf_counter() - t0
+            reset_launches()
+            results = solver.solve(ingest)
+            torch.cuda.synchronize()
+            total = launch_counts()
+            runs.append((lap, ingest_s, dict(solver.stages), time.perf_counter() - t0, results))
+            if lap == "cold":
+                launches = total
+                repair = {k: total[k] - inner["relax"][k] for k in total}
+                relax_only = dict(inner["relax"])
+            got = relax_summary(solver, results)
+            print(json.dumps({"run": f"{label} {lap}", "wall_s": runs[-1][3], "ingest_s": ingest_s,
+                              **runs[-1][2], **got}), flush=True)
+            if got != pin:
+                fail(f"{label} {lap}: {got}, the JAX package's answer is {pin}")
+        out = solver.last_outputs
+        if plain_solver is not None:
+            ingest = PodIngest()
+            ingest.add_all(pods)
+            t0 = time.perf_counter()
+            plain_solver.solve(ingest)
+            torch.cuda.synchronize()
+            print(json.dumps({"run": f"{label} plain twins (use_kernels=False)",
+                              "wall_s": time.perf_counter() - t0, **plain_solver.stages}),
+                  flush=True)
+            same_leaves(out, plain_solver.last_outputs, label)
+        return launches, relax_only, repair
+
+    # -- (a) the headline backlog, zone-2 spot at 0.6x, the relax family --------
+    config = PolicyConfig(enabled=True, solver_mode="relax")
+    solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, policy=config)
+    plain, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, policy=config, use_kernels=False)
+    for s in (solver, plain):
+        move_spot_market(s.cloud_provider)
+    launches, relax_only, repair = run(solver, pods, "relax headline", RELAX_HEADLINE, plain)
+    print(json.dumps({"relax_cold_run_launches": launches, "in_relax_core": relax_only,
+                      "in_repair_and_decode": repair}), flush=True)
+    check_launched(relax_only, RELAX_KERNELS, "relax path's relax_core")
+    check_launched(repair, PROVISIONING_KERNELS, "relax path's repair")
+    check_launched(launches, ("select_offerings",), "relax path's policy decode")
+    del plain
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    prep = solver.prepare_encoded(solver.encode(ingest))
+
+    # -- (b) phase 1's backlog, no policy, KC_SOLVER_MODE=relax -------------------
+    os.environ["KC_SOLVER_MODE"] = "relax"
+    off, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+    off_plain, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
+    run(off, pods, "relax policy off", RELAX_OFF, off_plain)
+    del os.environ["KC_SOLVER_MODE"], off, off_plain
+
+    # -- (c) relax_line's fleet, both legs, and the window fleet -------------------
+    legs = {}
+    for mode in ("scan", "relax"):
+        s, fleet = relax_fleet(4000, 24, ({"cpu": "500m", "memory": "512Mi"},), mode=mode)
+        ingest = PodIngest()
+        ingest.add_all(fleet)
+        t0 = time.perf_counter()
+        legs[mode] = relax_summary(s, s.solve(ingest))
+        legs[mode]["wall_s"] = time.perf_counter() - t0
+    got = {"fleet_cost_delta": legs["scan"]["fleet_cost"] - legs["relax"]["fleet_cost"],
+           "relax_iters": legs["relax"]["iters"], "relax_leftover": legs["relax"]["leftover"],
+           "scan_nodes": legs["scan"]["nodes"], "relax_nodes": legs["relax"]["nodes"],
+           "fleet_cost": legs["relax"]["fleet_cost"]}
+    print(json.dumps({"run": "relax_line", **got, "scan_wall_s": legs["scan"]["wall_s"],
+                      "relax_wall_s": legs["relax"]["wall_s"]}), flush=True)
+    if got != RELAX_LINE or legs["relax"]["mode"] != "relax":
+        fail(f"relax_line: {got}, the JAX package's answer is {RELAX_LINE}")
+    windows = []
+    gather = solve_ops.gather_repair_window
+
+    def spy(carry, idx, n_open_w, *args, **kwargs):
+        windows.append(int(idx.shape[0]))
+        return gather(carry, idx, n_open_w, *args, **kwargs)
+
+    solve_ops.gather_repair_window = spy
+    s, fleet = relax_fleet(2500, 24, HEADLINE_SIZES)
+    ingest = PodIngest()
+    ingest.add_all(fleet)
+    reset_launches()
+    results = s.solve(ingest)
+    torch.cuda.synchronize()
+    window_launches = launch_counts()
+    solve_ops.gather_repair_window = gather
+    got = {**relax_summary(s, results), "slots": int(s.last_outputs.assign.shape[1]),
+           "window": windows[0] if len(windows) == 1 else windows}
+    got.pop("converged"), got.pop("rounded_violations"), got.pop("scheduled"), got.pop("n_next")
+    print(json.dumps({"run": "relax window fleet", **got, "launches": window_launches}),
+          flush=True)
+    if got != RELAX_WINDOW:
+        fail(f"relax window fleet: {got}, the JAX package's answer is {RELAX_WINDOW}")
+    check_launched(window_launches, ("repair_gather", "repair_scatter"), "relax window repair")
+
+    # -- (d) K14, K16-K18 against their twins at (a)'s shapes ----------------------
+    sa = solve_ops.StaticArrays(*prep.statics_arrays)
+    width = sa.valid.shape[-1]
+    sa = sa._replace(it=mask_ops.pack_req(sa.it), tmpl=mask_ops.pack_req(sa.tmpl),
+                     valid=mask_ops.pack_mask(sa.valid))
+    cls = prep.cls._replace(mask=mask_ops.pack_mask(prep.cls.mask))
+    statics = solve_ops.Statics(*sa, key_has_bounds=tuple(prep.key_has_bounds), mask_v=width)
+    eligible = torch.as_tensor(relax_solve.eligible_classes(prep), device="cuda")
+    counts = torch.where(eligible, cls.count, 0).to(torch.int32)
+    merged, key_ok, it_int, per_pod = relax_kernel.class_template_planes(cls, statics)
+    planes = kr.RelaxPlanes(it_int, per_pod, key_ok, statics.tmpl_it, cls.it, statics.tmpl_zone,
+                            cls.zone, statics.tmpl_ct, cls.ct, statics.it_avail)
+    weights = torch.as_tensor(relax_solve._policy_weights(config), device="cuda")
+    pol = prep.pol
+    n_c, n_t, n_i = it_int.shape
+    n_z, n_ct = statics.tmpl_zone.shape[1], statics.tmpl_ct.shape[1]
+    n_s, n_slots = n_i * n_z, prep.n_slots
+    record = functools.partial(record_kernel, records)
+    k14_in = (planes, pol.price, pol.risk, pol.throughput, weights, counts)
+    cost, support, tstar, feas, cost_max = record(
+        "relax_cost", "karpenter_core_tpu_torch/csrc/relax_cost.cu",
+        "karpenter_core_tpu/relax/kernel.py:192", launches["relax_cost"],
+        lambda: kr.relax_cost(*k14_in), lambda: kr.relax_cost_plain(*k14_in),
+        nbytes(tuple(planes), *k14_in[1:]) + n_c * n_s * 9 + n_c * n_t * n_i * n_z + 4 * n_c,
+        n_c * n_t * n_i * n_z * (6 * n_ct + 6))
+    max_iters = modes.relax_max_iters()
+    k16_in = (cost, support, cost_max, counts, max_iters, float(relax_solve.RELAX_TOL))
+    projections = int(kr.simplex_pgd_plain(*k16_in)[2]) + 1  # this run's loop, and x0
+    x, cost_eff, _, _ = record(
+        "simplex_pgd", "karpenter_core_tpu_torch/csrc/simplex_pgd.cu",
+        "karpenter_core_tpu/relax/kernel.py:94", launches["simplex_pgd"],
+        lambda: kr.simplex_pgd(*k16_in), lambda: kr.simplex_pgd_plain(*k16_in),
+        nbytes(cost, support, cost_max, counts) + 8 * n_c * n_s + 8,
+        projections * n_c * (n_s * max(n_s - 1, 1).bit_length() + 10 * n_s))
+    perm = torch.as_tensor(prng.permutation(relax_solve.RELAX_SEED, n_s).copy(), device="cuda")
+    k17_in = (x, cost, cost_eff, support, counts, perm, tstar, planes)
+    n_ok, _, _ = record(
+        "relax_round", "karpenter_core_tpu_torch/csrc/relax_round.cu",
+        "karpenter_core_tpu/relax/kernel.py:264", launches["relax_round"],
+        lambda: kr.relax_round(*k17_in), lambda: kr.relax_round_plain(*k17_in),
+        nbytes(x, cost, cost_eff, support, counts, perm, tstar, tuple(planes))
+        + 4 * n_c * n_s + 8,
+        n_c * (n_s * max(n_s - 1, 1).bit_length() + 20 * n_s))
+    t_ct = statics.tmpl_ct[None] & cls.ct[:, None]
+    kmask0 = mask_ops.const_words("full", width, "cuda")
+    k18_in = (n_ok, tstar, per_pod, cls.count, merged, t_ct, feas, statics.tmpl_daemon,
+              cls.requests, kmask0, n_slots, cls.ports.shape[-1])
+    materialized = kr.relax_materialize(*k18_in)
+    record(
+        "relax_materialize", "karpenter_core_tpu_torch/csrc/relax_materialize.cu",
+        "karpenter_core_tpu/relax/kernel.py:321", launches["relax_materialize"],
+        lambda: tuple(kr.relax_materialize(*k18_in)),
+        lambda: tuple(kr.relax_materialize_plain(*k18_in)),
+        nbytes(*k18_in[:4], tuple(merged), t_ct, feas, statics.tmpl_daemon, cls.requests, kmask0)
+        + nbytes(tuple(materialized)), n_c * n_s * 10 + n_slots * (n_i + 64))
+    # edge cases: K16 stopped by its cap; K17's seeded order on a class of
+    # 3,000,000 pods (24 types, 16 slots); K18 with half the slots it filled
+    cap_in = (cost, support, cost_max, counts, 1, float(relax_solve.RELAX_TOL))
+    err = max_abs_err(kr.simplex_pgd(*cap_in), kr.simplex_pgd_plain(*cap_in))
+    if err != 0.0 or bool(kr.simplex_pgd(*cap_in)[3]):
+        fail(f"simplex_pgd at max_iters=1 differs from its twin or converged ({err})")
+    spill_slots = max(int(materialized.state[-1]) // 2, 1)  # half the nodes it opened
+    spill_in = k18_in[:10] + (spill_slots,) + k18_in[11:]
+    spilled = kr.relax_materialize(*spill_in)
+    err = max_abs_err(tuple(spilled), tuple(kr.relax_materialize_plain(*spill_in)))
+    if err != 0.0 or int(spilled.spilled) <= 0:
+        fail(f"relax_materialize at {spill_slots} slots differs from its twin or did not "
+             f"spill ({err})")
+    big = CudaSolver(fake_cp.FakeCloudProvider(fake_cp.instance_types(24)),
+                     [make_provisioner(name="default")],
+                     policy=PolicyConfig(enabled=True, solver_mode="relax"))
+    big_prep = big.prepare_encoded(big.encode([make_pod(requests={"cpu": 3})]))
+    count = torch.zeros_like(big_prep.cls.count)
+    count[0] = 3_000_000
+    big_cls = big_prep.cls._replace(count=count)
+    seeded = {}
+    for seed in (0, 1, 7):
+        runs = [relax_kernel.relax_core(
+            big_cls, big_prep.statics_arrays, *big_prep.pol,
+            torch.as_tensor(relax_solve.eligible_classes(big_prep, big_cls), device="cuda"),
+            weights, max_iters, float(relax_solve.RELAX_TOL), seed, n_slots=16,
+            key_has_bounds=big_prep.key_has_bounds, use_kernels=use) for use in (True, False)]
+        err = max_abs_err(tuple(runs[0]), tuple(runs[1]))
+        if err != 0.0:
+            fail(f"relax_core on the 3,000,000-pod class (seed {seed}) differs: {err}")
+        seeded[seed] = (int(runs[0].placed), int(torch.argmax(runs[0].state.zone[0].int())))
+    print(json.dumps({"relax_seeded_rounding": seeded}), flush=True)
+    if seeded != {0: (112, 0), 1: (112, 0), 7: (106, 1)}:
+        fail(f"seeded rounding {seeded}, the JAX package's is 112/112/106 in zones 0/0/1")
+    print("relax path kernels exact: K14, K16-K18 at the headline's shapes; K16 at "
+          "max_iters=1; K17 seeds 0/1/7 on 3,000,000 pods; K18 spilling at half its slots",
+          flush=True)
+    relax_kernel.relax_core = core
+    for rec in records[-4:]:
+        rec["launches_per_path"] = {**{path: counts_[rec["name"]]
+                                       for path, counts_ in path_launches.items()},
+                                    "relax": launches[rec["name"]]}
+    for other in records[:-4]:
+        other["launches_per_path"]["relax"] = launches[other["name"]]
+    return launches
 
 
 def main() -> None:
@@ -1322,12 +1622,17 @@ def main() -> None:
     path_launches = {"cold": launches, "existing": existing_launches,
                      "consolidation": consolidation_launches}
     churn_launches = churn_path(records, mid_cluster, path_launches)
-    policy_path(records, mid_cluster, {**path_launches, "churn": churn_launches})
+    path_launches["churn"] = churn_launches
+    path_launches["policy"] = policy_path(records, mid_cluster, path_launches)
+    relax_path(records, path_launches)
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
           "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
           "requests; null for the others — no single PyTorch call computes them (K13: a "
           "masked argmin with the spot tie rule and ordered sums; K15: sixteen padded planes "
-          "with a group remap)", flush=True)
+          "with a group remap; K14: a masked min over capacity types and templates with its "
+          "argmin; K16: a sort, a blocked scan, a count and a threshold, iterated under a "
+          "global stop; K17: an argmin, floors and a seeded stable sort with an audit; K18: "
+          "a prefix over cells and a gather of slot rows)", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

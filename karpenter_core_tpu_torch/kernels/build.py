@@ -11,7 +11,8 @@ No ``--use_fast_math``: the capacity kernels' divides must round to nearest
 exactly as the reference does.  nvcc still contracts ``a * b + c`` into an
 FMA by default, so the sources whose float arithmetic must round as the
 reference's does (K6's ``used + a * req``, K7's water-fill, K10's eviction
-free, K13's scores) spell it with the ``__f*_rn`` intrinsics.  Libraries land in
+free, K13's scores, the relax family's K14-K18) spell it with the ``__f*_rn``
+intrinsics.  Libraries land in
 ``karpenter_core_tpu_torch/_build/`` (git-ignored), named by a hash of the
 source, so an edited source rebuilds and a stale library is never loaded.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
@@ -36,7 +37,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("it_capacity", "fill_priority", "req_merge", "pack_bool", "existing_intake",
            "existing_phase", "spread_quota", "sweep_lanes", "lane_finish", "repair_free",
-           "repair_gather", "repair_scatter", "select_offerings", "class_finish")
+           "repair_gather", "repair_scatter", "select_offerings", "class_finish", "relax_cost",
+           "simplex_pgd", "relax_round", "relax_materialize")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,6 +21,12 @@ decode also picks each new node's offering (K13, ``ops.objective``):
 ``decision.selected`` names the (instance type, zone, capacity type) the
 launch lands on, and ``results.fleet_cost`` / ``fleet_expected_cost`` sum
 their prices.
+
+Cold solves route by solver family (``solver.modes.resolve_mode``: the
+policy's ``solver_mode`` over ``KC_SOLVER_MODE``): ``relax`` (or ``auto`` at
+``KC_RELAX_MIN_PODS`` pods) runs the relax family (``relax.solve.run_relax``,
+K14 and K16-K18, then the exact repair through the scan) and falls back to
+the scan when it declines; ``last_solve_mode`` says which ran.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from karpenter_core_tpu_torch.ops import objective as objective_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 from karpenter_core_tpu_torch.policy import planes as policy_planes
 from karpenter_core_tpu_torch.scheduling import Requirement, Requirements, Taints, VolumeUsage
+from karpenter_core_tpu_torch.solver import modes as modes_mod
 from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
 from karpenter_core_tpu_torch.solver.scheduler import _daemon_overhead
 from karpenter_core_tpu_torch.utils import resources as resources_util
@@ -159,6 +166,25 @@ class CudaNodeDecision:
         }
 
 
+def _attach_pol(snapshot, statics_arrays, device) -> Optional[policy_planes.ObjectivePlanes]:
+    """The snapshot's policy objective planes as tensors on the prep's
+    device, padded to its instance-type extent (the reference's
+    ``solver/tpu.py:177``; pad +inf price, 0 risk, 0 throughput: an
+    unpriced type is never selected).  The planes share the snapshot's I
+    axis, so the pad is a no-op on the solver's own path."""
+    pol = policy_planes.planes_of(snapshot)
+    if pol is None:
+        return None
+    n_it = int(statics_arrays.it_alloc.shape[0])
+    price, risk, thr = (np.asarray(a, dtype=np.float32) for a in pol)
+    if price.shape[0] != n_it:
+        price = solve_ops._pad_axis(price, 0, n_it, np.inf)
+        risk = solve_ops._pad_axis(risk, 0, n_it, 0.0)
+        thr = solve_ops._pad_axis(thr, 0, n_it, 0.0)
+    return policy_planes.ObjectivePlanes(*(
+        torch.as_tensor(np.ascontiguousarray(a), device=device) for a in (price, risk, thr)))
+
+
 class SolvePrep(NamedTuple):
     """One snapshot's kernel inputs, bucket-padded and on the device."""
 
@@ -170,6 +196,9 @@ class SolvePrep(NamedTuple):
     n_slots: int
     n_passes: int
     features: solve_ops.SnapshotFeatures
+    # the objective planes (price, risk, throughput) on the device: the
+    # relax family's cost
+    pol: Optional[policy_planes.ObjectivePlanes] = None
 
 
 @dataclass
@@ -277,6 +306,11 @@ class CudaSolver:
         self.last_outputs: Optional[solve_ops.SolveOutputs] = None
         # the last policy decode's ops.objective.ObjectiveSelection (numpy)
         self.last_selection: Optional[objective_ops.ObjectiveSelection] = None
+        # the family the last cold solve ran under ("scan", "relax" or
+        # "relax-fallback:<reason>") and the last relax run's verdict (host
+        # data: iters, converged, rounded_violations, placed, leftover)
+        self.last_solve_mode: Optional[str] = None
+        self.last_relax_stats: Optional[dict] = None
 
     # -- encode (host, numpy) -------------------------------------------------
 
@@ -654,7 +688,7 @@ class CudaSolver:
             ex_state, ex_static = carry.existing_from_numpy(ex_state, ex_static, self.device)
         return SolvePrep(cls=cls_t, statics_arrays=sa_t, key_has_bounds=khb, ex_state=ex_state,
                          ex_static=ex_static, n_slots=n_slots, n_passes=snapshot.scan_passes,
-                         features=features)
+                         features=features, pol=_attach_pol(snapshot, sa_t, self.device))
 
     def run_prepared(self, prep: SolvePrep, count=None, warm_carry=None, repair_plan=None,
                      n_slots: int = 0) -> solve_ops.SolveOutputs:
@@ -664,11 +698,34 @@ class CudaSolver:
         resumes from a previous solve's final carry (``ops.solve.WarmCarry``,
         whose existing-node state replaces the prep's) and ``repair_plan``
         carries the freed-hole preferences and out-of-window bases
-        (``ops.solve.RepairPlan``)."""
+        (``ops.solve.RepairPlan``).
+
+        A cold call (neither ``warm_carry`` nor ``repair_plan``) first routes
+        by solver family (``solver.modes``, the reference's :1013-1040): the
+        relax family runs the batch unless it declines, and the scan runs it
+        then as if relax never existed.  A repair never routes, which also
+        keeps the relax family's own repair from re-entering it."""
         cls = prep.cls
         if count is not None:
             cls = cls._replace(count=torch.as_tensor(
                 np.asarray(count, dtype=np.int32), device=cls.count.device))
+        if warm_carry is None and repair_plan is None:
+            self.stages.pop("relax_s", None)
+            self.stages.pop("relax_repair_s", None)
+            self.last_solve_mode = "scan"
+            mode = modes_mod.resolve_mode(self.policy)
+            if mode != modes_mod.MODE_SCAN:
+                n_pods = int(cls.count.sum())
+                if modes_mod.relax_selected(mode, n_pods):
+                    from karpenter_core_tpu_torch.relax import solve as relax_solve
+
+                    try:
+                        out = relax_solve.run_relax(self, prep, cls=cls, n_slots=n_slots)
+                    except relax_solve.RelaxFallback as fb:
+                        self.last_solve_mode = f"relax-fallback:{fb.reason}"
+                    else:
+                        self.last_solve_mode = "relax"
+                        return out
         return solve_ops.solve_core(
             cls, prep.statics_arrays, n_slots or prep.n_slots, prep.key_has_bounds,
             None if warm_carry is not None else prep.ex_state, prep.ex_static,

@@ -26,15 +26,21 @@ repair window's smallest size (the reference's ``KC_DELTA_WINDOW``): None
 means ``min(256, n_slots // 4)``, 0 turns windowing off.  Nothing the
 session holds is written in place: every kernel returns fresh tensors.
 
+A full solve routes by solver family like any cold solve
+(``CudaSolver.run_prepared``); the anchor records the family it was
+configured for (``solver.modes.resolve_mode`` at adopt time), and a later
+flip of that configuration re-anchors with reason ``mode-changed``: repairs
+always run the scan.
+
 Left out, each for a later slice: the pipelined tick on CUDA streams
 (``deferred=``, ``PendingResults``, ``_PendingTick``, ``settle``,
 ``_delta_dispatch_deferred``, ``_cancel_tick``, the staging ring) and carry
 donation; the tenant service's ``run_prepared`` hook and prebuilt
 PodClass lists as the population (the port takes a PodIngest); the fleet
 checkpoint's ``lineage_state``, ``export_lineage`` and ``adopt_restored``;
-``decide``'s ``mesh_changed`` (the mesh) and ``mode_changed`` (relax); the
-``SOLVE_MODE`` counter, the tracing span, the ``SOLVER_DISPATCH`` chaos hook and
-``from_env`` / ``incremental_enabled``.
+``decide``'s ``mesh_changed`` (the mesh); the ``SOLVE_MODE`` counter, the
+tracing span, the ``SOLVER_DISPATCH`` chaos hook and ``from_env`` /
+``incremental_enabled``.
 """
 
 from __future__ import annotations
@@ -52,9 +58,16 @@ from karpenter_core_tpu_torch.models import store as store_mod
 from karpenter_core_tpu_torch.models.store import SnapshotStore, VersionedSnapshot, diff_members
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 from karpenter_core_tpu_torch.policy import planes as policy_planes
+from karpenter_core_tpu_torch.solver import modes as modes_mod
 
 MODE_FULL = "full"
 MODE_DELTA = "delta"
+
+
+def _resolve_solve_mode(solver) -> str:
+    """The solver family this session's anchors are configured to route
+    through (``solver.modes.resolve_mode`` over the solver's policy)."""
+    return modes_mod.resolve_mode(getattr(solver, "policy", None))
 
 
 @dataclass
@@ -72,16 +85,21 @@ class FallbackPolicy:
     materialized: bool = False
 
     def decide(self, delta, delta_ticks: int, prev_slots_used: int,
-               known_classes=None) -> Tuple[str, str]:
+               known_classes=None, mode_changed: bool = False) -> Tuple[str, str]:
         """(mode, reason).  ``delta`` is a models.store.SnapshotDelta (None on
         the first solve); ``delta_ticks`` counts repairs since the last full
         solve; ``prev_slots_used`` the slots the lineage has opened;
         ``known_classes`` the class keys the previous padded tensors can
-        express (an unseen key means the class axis moved)."""
+        express (an unseen key means the class axis moved).
+        ``mode_changed``: the configured solver family no longer matches the
+        one the anchor solved under; a relax anchor is a valid lineage
+        anchor, but repairs always run the scan, so a flip re-anchors."""
         if not self.enabled:
             return MODE_FULL, "disabled"
         if delta is None:
             return MODE_FULL, "first"
+        if mode_changed:
+            return MODE_FULL, "mode-changed"
         if delta.node_side_changed:
             return MODE_FULL, "supply-changed:" + ",".join(delta.changed_planes)
         unknown = tuple(
@@ -120,6 +138,10 @@ class _WarmState:
     supply: str
     state_nodes: list = field(default_factory=list)
     delta_ticks: int = 0
+    # the solver family the anchor was configured to run under (the routing
+    # intent, not a relax-fallback outcome): a later flip escalates with
+    # reason "mode-changed"
+    solve_mode: str = modes_mod.MODE_SCAN
     # lineage-placed pods that have since bound (IncrementalSolveSession.
     # _absorb_bound)
     materialized: set = field(default_factory=set)
@@ -203,6 +225,7 @@ class IncrementalSolveSession:
             w.delta_ticks if w is not None else 0,
             w.n_next if w is not None else 0,
             known_classes=w.class_index if w is not None else None,
+            mode_changed=w is not None and _resolve_solve_mode(self.solver) != w.solve_mode,
         )
         forced = self._forced_reason
         if forced is not None:
@@ -307,6 +330,7 @@ class IncrementalSolveSession:
             own_inv_rows=torch.as_tensor(own_inv_rows, device=dev),
             supply=supply,
             state_nodes=list(state_nodes or []),
+            solve_mode=_resolve_solve_mode(solver),
         )
 
     # -- delta path ------------------------------------------------------------

@@ -42,6 +42,15 @@ from karpenter_core_tpu_torch.utils import resources as resources_util
 DEDICATED_TAINT = Taint(key="dedicated", value="batch", effect="NoSchedule")
 
 
+# the makeDiversePods mix's four generic request sizes
+HEADLINE_SIZES = (
+    {"cpu": "500m", "memory": "512Mi"},
+    {"cpu": 1, "memory": "2Gi"},
+    {"cpu": 2, "memory": "4Gi"},
+    {"cpu": "250m", "memory": "256Mi"},
+)
+
+
 def build_pods(n_pods: int) -> List[Pod]:
     """The makeDiversePods mix of ``n_pods`` pending pods."""
     pods = []
@@ -49,14 +58,8 @@ def build_pods(n_pods: int) -> List[Pod]:
     n_host_spread = n_pods // 7
     n_affinity = 2 * n_pods // 7
     n_generic = n_pods - n_spread - n_host_spread - n_affinity
-    sizes = [
-        {"cpu": "500m", "memory": "512Mi"},
-        {"cpu": 1, "memory": "2Gi"},
-        {"cpu": 2, "memory": "4Gi"},
-        {"cpu": "250m", "memory": "256Mi"},
-    ]
     for i in range(n_generic):
-        pods.append(make_pod(requests=sizes[i % len(sizes)]))
+        pods.append(make_pod(requests=dict(HEADLINE_SIZES[i % len(HEADLINE_SIZES)])))
     for key, app, count in (
         (labels_api.LABEL_TOPOLOGY_ZONE, "spread", n_spread),
         (labels_api.LABEL_HOSTNAME, "hspread", n_host_spread),
@@ -117,6 +120,59 @@ def move_spot_market(provider, factor: float = 0.6, zone: str = "test-zone-2") -
     for it in provider.get_instance_types(None):
         provider.set_price(it.name, it.offerings[0].price * factor,
                            capacity_type=labels_api.CAPACITY_TYPE_SPOT, zone=zone)
+
+
+def relax_fleet(n_pods: int, n_instance_types: int, sizes, mode: str = "relax", device=None,
+                use_kernels: bool = True) -> Tuple[object, List[Pod]]:
+    """(CudaSolver, pods) of the relax family's small fleets: one
+    ``default`` provisioner over the fake catalog of ``n_instance_types``
+    types after ``move_spot_market``, the policy on with ``solver_mode=mode``,
+    and ``n_pods`` pods cycling through ``sizes``.  With one size of
+    500m / 512Mi at 4,000 pods x 24 types this is a leg of the reference's
+    ``bench.py:854 relax_line``; with ``HEADLINE_SIZES`` at 2,000 pods its
+    leftover takes the repair window."""
+    from karpenter_core_tpu_torch.policy import PolicyConfig
+    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+
+    provider = fake_cp.FakeCloudProvider(fake_cp.instance_types(n_instance_types))
+    move_spot_market(provider)
+    solver = CudaSolver(provider, [make_provisioner(name="default")], device=device,
+                        use_kernels=use_kernels,
+                        policy=PolicyConfig(enabled=True, solver_mode=mode))
+    return solver, [make_pod(requests=dict(sizes[i % len(sizes)])) for i in range(n_pods)]
+
+
+def relax_case(rng, n_c: int, n_t: int, n_it: int, n_z: int, n_ct: int, n_keys: int = 4,
+               n_words: int = 2, n_res: int = 3) -> dict:
+    """Seeded inputs of the relax kernels (K14, K17, K18), as numpy arrays:
+    the per-(class, template) planes (``kernels.relax.RelaxPlanes`` fields),
+    full-mantissa prices (a fifth without an offering), risks and
+    throughputs, class counts (some zero, one at 3,000,000), the merged
+    requirement rows and the resource vectors."""
+    b = lambda p, *shape: rng.random(shape) < p  # noqa: E731
+    price = (rng.random((n_it, n_z, n_ct)) * 5).astype(np.float32)
+    price[rng.random((n_it, n_z, n_ct)) < 0.2] = np.inf
+    counts = rng.integers(0, 400, n_c).astype(np.int32)
+    counts[rng.random(n_c) < 0.25] = 0
+    counts[0] = 3_000_000
+    return dict(
+        it_int=b(0.8, n_c, n_t, n_it),
+        per_pod=rng.integers(0, 60, (n_c, n_t, n_it)).astype(np.int32),
+        key_ok=b(0.9, n_c, n_t), tmpl_it=b(0.9, n_t, n_it), cls_it=b(0.9, n_c, n_it),
+        tmpl_zone=b(0.8, n_t, n_z), cls_zone=b(0.8, n_c, n_z), tmpl_ct=b(0.8, n_t, n_ct),
+        cls_ct=b(0.8, n_c, n_ct), it_avail=b(0.8, n_it, n_z, n_ct), price=price,
+        risk=rng.random((n_it, n_z, n_ct)).astype(np.float32),
+        throughput=rng.random(n_it).astype(np.float32), counts=counts,
+        mask=rng.integers(-2**31, 2**31, (n_c, n_t, n_keys, n_words), dtype=np.int64).astype(
+            np.int32),
+        defined=b(0.5, n_c, n_t, n_keys), negative=b(0.3, n_c, n_t, n_keys),
+        gt=np.where(b(0.5, n_c, n_t, n_keys), -np.inf, rng.integers(-3, 5, (n_c, n_t, n_keys))
+                    ).astype(np.float32),
+        lt=np.where(b(0.5, n_c, n_t, n_keys), np.inf, rng.integers(0, 12, (n_c, n_t, n_keys))
+                    ).astype(np.float32),
+        daemon=(rng.random((n_t, n_res)) * 0.5).astype(np.float32),
+        requests=(rng.random((n_c, n_res)) * 2).astype(np.float32),
+    )
 
 
 def objective_case(rng, n: int, n_it: int, n_z: int, n_ct: int) -> dict:

@@ -1,6 +1,7 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing | --consolidation | --churn | --policy] [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation | --churn | --policy | --relax]
+                             [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -42,6 +43,12 @@ With ``--policy`` the profiled solve is the main path under
 K13's three launches and K15 run in it; ``objective_s`` is its
 ``decode.objective`` stage.
 
+With ``--relax`` the profiled solve is that backlog after the same price
+move under ``PolicyConfig(enabled=True, solver_mode="relax")`` (phase 7 (a)
+of ``chip_smoke.py``): ``relax_core`` (K3 and K1 a class, K14, K16-K18),
+one host read of its verdict (``relax_s`` ends there), the scan's repair of
+the leftover at full width and the policy decode.
+
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
 """
@@ -73,6 +80,12 @@ PORT_KERNELS = {
     "select_kernel": "select_offerings (select)",
     "fleet_sum_kernel": "select_offerings (sums)",
     "class_finish_kernel": "class_finish",
+    "relax_cost_kernel": "relax_cost",
+    "simplex_pgd_kernel": "simplex_pgd",
+    "relax_round_kernel": "relax_round (round)",
+    "relax_cost_sum_kernel": "relax_round (relaxed_cost)",
+    "materialize_groups_kernel": "relax_materialize (groups)",
+    "materialize_slots_kernel": "relax_materialize (slots)",
 }
 
 
@@ -212,6 +225,8 @@ def main() -> None:
     mode.add_argument("--policy", action="store_true",
                       help="the solve under the policy objective, as chip_smoke.py phase 6 (a), "
                            "with the class planes finished on the card")
+    mode.add_argument("--relax", action="store_true",
+                      help="the solve through the relax family, as chip_smoke.py phase 7 (a)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -246,10 +261,13 @@ def main() -> None:
         if args.trace:
             prof.export_chrome_trace(args.trace)
         return
-    solver, pods = build_inputs(50_000, 1000, 5,
-                                policy=PolicyConfig(enabled=True) if args.policy else None)
-    if args.policy:
+    policy = None
+    if args.policy or args.relax:
+        policy = PolicyConfig(enabled=True, solver_mode="relax" if args.relax else "")
+    solver, pods = build_inputs(50_000, 1000, 5, policy=policy)
+    if policy is not None:
         move_spot_market(solver.cloud_provider)
+    if args.policy:
         os.environ["KC_ENCODE_DEVICE_FINISH"] = "1"
     cluster = build_cluster(5000, 1000, 5, 0.6, 2024) if args.existing else ([], [])
     ingest = PodIngest()
@@ -270,6 +288,9 @@ def main() -> None:
         len(v) for v in results.existing_assignments.values())
     if args.existing:
         ok = placed + len(results.failed_pods) + len(results.spread_residual_pods) == 50_000
+    elif args.relax:  # the JAX package's answer (chip_smoke.py RELAX_HEADLINE)
+        ok = (solver.last_solve_mode == "relax" and len(results.new_nodes) == 7142
+              and not results.failed_pods)
     else:
         ok = len(results.new_nodes) == 7162 and not results.failed_pods
     if not ok:
@@ -281,7 +302,8 @@ def main() -> None:
     solve_window = wall - t_ingest
     print(json.dumps({
         "card": smi.stdout.strip(),
-        "path": "existing" if args.existing else "policy" if args.policy else "cold",
+        "path": ("existing" if args.existing else "policy" if args.policy
+                 else "relax" if args.relax else "cold"),
         "wall_s": wall, "ingest_s": t_ingest, **solver.stages,
         "host_syncs": solve_ops.host_syncs,
         "device_busy_us": summary["device_busy_us"],

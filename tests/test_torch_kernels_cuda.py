@@ -23,11 +23,13 @@ from karpenter_core_tpu_torch.kernels import (
     fill,
     objective,
     packbits,
+    relax,
     repair,
     reqmerge,
     spread,
 )
 from karpenter_core_tpu_torch.ops import masks as mask_ops
+from karpenter_core_tpu_torch.relax import prng as relax_prng
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 from karpenter_core_tpu_torch.testing import workloads
 
@@ -414,3 +416,100 @@ def test_class_finish_matches_plain(card, seed):
                               solve_ops.bucket(p, floor=4))
     cls = solve_ops.ClassTensors(*(x.to(card) for x in cls))
     _equal(classfinish.finish_class_planes(cls, ext), classfinish.finish_class_planes_plain(cls, ext))
+
+
+# -- K14, K16-K18: the relax family -----------------------------------------------
+
+
+def _relax_inputs(seed, dev, n_c=16, n_t=5, n_it=1000, n_z=3, n_ct=2):
+    case = workloads.relax_case(np.random.default_rng(seed), n_c, n_t, n_it, n_z, n_ct)
+    t = {k: torch.as_tensor(v).to(dev) for k, v in case.items()}
+    planes = relax.RelaxPlanes(*(t[f] for f in relax.RelaxPlanes._fields))
+    return t, planes
+
+
+RELAX_KNOBS = [(1.0, 0.0, 0.0), (0.7310001, 0.6170001, 0.3330001)]
+
+
+@pytest.mark.parametrize("shape", [(16, 5, 1000, 3, 2), (12, 2, 77, 2, 3), (3, 1, 5, 1, 1)])
+@pytest.mark.parametrize("knobs", RELAX_KNOBS)
+def test_relax_cost_matches_plain(card, shape, knobs):
+    t, planes = _relax_inputs(sum(shape), card, *shape)
+    w = torch.tensor(knobs, dtype=torch.float32, device=card)
+    args = (planes, t["price"], t["risk"], t["throughput"], w, t["counts"])
+    _equal(relax.relax_cost(*args), relax.relax_cost_plain(*args))
+
+
+def _relax_chain(seed, dev, knobs=(1.0, 0.0, 0.0), **shape):
+    t, planes = _relax_inputs(seed, dev, **shape)
+    w = torch.tensor(knobs, dtype=torch.float32, device=dev)
+    cost, support, tstar, feas, cost_max = relax.relax_cost_plain(
+        planes, t["price"], t["risk"], t["throughput"], w, t["counts"])
+    return t, planes, cost, support, tstar, feas, cost_max
+
+
+@pytest.mark.parametrize("max_iters", [64, 1, 0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_simplex_pgd_matches_plain(card, seed, max_iters):
+    t, _, cost, support, _, _, cost_max = _relax_chain(seed, card)
+    args = (cost, support, cost_max, t["counts"], max_iters, 1e-4)
+    got, want = relax.simplex_pgd(*args), relax.simplex_pgd_plain(*args)
+    _equal(got[1:], want[1:])  # cost_eff, iters, converged
+    # the iterate: every row with support, bit for bit
+    _equal((got[0],), (want[0],))
+    if max_iters == 1:
+        assert not bool(got[3])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("knobs", RELAX_KNOBS)
+def test_relax_round_matches_plain(card, seed, knobs):
+    t, planes, cost, support, tstar, _, cost_max = _relax_chain(3, card, knobs)
+    x, cost_eff, _, _ = relax.simplex_pgd_plain(cost, support, cost_max, t["counts"], 64, 1e-4)
+    perm = torch.as_tensor(relax_prng.permutation(seed, cost.shape[1]).copy()).to(card)
+    args = (x, cost, cost_eff, support, t["counts"], perm, tstar, planes)
+    _equal(relax.relax_round(*args), relax.relax_round_plain(*args))
+
+
+@pytest.mark.parametrize("n_slots", [8192, 64, 1])
+def test_relax_materialize_matches_plain(card, n_slots):
+    t, planes, cost, support, tstar, feas, cost_max = _relax_chain(5, card)
+    x, cost_eff, _, _ = relax.simplex_pgd_plain(cost, support, cost_max, t["counts"], 64, 1e-4)
+    perm = torch.as_tensor(relax_prng.permutation(0, cost.shape[1]).copy()).to(card)
+    n_ok, _, _ = relax.relax_round_plain(x, cost, cost_eff, support, t["counts"], perm, tstar,
+                                         planes)
+    merged = mask_ops.ReqTensor(t["mask"], t["defined"], t["negative"], t["gt"], t["lt"])
+    t_ct = planes.tmpl_ct[None] & planes.cls_ct[:, None]
+    kmask0 = mask_ops.const_words("full", 40, card)
+    args = (n_ok, tstar, t["per_pod"], t["counts"], merged, t_ct, feas, t["daemon"],
+            t["requests"], kmask0, n_slots, 3)
+    got, want = relax.relax_materialize(*args), relax.relax_materialize_plain(*args)
+    _equal(got.state, want.state)
+    _equal((got.assign, got.leftover, got.placed, got.spilled),
+           (want.assign, want.leftover, want.placed, want.spilled))
+    if n_slots < 8192:
+        assert int(got.spilled) > 0
+
+
+@pytest.mark.parametrize("sizes,n_pods", [(workloads.HEADLINE_SIZES, 2000),
+                                          (({"cpu": "500m", "memory": "512Mi"},), 4000)])
+def test_relax_solve_matches_plain(card, sizes, n_pods):
+    """The relax family through CudaSolver on the card, kernels against
+    twins, every SolveOutputs leaf."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+
+    outs = []
+    for use_kernels in (True, False):
+        solver, pods = workloads.relax_fleet(n_pods, 24, sizes, device=card,
+                                             use_kernels=use_kernels)
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        solver.solve(ingest)
+        assert solver.last_solve_mode == "relax"
+        outs.append((solver.last_outputs, solver.last_relax_stats))
+    (a, sa), (b, sb) = outs
+    assert sa == sb
+    for group in ("state", "ex_state", "topo"):
+        _equal(tuple(getattr(a, group)), tuple(getattr(b, group)))
+    _equal((a.assign, a.assign_existing, a.failed, a.spread_suspect, a.remaining),
+           (b.assign, b.assign_existing, b.failed, b.spread_suspect, b.remaining))
