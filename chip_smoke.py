@@ -1,7 +1,8 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
 into an empty cluster and into a live 5,000-node cluster, multi-node
 consolidation of that cluster, the warm repair under steady churn, the
-policy objective and the relax solver family.
+policy objective, the relax solver family and the coalesced multi-tenant
+solve.
 
     python3 chip_smoke.py
 
@@ -111,6 +112,27 @@ csrc`` (one nvcc per source, all at once), then:
      3,000,000 pods with seeds 0, 1 and 7 (kernels against twins, and the
      JAX package's 112 / 112 / 106 placed), and K18 given half the slots it
      filled (so it spills).
+  8. tenant path — the coalesced multi-tenant solve.  (a) Eight tenants of
+     50,000 … 43,000 headline pods, each on its own provider, prepared
+     once: their ``service.tenant.bucket_key``s must be equal.  Eight solo
+     ``run_prepared`` calls, then one batched dispatch of the eight
+     (``BatchCoalescer._run_batched``): every leaf of every tenant equals
+     its solo solve, and the batched scan launches K1-K3 and K5-K7 and
+     reads the host exactly as often as tenant 0's solo scan (B = 1).  Then
+     the same eight through a ``TenantPlane`` (window long enough,
+     ``max_batch`` 8) from eight threads, ``entry.session.solve``: every
+     member's batch is 8, every leaf equals its solo solve, the 50,000-pod
+     tenant gives the JAX package's 7,162 nodes.  (d) Each batched entry
+     point against its twin (the solo twin tenant by tenant) at B = 8 on
+     those eight tenants' planes.  (b) Eight sessions on the eight
+     backlogs, three ticks of 2 % churn with ``KC_DELTA_WINDOW=0``, repairs
+     fused through the plane: every batch is 8, every tick a delta, each
+     tick's decode and the final warm state equal to the same sessions run
+     with ``batch_window_s=0``.  (c) Four tenants of 5,000 pods into fleets
+     of 260-380 nodes (one padded bucket): one batch of 4, each equal to its
+     solo solve, tenants 0 and 1 equal to the JAX package's answer
+     (``EX_TENANT_PINS``).  Prints the solo and batched walls, launches,
+     host reads and peak memory.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
@@ -128,7 +150,9 @@ relax family's masked minima, iterated sorts and scans, seeded rounding and
 slot gathers), so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
-line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
+line of kernel records (each with its launches on the tenant path,
+``tenants``, and K1-K3 and K5-K7 with their batched entry points' lines at
+B = 8, ``tenant_axis``), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Needs one card; refuses to
 run without one.
 """
@@ -225,6 +249,31 @@ RELAX_KERNELS = ("relax_cost", "simplex_pgd", "relax_round", "relax_materialize"
                  "req_merge")
 CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
                          "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
+# phase 8: the coalesced multi-tenant solve.  (a) eight headline-size tenants
+# of one shape bucket (8,192 slots each), one batch of the tenant plane; the
+# 50,000-pod tenant's solo answer is the JAX package's (EXPECTED_NODES,
+# measured on the CPU); every slot opened holds pods, so n_next is the node
+# count
+TENANT_PODS = (50_000, 49_000, 48_000, 47_000, 46_000, 45_000, 44_000, 43_000)
+TENANT_PINS = {0: {"nodes": EXPECTED_NODES, "failed": 0, "n_next": EXPECTED_NODES}}
+# the kernels the batched scan launches (K4 packs each tenant's decode)
+TENANT_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
+                  "existing_phase", "spread_quota")
+# (b) churn ticks of the fused repair
+FUSED_TICKS = 3
+# (c) existing-node coalescing: EX_TENANT_PODS pods x MID_TYPES types into
+# build_cluster(n, MID_TYPES, 5, FILL, seed) fleets of 260-380 nodes (one
+# padded bucket of 384 rows).  Tenants 0 and 1: the JAX package's answer,
+# solo and in its own B = 2 batch, measured on the CPU;
+# tests/test_torch_tenant_batch.py holds both packages to it
+EX_TENANT_PODS = 5000
+EX_TENANT_FLEETS = ((260, 11), (300, 12), (340, 13), (380, 14))
+EX_TENANT_PINS = {
+    0: {"on_existing_nodes": 4290, "existing_nodes_used": 121, "on_new_nodes": 710,
+        "new_nodes": 710, "failed": 0, "residual": 0},
+    1: {"on_existing_nodes": 4292, "existing_nodes_used": 120, "on_new_nodes": 708,
+        "new_nodes": 708, "failed": 0, "residual": 0},
+}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
@@ -1384,6 +1433,516 @@ def relax_path(records, path_launches) -> dict:
     return launches
 
 
+def run_threads(fns):
+    """Run thunks on threads, one each; returns their results in order and
+    re-raises the first error."""
+    import threading
+
+    results, errors = [None] * len(fns), []
+
+    def wrap(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=wrap, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def capture_dispatch(entry, sink: list) -> None:
+    """Record (prep, kwargs, outputs) of every dispatch a tenant's session
+    makes through the plane's hook."""
+    hook = entry.session._run_prepared
+
+    def recorded(prep, **kw):
+        out = hook(prep, **kw)
+        sink.append((prep, kw, out))
+        return out
+
+    entry.session._run_prepared = recorded
+
+
+def tenant_plane(window_s: float, max_batch: int):
+    from karpenter_core_tpu_torch.service.tenant import TenantConfig, TenantPlane
+    from karpenter_core_tpu_torch.utils.clock import FakeClock
+
+    return TenantPlane(clock=FakeClock(), config=TenantConfig(
+        rate_per_s=1000.0, burst=1000, max_inflight=64, batch_window_s=window_s,
+        max_batch=max_batch))
+
+
+def bind_tenants(plane, worlds, sinks=None) -> list:
+    """Admit each tenant, bind its solver to its session and (with
+    ``sinks``) record its dispatches; returns the entries."""
+    entries = []
+    for i, world in enumerate(worlds):
+        decision = plane.admit(f"tenant-{i}")
+        if not decision.admitted:
+            fail(f"tenant-{i} not admitted: {decision.detail()}")
+        decision.entry.session.rebind(world[0])
+        if sinks is not None:
+            capture_dispatch(decision.entry, sinks[i])
+        entries.append(decision.entry)
+    return entries
+
+
+def stacked(trees):
+    from karpenter_core_tpu_torch.kernels import batch
+
+    return batch.stack(list(trees))
+
+
+def tenant_world(b: int, n_pods: int):
+    """(CudaSolver, pods) of headline tenant ``b``: ``n_pods`` pods of the
+    headline mix on a catalog of its own.  Tenant 0 has the headline's
+    catalog; tenant b > 0 halves the cpu and memory of its first 40·b types
+    and takes the on-demand offering in test-zone-1 away from the 20 types
+    after them.  Only values change, so every tenant keeps the headline's
+    shapes and shape bucket, and a kernel that read another tenant's catalog
+    would break the batched = solo check."""
+    import dataclasses
+
+    from karpenter_core_tpu_torch.cloudprovider.types import Offerings
+    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+    from karpenter_core_tpu_torch.testing.workloads import build_pods, build_provider
+
+    provider, provisioners = build_provider(N_TYPES, N_PROVISIONERS)
+    types = provider.get_instance_types(None)
+    for it in types[:40 * b]:
+        it.capacity = {k: v * 0.5 if k in ("cpu", "memory") else v
+                       for k, v in it.capacity.items()}
+    for it in types[40 * b:40 * b + 20] if b else ():
+        it.offerings = Offerings([
+            dataclasses.replace(o, available=False)
+            if (o.zone, o.capacity_type) == ("test-zone-1", "on-demand") else o
+            for o in it.offerings])
+    return CudaSolver(provider, provisioners), build_pods(n_pods)
+
+
+def tenant_line(records, path_launches, n_b, name, entry, kernel_fn, plain_fn, moved, ops):
+    """Hold one batched entry point against its twin at B = ``n_b``
+    (exactly), time both as the solo lines are, and file the result under
+    the kernel record's ``tenant_axis``; returns the kernel's outputs."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        fail(f"{entry} at B = {n_b}: kernel differs from its twin (max_abs_err {err})")
+    rec = {"B": n_b, "launches": path_launches[name], "max_abs_err": err,
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
+           "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
+           else "operations"}
+    next(r for r in records if r["name"] == name).setdefault("tenant_axis", {})[entry] = rec
+    print(f"{entry} B={n_b}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+          f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) exact", flush=True)
+    return got
+
+
+def tenant_path(records, path_launches) -> dict:
+    """Phase 8: the coalesced multi-tenant solve — eight headline tenants
+    through the tenant plane's batch coalescer, the fused repair under
+    churn, existing-node coalescing, and each batched kernel entry point
+    against its twin at B = 8."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.service import tenant as tenant_mod
+
+    # -- (a) eight cold tenants at the headline ----------------------------------
+    t0 = time.perf_counter()
+    worlds = []
+    for b, n in enumerate(TENANT_PODS):
+        solver, pods = tenant_world(b, n)
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        worlds.append((solver, ingest, pods))
+    preps = [w[0].prepare_encoded(w[0].encode(w[1])) for w in worlds]
+    keys = [tenant_mod.bucket_key(p) for p in preps]
+    alloc = [p.statics_arrays.it_alloc for p in preps]
+    avail = [p.statics_arrays.it_avail for p in preps]
+    own = [b for b in range(1, len(preps))
+           if not torch.equal(alloc[b], alloc[0]) and not torch.equal(avail[b], avail[0])]
+    print(json.dumps({"tenants": {"pods": list(TENANT_PODS), "slots": [p.n_slots for p in preps],
+                                  "classes": int(preps[0].cls.count.shape[0]),
+                                  "own_catalog_values": own,
+                                  "one_bucket": all(k == keys[0] for k in keys),
+                                  "build_s": time.perf_counter() - t0}}), flush=True)
+    if any(k != keys[0] for k in keys):
+        fail(f"the tenants of {TENANT_PODS} pods do not share one shape bucket")
+    if own != list(range(1, len(preps))):
+        fail(f"tenants {own} alone have catalog values of their own")
+
+    # eight solo dispatches, one after another; tenant 0's alone is the B = 1
+    # count of launches and host reads
+    solo_out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, ((solver, _, _), prep) in enumerate(zip(worlds, preps)):
+        if i == 0:
+            reset_launches()
+            solve_ops.host_syncs = 0
+        solo_out.append(solver.run_prepared(prep))
+        if i == 0:
+            torch.cuda.synchronize()
+            solo_launches, solo_syncs = launch_counts(), solve_ops.host_syncs
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    # the batched program on the same preps: one dispatch for eight tenants
+    reset_launches()
+    solve_ops.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    outs = tenant_mod.BatchCoalescer._run_batched(preps)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    batched_launches, batched_syncs = launch_counts(), solve_ops.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    scan = list(TENANT_KERNELS)
+    print(json.dumps({"run": "eight tenants", "solo_wall_s": solo_s, "batched_wall_s": batched_s,
+                      "solo_b1_launches": {k: solo_launches[k] for k in scan},
+                      "batched_b8_launches": {k: batched_launches[k] for k in scan},
+                      "solo_b1_host_syncs": solo_syncs, "batched_b8_host_syncs": batched_syncs,
+                      "peak_allocated_bytes": peak, "allocated_before_bytes": mem0}), flush=True)
+    for i, (got, want) in enumerate(zip(outs, solo_out)):
+        same_leaves(got, want, f"eight tenants, tenant {i} in the batch", "its solo run_prepared")
+    if any(batched_launches[k] != solo_launches[k] for k in scan) or batched_syncs != solo_syncs:
+        fail("the batched scan at B = 8 launched or read the host a different number of "
+             "times than at B = 1")
+    del outs
+
+    # the same eight through the tenant plane, from eight threads
+    plane = tenant_plane(600.0, len(worlds))
+    sinks = [[] for _ in worlds]
+    entries = bind_tenants(plane, worlds, sinks)
+    reset_launches()
+    solve_ops.host_syncs = 0
+    t0 = time.perf_counter()
+    results = run_threads([lambda e=e, w=w: e.session.solve(w[1])
+                           for e, w in zip(entries, worlds)])
+    torch.cuda.synchronize()
+    plane_s = time.perf_counter() - t0
+    launches = launch_counts()
+    summary = []
+    for i, (entry, res, sink) in enumerate(zip(entries, results, sinks)):
+        plane.release(entry.tenant_id)
+        plane.record_ok(entry)
+        if entry.last_batched != len(worlds):
+            fail(f"tenant {i}: batch of {entry.last_batched}, the group had {len(worlds)}")
+        same_leaves(sink[0][2], solo_out[i], f"tenant plane, tenant {i}", "its solo run_prepared")
+        summary.append({"nodes": len(res.new_nodes), "failed": len(res.failed_pods),
+                        "n_next": int(sink[0][2].state.n_next), "batch": entry.last_batched})
+    print(json.dumps({"run": "tenant plane, eight threads", "wall_s": plane_s,
+                      "tenants": summary, "launches": launches}), flush=True)
+    for i, pin in TENANT_PINS.items():
+        got = {k: summary[i][k] for k in pin}
+        if got != pin:
+            fail(f"tenant {i}: {got}, the JAX package's solo answer is {pin}")
+    check_launched(launches, TENANT_KERNELS + ("pack_bool",), "tenant path")
+    del solo_out, results, sinks, entries, plane
+
+    # -- (d) the batched entry points against their twins at B = 8 ------------
+    tenant_kernel_lines(records, worlds, preps, launches)
+    del preps
+
+    # -- (b) the fused repair under churn --------------------------------------
+    fused_repair(worlds)
+    del worlds
+
+    # -- (c) existing-node coalescing -----------------------------------------
+    existing_coalescing(records, launches)
+    for rec in records:
+        rec["tenants"] = launches[rec["name"]]
+        rec.setdefault("launches_per_path", {})["tenants"] = launches[rec["name"]]
+    return launches
+
+
+def fused_repair(worlds) -> None:
+    """Phase 8 (b): the eight backlogs as eight sessions under three ticks
+    of 2 % churn, repairs fused through the plane (``KC_DELTA_WINDOW=0``:
+    every repair runs at full width, so all share one bucket), against the
+    same sessions with coalescing off (``batch_window_s=0``)."""
+    import numpy as np
+
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.testing.workloads import churn_tick
+
+    os.environ["KC_DELTA_WINDOW"] = "0"
+    try:
+        fused_plane, solo_plane = tenant_plane(600.0, len(worlds)), tenant_plane(0.0, len(worlds))
+        fused = bind_tenants(fused_plane, worlds)
+        solo = bind_tenants(solo_plane, worlds)
+    finally:
+        del os.environ["KC_DELTA_WINDOW"]
+    # the solo plane's own ingests: the same pod objects, churned alike
+    mirror = []
+    for _solver, _ingest, pods in worlds:
+        twin = PodIngest()
+        twin.add_all(pods)
+        mirror.append(twin)
+    reps = [{} for _ in worlds]
+    ticks = []
+    for tick in range(FUSED_TICKS + 1):
+        if tick:
+            for i, (_solver, ingest, _pods) in enumerate(worlds):
+                evicted, added = churn_tick(ingest, tick, reps[i])
+                for uid in evicted:
+                    mirror[i].remove(uid)
+                for pod in added:
+                    mirror[i].add(pod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_threads([lambda e=e, w=w: e.session.solve(w[1]) for e, w in zip(fused, worlds)])
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [e.session.solve(m) for e, m in zip(solo, mirror)]
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t0
+        modes = [e.session.last_mode for e in fused]
+        batches = [e.last_batched for e in fused]
+        for i, (a, b) in enumerate(zip(got, want)):
+            if decision_summary(a) != decision_summary(b):
+                fail(f"fused repair tick {tick}, tenant {i}: the decode differs from the "
+                     "run with coalescing off")
+            if modes[i] != solo[i].session.last_mode:
+                fail(f"fused repair tick {tick}, tenant {i}: mode {modes[i]} against "
+                     f"{solo[i].session.last_mode}")
+        if batches != [len(worlds)] * len(worlds):
+            fail(f"fused repair tick {tick}: batch sizes {batches}")
+        if tick and modes != ["delta"] * len(worlds):
+            fail(f"fused repair tick {tick}: modes {modes}")
+        ticks.append({"tick": tick, "modes": modes[0], "batch": batches[0],
+                      "fused_wall_s": fused_s, "solo_wall_s": solo_s})
+    for i, (a, b) in enumerate(zip(fused, solo)):
+        wa, wb = a.session._warm, b.session._warm
+        ca, cb = carry_leaves(wa.carry), carry_leaves(wb.carry)
+        if any(not torch.equal(t, cb[name]) for name, t in ca.items()):
+            fail(f"fused repair, tenant {i}: the warm carry differs from the solo run's")
+        if (wa.n_next != wb.n_next or wa.pod_loc != wb.pod_loc
+                or not np.array_equal(wa.assign, wb.assign)
+                or not np.array_equal(wa.assign_ex, wb.assign_ex)):
+            fail(f"fused repair, tenant {i}: the warm bookkeeping differs from the solo run's")
+    print(json.dumps({"run": "fused repair", "ticks": ticks,
+                      "aggregates": [e.session.aggregates() for e in fused]}), flush=True)
+
+
+def decision_summary(results):
+    """A decode's decisions, by pod uid."""
+    return (
+        sorted((sorted(p.uid for p in n.pods), list(n.instance_type_names), list(n.zones))
+               for n in results.new_nodes),
+        sorted(p.uid for p in results.failed_pods),
+        {k: sorted(p.uid for p in v) for k, v in results.existing_assignments.items()},
+        sorted(p.uid for p in results.spread_residual_pods),
+    )
+
+
+def existing_coalescing(records, path_launches) -> None:
+    """Phase 8 (c): tenants of different mid-size fleets whose padded
+    existing-node planes share a bucket, coalesced through the plane, each
+    equal to its solo solve; two of them pinned to the JAX package's solo
+    answer.  Then K5 and K6 against their twins on the fleets' own
+    existing-node planes (E = 384 rows a tenant)."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.service import tenant as tenant_mod
+    from karpenter_core_tpu_torch.testing.workloads import build_cluster, build_inputs
+
+    t0 = time.perf_counter()
+    worlds, clusters = [], []
+    for n_nodes, seed in EX_TENANT_FLEETS:
+        solver, pods = build_inputs(EX_TENANT_PODS, MID_TYPES, N_PROVISIONERS)
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        worlds.append((solver, ingest, pods))
+        clusters.append(build_cluster(n_nodes, MID_TYPES, N_PROVISIONERS, FILL, seed))
+    build_s = time.perf_counter() - t0
+    plane = tenant_plane(600.0, len(worlds))
+    sinks = [[] for _ in worlds]
+    entries = bind_tenants(plane, worlds, sinks)
+    t0 = time.perf_counter()
+    results = run_threads([lambda e=e, w=w, c=c: e.session.solve(w[1], c[0], c[1])
+                           for e, w, c in zip(entries, worlds, clusters)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    keys = {tenant_mod.bucket_key(sink[0][0]) for sink in sinks}
+    counts = []
+    for i, (entry, res, sink, (solver, _, _)) in enumerate(zip(entries, results, sinks, worlds)):
+        if entry.last_batched != len(worlds):
+            fail(f"existing-node tenant {i}: batch of {entry.last_batched} "
+                 f"({len(keys)} buckets among the {len(worlds)} fleets)")
+        prep, _kw, out = sink[0]
+        same_leaves(out, solver.run_prepared(prep), f"existing-node tenant {i}",
+                    "its solo run_prepared")
+        counts.append(path_counts(res))
+    print(json.dumps({"run": "existing-node coalescing", "fleets": [n for n, _ in EX_TENANT_FLEETS],
+                      "pods": EX_TENANT_PODS, "build_s": build_s, "wall_s": wall_s,
+                      "counts": counts}), flush=True)
+    for i, pin in EX_TENANT_PINS.items():
+        if counts[i] != pin:
+            fail(f"existing-node tenant {i}: {counts[i]}, the JAX package's answer is {pin}")
+    fleet_kernel_lines(records, path_launches, [sink[0][0] for sink in sinks])
+
+
+def fleet_kernel_lines(records, path_launches, preps) -> None:
+    """Phase 8 (c): K5 and both K6 entry points at B = len(preps) on the
+    fleets' stacked existing-node planes, class 0 of each tenant against the
+    fleet as it stood before the solve, as phase 3 holds them solo."""
+    from karpenter_core_tpu_torch.kernels import existing, fill, reqmerge
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+    n_b = len(preps)
+    st = solve_ops.StaticArrays(*stacked([p.statics_arrays for p in preps]))
+    v = st.valid.shape[-1]
+    st = st._replace(valid=mask_ops.pack_mask(st.valid))
+    cls = solve_ops.ClassTensors(*(t[:, 0].contiguous() for t in stacked([p.cls for p in preps])))
+    cls = cls._replace(mask=mask_ops.pack_mask(cls.mask))
+    cls_req = mask_ops.ReqTensor(cls.mask[:, None], cls.defined[:, None], cls.negative[:, None],
+                                 cls.gt[:, None], cls.lt[:, None])
+    ex = solve_ops.ExistingState(*stacked([p.ex_state for p in preps]))
+    ex = ex._replace(kmask=mask_ops.pack_mask(ex.kmask))
+    es = solve_ops.ExistingStatic(*stacked([p.ex_static for p in preps]))
+    n_ex, n_zones = ex.used.shape[1], ex.zone.shape[-1]
+    merged, key_ok = reqmerge.merge_compat(
+        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
+        st.vocab_ints, st.is_custom, v, preps[0].key_has_bounds)
+    host_cap = torch.full((n_b, n_ex), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
+    vol_add, vol_per_pod = es.cls_vol_add[:, 0].contiguous(), es.cls_vol_per_pod[:, 0].contiguous()
+    k5 = (es.alloc, ex.used, ex.open_, key_ok, es.tol[:, 0].contiguous(), ex.zone, cls.zone,
+          ex.ct, cls.ct, ex.ports, cls.ports, es.vol_limit, ex.vol_used, vol_add, vol_per_pod,
+          cls.requests, host_cap, True, True)
+
+    def line(*args):
+        return tenant_line(records, path_launches, n_b, *args)
+
+    cap, _, _ = line("existing_intake", "existing_intake_fleets",
+                     lambda: existing.existing_intake(*k5),
+                     lambda: existing.existing_intake_twin(*k5),
+                     nbytes(*k5[:17]) + n_b * n_ex * 9, n_b * n_ex * 64)
+    all_zones = torch.ones((n_b, n_zones), dtype=torch.bool, device="cuda")
+    k6m = (cap, ex.zone, cls.zone, all_zones, None, False)
+    cap_m, pri_m, zone_ok = line("existing_phase", "existing_mask_fleets",
+                                 lambda: existing.existing_mask(*k6m),
+                                 lambda: existing.existing_mask_twin(*k6m),
+                                 nbytes(*k6m[:4]) + n_b * n_ex * 8, n_b * n_ex * 16)
+    assigned = fill.fill_by_priority(torch.clamp(cls.count, min=1), cap_m, pri_m)
+    if not bool((assigned > 0).any()):
+        fail("existing_commit on the fleets: the fill placed nothing to commit")
+    k6c = (ex, merged, zone_ok, ex.ct & cls.ct[:, None, :], cls.ports, vol_add, vol_per_pod,
+           cls.requests, assigned, True, True)
+    line("existing_phase", "existing_commit_fleets", lambda: existing.existing_commit(*k6c),
+         lambda: existing.existing_commit_twin(*k6c), nbytes(*k6c[:9]) * 2, n_b * n_ex * 64)
+
+
+def tenant_kernel_lines(records, worlds, preps, path_launches) -> None:
+    """Phase 8 (d): each batched entry point against its twin at B = 8, on
+    the eight tenants' headline planes (class 0 of each into its final
+    state), timed as the solo lines are; the record's ``tenant_axis``."""
+    from karpenter_core_tpu_torch.kernels import capacity, existing, fill, reqmerge, spread
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.service import tenant as tenant_mod
+
+    n_b = len(preps)
+    outs = tenant_mod.BatchCoalescer._run_batched(preps)
+    state = solve_ops.NodeState(*stacked([o.state for o in outs]))
+    ex = solve_ops.ExistingState(*stacked([o.ex_state for o in outs]))
+    st = solve_ops.StaticArrays(*stacked([p.statics_arrays for p in preps]))
+    v = st.valid.shape[-1]
+    st = st._replace(it=mask_ops.pack_req(st.it), valid=mask_ops.pack_mask(st.valid))
+    cls0 = solve_ops.ClassTensors(*(t[:, 0].contiguous() for t in stacked([p.cls for p in preps])))
+    cls0 = cls0._replace(mask=mask_ops.pack_mask(cls0.mask))
+    cls_req = mask_ops.ReqTensor(cls0.mask[:, None], cls0.defined[:, None],
+                                 cls0.negative[:, None], cls0.gt[:, None], cls0.lt[:, None])
+    node_req = mask_ops.ReqTensor(state.kmask, state.kdef, state.kneg, state.kgt, state.klt)
+    khb = preps[0].key_has_bounds
+
+    def line(*args):
+        return tenant_line(records, path_launches, n_b, *args)
+
+    merged, _ = line(
+        "req_merge", "merge_compat",
+        lambda: reqmerge.merge_compat(node_req, cls_req, st.valid, st.vocab_ints, st.is_custom,
+                                      v, khb),
+        lambda: reqmerge.merge_compat_twin(node_req, cls_req, st.valid, st.vocab_ints,
+                                            st.is_custom, v, khb),
+        nbytes(node_req, cls_req, st.valid, st.vocab_ints, st.is_custom) * 2,
+        state.kmask.numel() * 8)
+    zone_ok = state.zone & cls0.zone[:, None, :]
+    ct_ok = state.ct & cls0.ct[:, None, :]
+    k1_args = (state.viable, cls0.it, merged, st.it, st.vocab_ints, v, khb, zone_ok, ct_ok,
+               st.it_avail, state.used, cls0.requests, st.it_alloc)
+    _, n_slots, n_types = state.viable.shape
+    _, _, cap_n = line(
+        "it_capacity", "it_capacity", lambda: capacity.it_capacity(*k1_args),
+        lambda: capacity.it_capacity_twin(*k1_args),
+        nbytes(*[a for a in k1_args if isinstance(a, (torch.Tensor, tuple))])
+        + n_b * (n_slots * n_types * 5 + n_slots * 4),
+        n_b * n_slots * n_types * (st.it.mask.shape[2] * 6 + 12 + 4 * st.it_alloc.shape[2]))
+    priority = state.pod_count * n_slots + torch.arange(n_slots, dtype=torch.int32,
+                                                        device="cuda")
+    priority = torch.where(cap_n > 0, priority, 2**31 - 1)
+    quota = torch.clamp(cls0.count, min=1000).contiguous()
+    line("fill_priority", "fill_by_priority", lambda: fill.fill_by_priority(quota, cap_n, priority),
+         lambda: fill.fill_by_priority_twin(quota, cap_n, priority),
+         nbytes(quota, cap_n, priority) + n_b * n_slots * 4, n_b * n_slots * 32 * 4)
+    # K5 / K6 on the tenants' one closed dummy existing row (the cold
+    # variant's E = 1): the shapes the batched cold path gives them
+    n_ex = ex.used.shape[1]
+    host_cap = torch.full((n_b, n_ex), 1 << 30, dtype=torch.int32, device="cuda")
+    es = stacked([solve_ops.empty_existing_static(p.cls.requests.shape[-1], p.cls.count.shape[0],
+                                                  p.statics_arrays.grp_skew.shape[0],
+                                                  device="cuda") for p in preps])
+    key_ok = torch.ones((n_b, n_ex), dtype=torch.bool, device="cuda")
+    k5 = (es.alloc, ex.used, ex.open_, key_ok, es.tol[:, 0].contiguous(), ex.zone, cls0.zone,
+          ex.ct, cls0.ct, ex.ports, cls0.ports, es.vol_limit, ex.vol_used,
+          es.cls_vol_add[:, 0].contiguous(), es.cls_vol_per_pod[:, 0].contiguous(),
+          cls0.requests, host_cap, True, True)
+    cap_e, _, ct_e = line("existing_intake", "existing_intake", lambda: existing.existing_intake(*k5),
+                          lambda: existing.existing_intake_twin(*k5),
+                          nbytes(*k5[:17]) + n_b * n_ex * 9, n_b * n_ex * 64)
+    restrict = torch.ones((n_b, state.zone.shape[-1]), dtype=torch.bool, device="cuda")
+
+    def existing_mask():
+        return existing.existing_mask(cap_e, ex.zone, cls0.zone, restrict, None, False)
+
+    def existing_mask_plain():
+        return existing.existing_mask_twin(cap_e, ex.zone, cls0.zone, restrict, None, False)
+
+    line("existing_phase", "existing_mask", existing_mask, existing_mask_plain,
+         nbytes(cap_e, ex.zone, cls0.zone, restrict) + n_b * n_ex * 8, n_b * n_ex * 16)
+    assigned = torch.zeros((n_b, n_ex), dtype=torch.int32, device="cuda")
+    ex_merged, _ = reqmerge.merge_compat(
+        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
+        st.vocab_ints, st.is_custom, v, khb)
+    k6c = (ex, ex_merged, ex.zone, ct_e, cls0.ports, es.cls_vol_add[:, 0].contiguous(),
+           es.cls_vol_per_pod[:, 0].contiguous(), cls0.requests, assigned, True, True)
+
+    def existing_commit():
+        return existing.existing_commit(*k6c)
+
+    def existing_commit_plain():
+        return existing.existing_commit_twin(*k6c)
+
+    line("existing_phase", "existing_commit", existing_commit, existing_commit_plain,
+         nbytes(*k6c[:9]) * 2, n_b * n_ex * 64)
+    counts_z = torch.zeros((n_b, state.zone.shape[-1]), dtype=torch.int32, device="cuda")
+    k7 = (counts_z, restrict, restrict,
+          torch.full_like(counts_z, 1 << 30), torch.ones(n_b, dtype=torch.int32, device="cuda"),
+          cls0.count, torch.ones(n_b, dtype=torch.bool, device="cuda"))
+    line("spread_quota", "spread_quota", lambda: spread.spread_quota(*k7), lambda: spread.spread_quota_twin(*k7),
+         nbytes(*k7) + n_b * 40, n_b * 4000)
+    del outs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1624,7 +2183,8 @@ def main() -> None:
     churn_launches = churn_path(records, mid_cluster, path_launches)
     path_launches["churn"] = churn_launches
     path_launches["policy"] = policy_path(records, mid_cluster, path_launches)
-    relax_path(records, path_launches)
+    path_launches["relax"] = relax_path(records, path_launches)
+    tenant_path(records, path_launches)
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
           "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
           "requests; null for the others — no single PyTorch call computes them (K13: a "

@@ -25,6 +25,9 @@
 // commit moves about 0.7 MB (read the state and the merged planes, write
 // the state): 0.2 us at 3.35 TB/s; the mask about 0.1 MB.  Both sit far
 // below the launch latency.
+// Tenant axis: the rows may be B tenants' nodes stacked ([B, E]), each
+// with its own class vectors ([B, ...]).  The mask runs one block a tenant
+// (grid = B); the commit's flat row gives the tenant.  A solo call is B = 1.
 // Design: the mask runs in ONE block of 1024 threads looping over the rows,
 // because the single-node pin needs the first eligible row of the whole
 // plane: a shared-memory atomicMin finds it between two passes, with no
@@ -63,6 +66,16 @@ __global__ void __launch_bounds__(kMaskThreads) existing_mask_kernel(
     int32_t* __restrict__ cap_out,          // [E]
     int32_t* __restrict__ priority_out,     // [E]
     uint8_t* __restrict__ zone_ok_out) {    // [E, Z]
+  // this block's tenant
+  const size_t tb = blockIdx.x;
+  prep_cap += tb * n_rows;
+  zone += tb * n_rows * n_zones;
+  cls_zone += tb * n_zones;
+  restrict_ += tb * n_zones;
+  if (has_extra) extra += tb * n_rows;
+  cap_out += tb * n_rows;
+  priority_out += tb * n_rows;
+  zone_ok_out += tb * n_rows * n_zones;
   __shared__ int first;
   if (threadIdx.x == 0) first = kI32Max;
   __syncthreads();
@@ -92,7 +105,7 @@ __global__ void __launch_bounds__(kMaskThreads) existing_mask_kernel(
 }
 
 __global__ void __launch_bounds__(kCommitThreads) existing_commit_kernel(
-    int n_rows, int n_res, int n_kw, int n_keys, int n_zones, int n_ct, int n_ports,
+    int n_total, int n_rows, int n_res, int n_kw, int n_keys, int n_zones, int n_ct, int n_ports,
     int n_drivers, int host_ports, int volume_limits,
     const float* __restrict__ used,          // [E, R]
     const int32_t* __restrict__ kmask,       // [E, K*W]
@@ -129,7 +142,12 @@ __global__ void __launch_bounds__(kCommitThreads) existing_commit_kernel(
     int32_t* __restrict__ vol_used_out,
     int32_t* __restrict__ pod_count_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_rows) return;
+  if (e >= n_total) return;
+  // the row's tenant: its class vectors
+  const int tb = e / n_rows;
+  cls_ports += (size_t)tb * n_ports;
+  per_pod += (size_t)tb * n_drivers;
+  req += (size_t)tb * n_res;
   const int32_t a = assigned[e];
   const bool sel = a > 0;
   const float af = static_cast<float>(a);
@@ -167,12 +185,13 @@ __global__ void __launch_bounds__(kCommitThreads) existing_commit_kernel(
 
 }  // namespace
 
-extern "C" int kc_existing_mask(int n_rows, int n_zones, int has_extra, int single_node,
+extern "C" int kc_existing_mask(int n_batch, int n_rows, int n_zones, int has_extra,
+                                int single_node,
                                 const void* prep_cap, const void* zone, const void* cls_zone,
                                 const void* restrict_, const void* extra, void* cap_out,
                                 void* priority_out, void* zone_ok_out, void* stream) {
-  if (n_rows <= 0) return 0;
-  existing_mask_kernel<<<1, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_rows <= 0 || n_batch <= 0) return 0;
+  existing_mask_kernel<<<n_batch, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n_rows, n_zones, has_extra, single_node, static_cast<const int32_t*>(prep_cap),
       static_cast<const uint8_t*>(zone), static_cast<const uint8_t*>(cls_zone),
       static_cast<const uint8_t*>(restrict_), static_cast<const uint8_t*>(extra),
@@ -182,7 +201,7 @@ extern "C" int kc_existing_mask(int n_rows, int n_zones, int has_extra, int sing
 }
 
 extern "C" int kc_existing_commit(
-    int n_rows, int n_res, int n_kw, int n_keys, int n_zones, int n_ct, int n_ports,
+    int n_batch, int n_rows, int n_res, int n_kw, int n_keys, int n_zones, int n_ct, int n_ports,
     int n_drivers, int host_ports, int volume_limits,
     const void* used, const void* kmask, const void* kdef, const void* kneg,
     const void* kgt, const void* klt, const void* zone, const void* ct, const void* ports,
@@ -193,10 +212,13 @@ extern "C" int kc_existing_commit(
     void* kdef_out, void* kneg_out, void* kgt_out, void* klt_out, void* zone_out,
     void* ct_out, void* ports_out, void* vol_used_out, void* pod_count_out,
     void* stream) {
-  if (n_rows <= 0) return 0;
-  const int blocks = (n_rows + kCommitThreads - 1) / kCommitThreads;
+  const long long total = static_cast<long long>(n_batch) * n_rows;
+  if (total <= 0) return 0;
+  if (total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((total + kCommitThreads - 1) / kCommitThreads);
   existing_commit_kernel<<<blocks, kCommitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_rows, n_res, n_kw, n_keys, n_zones, n_ct, n_ports, n_drivers, host_ports,
+      static_cast<int>(total), n_rows, n_res, n_kw, n_keys, n_zones, n_ct, n_ports, n_drivers,
+      host_ports,
       volume_limits,
       static_cast<const float*>(used), static_cast<const int32_t*>(kmask),
       static_cast<const uint8_t*>(kdef), static_cast<const uint8_t*>(kneg),

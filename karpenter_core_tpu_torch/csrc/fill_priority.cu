@@ -24,8 +24,8 @@
 //
 // Above 16,384 slots (an existing cluster that large, or a retry past it)
 // a multi-block path takes over, in five launches on the caller's stream:
-//   1. iota: the slot indices, the sort's values;
-//   2. CUB's device-wide radix sort of (priority, index) pairs.  An LSD
+//   1. keys: the sort's keys (below) and the slot indices, its values;
+//   2. CUB's device-wide radix sort of (key, index) pairs.  An LSD
 //      radix sort is stable, and the values enter in index order, so equal
 //      priorities keep index order as jnp.argsort does;
 //   3. tile_sums: the uint32 sum of the sorted caps of each 1,024-slot tile;
@@ -36,6 +36,15 @@
 // The wrapper allocates the scratch (kc_fill_priority_scratch_bytes).  The
 // scans run on uint32, as the one-block path does, so the int32 wraparound
 // of the reference's cumsum stays defined; the quota is read on the device.
+//
+// Tenant axis: cap, priority and out may be B tenants' planes stacked
+// ([B, N]) with one quota each ([B]); each tenant is filled on its own.
+// The one-block path runs one block a tenant (grid = B).  The multi-block
+// path sorts 64-bit keys (tenant << 32 | priority with its sign bit
+// flipped), so one stable device-wide sort leaves each tenant's entries in
+// its own segment, in (priority, index) order; the tile sums, tile offsets
+// and clip-and-scatter then run a grid row a tenant and restart at each
+// segment.  A solo call is B = 1 (its keys' top half is zero).
 
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
@@ -64,6 +73,12 @@ __global__ void __launch_bounds__(kThreads) fill_priority_kernel(
   using T = FillTypes<ITEMS>;
   extern __shared__ __align__(16) unsigned char smem[];
   typename T::Storage& storage = *reinterpret_cast<typename T::Storage*>(smem);
+  // this block's tenant
+  const size_t tb = blockIdx.x;
+  quota_p += tb;
+  cap += tb * n;
+  priority += tb * n;
+  out += tb * n;
 
   int keys[ITEMS];
   int idx[ITEMS];
@@ -92,13 +107,13 @@ __global__ void __launch_bounds__(kThreads) fill_priority_kernel(
 }
 
 template <int ITEMS>
-int launch(int n, const void* quota, const void* cap, const void* priority, void* out,
-           cudaStream_t stream) {
+int launch(int n_batch, int n, const void* quota, const void* cap, const void* priority,
+           void* out, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(typename FillTypes<ITEMS>::Storage));
   cudaError_t err = cudaFuncSetAttribute(
       fill_priority_kernel<ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fill_priority_kernel<ITEMS><<<1, kThreads, smem, stream>>>(
+  fill_priority_kernel<ITEMS><<<n_batch, kThreads, smem, stream>>>(
       n, static_cast<const int32_t*>(quota), static_cast<const int32_t*>(cap),
       static_cast<const int32_t*>(priority), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -113,9 +128,15 @@ constexpr int kOneBlock = kThreads * 16;
 
 size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
 
-__global__ void iota_kernel(int n, int32_t* __restrict__ idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) idx[i] = i;
+// the sort's keys and values: key = tenant << 32 | (priority ^ sign bit),
+// so unsigned order is (tenant, signed priority); value = the flat index
+__global__ void keys_kernel(long long total, int n, const int32_t* __restrict__ priority,
+                            unsigned long long* __restrict__ keys, int32_t* __restrict__ idx) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const unsigned long long tb = static_cast<unsigned long long>(g / n);
+  keys[g] = (tb << 32) | (static_cast<uint32_t>(priority[g]) ^ 0x80000000u);
+  idx[g] = static_cast<int32_t>(g);
 }
 
 // the exclusive prefix of `v` over the block's threads, and the block total
@@ -140,8 +161,11 @@ __device__ __forceinline__ unsigned int block_exclusive_scan(unsigned int v, uns
 }
 
 __global__ void __launch_bounds__(kTileThreads) tile_sums_kernel(
-    int n, const int32_t* __restrict__ cap, const int32_t* __restrict__ order,
+    int n, int tiles, const int32_t* __restrict__ cap, const int32_t* __restrict__ order,
     unsigned int* __restrict__ tile_sums) {
+  // grid (tiles, B): this tenant's segment of the sorted order
+  order += static_cast<size_t>(blockIdx.y) * n;
+  tile_sums += static_cast<size_t>(blockIdx.y) * tiles;
   const int base = blockIdx.x * kTile + threadIdx.x * kTileItems;
   unsigned int local = 0;
   for (int j = 0; j < kTileItems; ++j) {
@@ -154,6 +178,7 @@ __global__ void __launch_bounds__(kTileThreads) tile_sums_kernel(
 
 __global__ void __launch_bounds__(kTileThreads) tile_offsets_kernel(
     int tiles, unsigned int* __restrict__ tile_sums) {
+  tile_sums += static_cast<size_t>(blockIdx.x) * tiles;  // one block a tenant
   // in place: tile sums -> exclusive tile offsets, kTileThreads tiles a round
   unsigned int carry = 0;
   for (int start = 0; start < tiles; start += kTileThreads) {
@@ -169,7 +194,11 @@ __global__ void __launch_bounds__(kTileThreads) tile_offsets_kernel(
 __global__ void __launch_bounds__(kTileThreads) clip_scatter_kernel(
     int n, const int32_t* __restrict__ quota_p, const int32_t* __restrict__ cap,
     const int32_t* __restrict__ order, const unsigned int* __restrict__ tile_offsets,
-    int32_t* __restrict__ out) {
+    int tiles, int32_t* __restrict__ out) {
+  // grid (tiles, B): the order holds flat indices, so cap and out stay whole
+  quota_p += blockIdx.y;
+  order += static_cast<size_t>(blockIdx.y) * n;
+  tile_offsets += static_cast<size_t>(blockIdx.y) * tiles;
   const int base = blockIdx.x * kTile + threadIdx.x * kTileItems;
   unsigned int c[kTileItems];
   int idx[kTileItems];
@@ -194,48 +223,59 @@ __global__ void __launch_bounds__(kTileThreads) clip_scatter_kernel(
   }
 }
 
-size_t cub_bytes(int n) {
+size_t cub_bytes(long long total) {
   size_t bytes = 0;
-  cub::DeviceRadixSort::SortPairs(nullptr, bytes, static_cast<const int*>(nullptr),
-                                  static_cast<int*>(nullptr), static_cast<const int*>(nullptr),
-                                  static_cast<int*>(nullptr), n);
+  cub::DeviceRadixSort::SortPairs(nullptr, bytes, static_cast<const unsigned long long*>(nullptr),
+                                  static_cast<unsigned long long*>(nullptr),
+                                  static_cast<const int*>(nullptr), static_cast<int*>(nullptr),
+                                  static_cast<int>(total));
   return bytes;
 }
 
-// scratch layout: indices in, keys out, indices out, tile sums, CUB's storage
-size_t multi_scratch_bytes(int n) {
+// scratch layout: keys in, keys out, indices in, indices out, tile sums,
+// CUB's storage
+size_t multi_scratch_bytes(int n_batch, int n) {
+  const long long total = static_cast<long long>(n_batch) * n;
   const size_t tiles = (static_cast<size_t>(n) + kTile - 1) / kTile;
-  return 3 * align_up(static_cast<size_t>(n) * 4) + align_up(tiles * 4) + align_up(cub_bytes(n));
+  return 2 * align_up(static_cast<size_t>(total) * 8) + 2 * align_up(static_cast<size_t>(total) * 4)
+      + align_up(tiles * n_batch * 4) + align_up(cub_bytes(total));
 }
 
-int launch_multi(int n, const void* quota, const void* cap, const void* priority, void* out,
-                 void* scratch, cudaStream_t stream) {
+int launch_multi(int n_batch, int n, const void* quota, const void* cap, const void* priority,
+                 void* out, void* scratch, cudaStream_t stream) {
+  const long long total = static_cast<long long>(n_batch) * n;
   unsigned char* p = static_cast<unsigned char*>(scratch);
-  const size_t plane = align_up(static_cast<size_t>(n) * 4);
-  int32_t* idx_in = reinterpret_cast<int32_t*>(p);
-  int32_t* keys_out = reinterpret_cast<int32_t*>(p + plane);
-  int32_t* idx_out = reinterpret_cast<int32_t*>(p + 2 * plane);
+  const size_t kplane = align_up(static_cast<size_t>(total) * 8);
+  const size_t iplane = align_up(static_cast<size_t>(total) * 4);
+  unsigned long long* keys_in = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long* keys_out = reinterpret_cast<unsigned long long*>(p + kplane);
+  int32_t* idx_in = reinterpret_cast<int32_t*>(p + 2 * kplane);
+  int32_t* idx_out = reinterpret_cast<int32_t*>(p + 2 * kplane + iplane);
   const int tiles = (n + kTile - 1) / kTile;
-  unsigned int* tile_sums = reinterpret_cast<unsigned int*>(p + 3 * plane);
-  void* cub_tmp = p + 3 * plane + align_up(static_cast<size_t>(tiles) * 4);
-  size_t cub_size = cub_bytes(n);
+  unsigned int* tile_sums = reinterpret_cast<unsigned int*>(p + 2 * kplane + 2 * iplane);
+  void* cub_tmp = p + 2 * kplane + 2 * iplane + align_up(static_cast<size_t>(tiles) * n_batch * 4);
+  size_t cub_size = cub_bytes(total);
+  // sort only the key bits in use: the priority's 32 and the tenant's
+  int end_bit = 32;
+  while ((1LL << (end_bit - 32)) < n_batch) ++end_bit;
 
-  iota_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, idx_in);
+  keys_kernel<<<static_cast<unsigned int>((total + 255) / 256), 256, 0, stream>>>(
+      total, n, static_cast<const int32_t*>(priority), keys_in, idx_in);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cub::DeviceRadixSort::SortPairs(cub_tmp, cub_size, static_cast<const int*>(priority),
-                                        keys_out, idx_in, idx_out, n, 0, 32, stream);
+  err = cub::DeviceRadixSort::SortPairs(cub_tmp, cub_size, keys_in, keys_out, idx_in, idx_out,
+                                        static_cast<int>(total), 0, end_bit, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_sums_kernel<<<tiles, kTileThreads, 0, stream>>>(n, static_cast<const int32_t*>(cap),
-                                                        idx_out, tile_sums);
+  tile_sums_kernel<<<dim3(tiles, n_batch), kTileThreads, 0, stream>>>(
+      n, tiles, static_cast<const int32_t*>(cap), idx_out, tile_sums);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_offsets_kernel<<<1, kTileThreads, 0, stream>>>(tiles, tile_sums);
+  tile_offsets_kernel<<<n_batch, kTileThreads, 0, stream>>>(tiles, tile_sums);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  clip_scatter_kernel<<<tiles, kTileThreads, 0, stream>>>(
+  clip_scatter_kernel<<<dim3(tiles, n_batch), kTileThreads, 0, stream>>>(
       n, static_cast<const int32_t*>(quota), static_cast<const int32_t*>(cap), idx_out,
-      tile_sums, static_cast<int32_t*>(out));
+      tile_sums, tiles, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,26 +283,30 @@ int launch_multi(int n, const void* quota, const void* cap, const void* priority
 
 extern "C" int kc_fill_priority_max_n() { return kOneBlock; }
 
-extern "C" size_t kc_fill_priority_scratch_bytes(int n) {
-  return n > kOneBlock ? multi_scratch_bytes(n) : 0;
+extern "C" size_t kc_fill_priority_scratch_bytes(int n_batch, int n) {
+  return n > kOneBlock ? multi_scratch_bytes(n_batch, n) : 0;
 }
 
-extern "C" int kc_fill_priority_multi(int n, const void* quota, const void* cap,
+extern "C" int kc_fill_priority_multi(int n_batch, int n, const void* quota, const void* cap,
                                       const void* priority, void* out, void* scratch,
                                       void* stream_p) {
-  if (n <= 0) return 0;
-  return launch_multi(n, quota, cap, priority, out, scratch, static_cast<cudaStream_t>(stream_p));
+  if (n <= 0 || n_batch <= 0) return 0;
+  if (n_batch > 65535 || static_cast<long long>(n_batch) * n > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_multi(n_batch, n, quota, cap, priority, out, scratch,
+                      static_cast<cudaStream_t>(stream_p));
 }
 
-extern "C" int kc_fill_priority(int n, const void* quota, const void* cap,
+extern "C" int kc_fill_priority(int n_batch, int n, const void* quota, const void* cap,
                                 const void* priority, void* out, void* stream_p) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_p);
-  if (n <= 0) return 0;
+  if (n <= 0 || n_batch <= 0) return 0;
   const int items = (n + kThreads - 1) / kThreads;
-  if (items <= 1) return launch<1>(n, quota, cap, priority, out, stream);
-  if (items <= 2) return launch<2>(n, quota, cap, priority, out, stream);
-  if (items <= 4) return launch<4>(n, quota, cap, priority, out, stream);
-  if (items <= 8) return launch<8>(n, quota, cap, priority, out, stream);
-  if (items <= 16) return launch<16>(n, quota, cap, priority, out, stream);
+  if (items <= 1) return launch<1>(n_batch, n, quota, cap, priority, out, stream);
+  if (items <= 2) return launch<2>(n_batch, n, quota, cap, priority, out, stream);
+  if (items <= 4) return launch<4>(n_batch, n, quota, cap, priority, out, stream);
+  if (items <= 8) return launch<8>(n_batch, n, quota, cap, priority, out, stream);
+  if (items <= 16) return launch<16>(n_batch, n, quota, cap, priority, out, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

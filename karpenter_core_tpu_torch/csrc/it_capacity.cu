@@ -16,6 +16,14 @@
 // it reads viable (8 MB) and writes it_ok (8 MB) and cap_ni (32 MB): about
 // 48 MB, 14 us at 3.35 TB/s.  The per-type planes (masks, bounds, offerings,
 // allocatable: a few tens of KB) stay in L1/L2 and are read by every row.
+// Eight coalesced tenants move eight times that: about 384 MB, 115 us.
+// Tenant axis: every operand may carry a leading tenant axis B (the
+// coalesced multi-tenant solve stacks B clusters' planes); blockIdx.y is the
+// tenant and every operand is read at that tenant's base offset — the
+// catalog, templates and vocabulary included, since tenants that share a
+// shape bucket may hold different values.  Only the vocabulary word mask
+// and the per-key bounds flags are shared (they follow from the bucket's
+// shapes).  A solo call is the same kernel at B = 1.
 // Design: one block per slot row; the row's own planes are read once into
 // registers by every thread (a broadcast load), the threads stride over the
 // types so the byte and int32 stores coalesce, and the row maximum is a
@@ -80,6 +88,31 @@ __global__ void __launch_bounds__(kThreads) it_capacity_kernel(
     int32_t* __restrict__ cap_n_out) {       // [N]
   const int n = blockIdx.x;
   __shared__ int32_t red[kThreads];
+  // this tenant's planes (every operand above is per tenant: [B, ...])
+  const size_t tb = blockIdx.y;
+  const size_t rows_k = (size_t)n_rows * n_keys, types_k = (size_t)n_types * n_keys;
+  viable += tb * n_rows * n_types;
+  cls_it += tb * n_types;
+  a_mask += tb * rows_k * n_words;
+  a_def += tb * rows_k;
+  a_neg += tb * rows_k;
+  a_gt += tb * rows_k;
+  a_lt += tb * rows_k;
+  b_mask += tb * types_k * n_words;
+  b_def += tb * types_k;
+  b_neg += tb * types_k;
+  b_gt += tb * types_k;
+  b_lt += tb * types_k;
+  vocab_ints += tb * n_keys * n_vocab;
+  zone_ok += tb * n_rows * n_zones;
+  ct_ok += tb * n_rows * n_ct;
+  avail += tb * n_types * n_zones * n_ct;
+  used += tb * n_rows * n_res;
+  size += tb * n_res;
+  alloc += tb * n_types * n_res;
+  it_ok_out += tb * n_rows * n_types;
+  cap_out += tb * n_rows * n_types;
+  cap_n_out += tb * n_rows;
 
   float used_r[kMaxR];
   for (int r = 0; r < n_res; ++r) used_r[r] = used[n * n_res + r];
@@ -160,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) it_capacity_kernel(
 }  // namespace
 
 extern "C" int kc_it_capacity(
-    int n_rows, int n_types, int n_keys, int n_words, int n_vocab, int other_word,
+    int n_batch, int n_rows, int n_types, int n_keys, int n_words, int n_vocab, int other_word,
     int other_bitpos, int n_res, int n_zones, int n_ct,
     const void* viable, const void* cls_it, const void* a_mask, const void* a_def,
     const void* a_neg, const void* a_gt, const void* a_lt, const void* b_mask,
@@ -170,8 +203,9 @@ extern "C" int kc_it_capacity(
     const void* size, const void* alloc, void* it_ok_out, void* cap_out,
     void* cap_n_out, void* stream) {
   if (n_res > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return 0;
-  it_capacity_kernel<<<n_rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0 || n_batch == 0) return 0;
+  it_capacity_kernel<<<dim3(n_rows, n_batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n_rows, n_types, n_keys, n_words, n_vocab, other_word, other_bitpos, n_res,
       n_zones, n_ct,
       static_cast<const uint8_t*>(viable), static_cast<const uint8_t*>(cls_it),

@@ -17,6 +17,10 @@
 // under 1 MB.  Design: one thread per (slot, key) — a block holds whole
 // slots (K * floor(256 / K) threads), so the per-slot AND over keys is a
 // shared-memory pass by the slot's key-0 thread, with no second launch.
+// Tenant axis: the slot rows may be B tenants' planes stacked ([B, N]
+// rows), each merged with its own tenant's class row, valid words,
+// vocabulary ints and custom-key flags (all [B, ...]); the flat row index
+// gives the tenant.  A solo call is B = 1.
 // Mask words are int32 and bits are tested with `&`, never an arithmetic
 // `>>`.  The bounds correction of derive_negative runs only when some key
 // of the problem carries Gt/Lt bounds (`needs_bounds`), as in the reference.
@@ -33,7 +37,7 @@ __device__ __forceinline__ bool bit_set(int32_t word, int b) {
 }
 
 __global__ void req_merge_kernel(
-    int n_rows, int n_keys, int n_words, int n_vocab, int other_word, int other_bitpos,
+    int n_total, int n_rows, int n_keys, int n_words, int n_vocab, int other_word, int other_bitpos,
     int needs_bounds,
     const int32_t* __restrict__ a_mask, const uint8_t* __restrict__ a_def,
     const uint8_t* __restrict__ a_neg, const float* __restrict__ a_gt,
@@ -50,10 +54,20 @@ __global__ void req_merge_kernel(
   const int local_row = threadIdx.x / n_keys;
   const int k = threadIdx.x % n_keys;
   const int n = blockIdx.x * rows_per_block + local_row;
-  const bool live = local_row < rows_per_block && n < n_rows;
+  const bool live = local_row < rows_per_block && n < n_total;
 
   bool ok = true;
   if (live) {
+    // the row's tenant: its class row and its vocabulary planes
+    const int tb = n / n_rows;
+    b_mask += (size_t)tb * n_keys * n_words;
+    b_def += (size_t)tb * n_keys;
+    b_neg += (size_t)tb * n_keys;
+    b_gt += (size_t)tb * n_keys;
+    b_lt += (size_t)tb * n_keys;
+    valid += (size_t)tb * n_keys * n_words;
+    vocab_ints += (size_t)tb * n_keys * n_vocab;
+    is_custom += (size_t)tb * n_keys;
     const int nk = n * n_keys + k;
     const int32_t* am = a_mask + (size_t)nk * n_words;
     const int32_t* bm = b_mask + (size_t)k * n_words;
@@ -118,7 +132,7 @@ __global__ void req_merge_kernel(
 }  // namespace
 
 extern "C" int kc_req_merge(
-    int n_rows, int n_keys, int n_words, int n_vocab, int other_word, int other_bitpos,
+    int n_batch, int n_rows, int n_keys, int n_words, int n_vocab, int other_word, int other_bitpos,
     int needs_bounds,
     const void* a_mask, const void* a_def, const void* a_neg, const void* a_gt,
     const void* a_lt, const void* b_mask, const void* b_def, const void* b_neg,
@@ -126,12 +140,15 @@ extern "C" int kc_req_merge(
     const void* vocab_ints, const void* is_custom, void* m_mask, void* m_def,
     void* m_neg, void* m_gt, void* m_lt, void* compat, void* stream) {
   if (n_keys < 1 || n_keys > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return 0;
+  const long long total = static_cast<long long>(n_batch) * n_rows;
+  if (total == 0) return 0;
+  if (total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int rows_per_block = kMaxThreads / n_keys;
   const int threads = rows_per_block * n_keys;
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  const int blocks = static_cast<int>((total + rows_per_block - 1) / rows_per_block);
   req_merge_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_rows, n_keys, n_words, n_vocab, other_word, other_bitpos, needs_bounds,
+      static_cast<int>(total), n_rows, n_keys, n_words, n_vocab, other_word, other_bitpos,
+      needs_bounds,
       static_cast<const int32_t*>(a_mask), static_cast<const uint8_t*>(a_def),
       static_cast<const uint8_t*>(a_neg), static_cast<const float*>(a_gt),
       static_cast<const float*>(a_lt), static_cast<const int32_t*>(b_mask),

@@ -16,7 +16,11 @@
 // Outputs quotas i32[Z], sat bool[Z], m_rem i32[], fill_residual bool[].
 // Bound on the H100: latency.  It reads and writes a few dozen bytes and
 // does a few hundred scalar operations; the time is the launch.
-// Design: one warp is launched and lane 0 runs the rounds in order (Z <= 32).
+// Design: one warp a tenant (grid = B; every operand may carry a leading
+// tenant axis, [B, Z] and [B]), whose lane 0 runs that tenant's rounds in
+// order (Z <= 32) to their own end.  (Under vmap the reference's rounds run
+// to the last tenant's end with finished tenants frozen, which gives the
+// same values.)  A solo call is B = 1.
 // Its per-zone arrays are indexed at run time, so they live in local memory:
 // ptxas reports a 1,024-byte stack frame for sm_90a, and those accesses, not
 // arithmetic, set the kernel's time.  Unrolling for a fixed Z = 3 would keep
@@ -123,6 +127,19 @@ __global__ void spread_quota_kernel(
     int32_t* __restrict__ m_rem_out,       // []
     uint8_t* __restrict__ residual_out) {  // []
   if (threadIdx.x != 0) return;
+  // this block's tenant
+  const size_t tb = blockIdx.x;
+  counts += tb * n_zones;
+  allowed += tb * n_zones;
+  fillable += tb * n_zones;
+  cap_pods += tb * n_zones;
+  skew_p += tb;
+  m_p += tb;
+  member_p += tb;
+  quotas_out += tb * n_zones;
+  sat_out += tb * n_zones;
+  m_rem_out += tb;
+  residual_out += tb;
   const int32_t skew = *skew_p;
   int32_t m_rem = *m_p;
   bool unreachable[kMaxZ], sat[kMaxZ], active[kMaxZ], finite_cap[kMaxZ];
@@ -189,13 +206,14 @@ __global__ void spread_quota_kernel(
 
 extern "C" int kc_spread_quota_max_zones() { return kMaxZ; }
 
-extern "C" int kc_spread_quota(int n_zones, const void* counts, const void* allowed,
+extern "C" int kc_spread_quota(int n_batch, int n_zones, const void* counts, const void* allowed,
                                const void* fillable, const void* cap_pods, const void* skew,
                                const void* m, const void* member, void* quotas_out,
                                void* sat_out, void* m_rem_out, void* residual_out,
                                void* stream) {
   if (n_zones <= 0 || n_zones > kMaxZ) return static_cast<int>(cudaErrorInvalidValue);
-  spread_quota_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_batch <= 0) return 0;
+  spread_quota_kernel<<<n_batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       n_zones, static_cast<const int32_t*>(counts), static_cast<const uint8_t*>(allowed),
       static_cast<const uint8_t*>(fillable), static_cast<const int32_t*>(cap_pods),
       static_cast<const int32_t*>(skew), static_cast<const int32_t*>(m),

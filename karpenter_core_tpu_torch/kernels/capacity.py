@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.models import snapshot
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
@@ -123,46 +123,60 @@ def _key_flags(key_has_bounds, device) -> torch.Tensor:
     return t
 
 
-_ARGTYPES = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 25
+it_capacity_twin = batch.tenantwise(it_capacity_plain, lambda viable, *_: viable.dim() == 2)
+
+
+_ARGTYPES = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 25
 
 
 def it_capacity(viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
                 zone_ok, ct_ok, it_avail, used, size, it_alloc):
     """K1 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (no fallback between them)."""
-    global launches
+    CUDA tensors (no fallback between them).  Every operand may carry a
+    leading tenant axis B (``viable`` bool[B, N, I], the catalog planes
+    [B, I, ...]): one launch covers every tenant."""
+    args = (viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
+            zone_ok, ct_ok, it_avail, used, size, it_alloc)
     if viable.device.type != "cuda":
-        return it_capacity_plain(viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
-                                 zone_ok, ct_ok, it_avail, used, size, it_alloc)
+        return it_capacity_twin(*args)
+    if viable.dim() == 2:
+        return batch.drop_axis(_it_capacity_cuda(*batch.add_axis(args)))
+    return _it_capacity_cuda(*args)
+
+
+def _it_capacity_cuda(viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
+                      zone_ok, ct_ok, it_avail, used, size, it_alloc):
+    global launches
     dev = viable.device
-    n, n_it = viable.shape
-    _, n_keys, n_words = it.mask.shape
+    n_b, n, n_it = viable.shape
+    _, _, n_keys, n_words = it.mask.shape
     n_vocab = vocab_ints.shape[-1]
     n_res = it_alloc.shape[-1]
-    n_zones, n_ct = it_avail.shape[1], it_avail.shape[2]
+    n_zones, n_ct = it_avail.shape[2], it_avail.shape[3]
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for name, t, dt, shape in (
-        ("viable", viable, b, (n, n_it)), ("cls_it", cls_it, b, (n_it,)),
-        ("merged.mask", merged.mask, i32, (n, n_keys, n_words)),
-        ("merged.defined", merged.defined, b, (n, n_keys)),
-        ("merged.negative", merged.negative, b, (n, n_keys)),
-        ("merged.gt", merged.gt, f32, (n, n_keys)), ("merged.lt", merged.lt, f32, (n, n_keys)),
-        ("it.mask", it.mask, i32, (n_it, n_keys, n_words)),
-        ("it.defined", it.defined, b, (n_it, n_keys)),
-        ("it.negative", it.negative, b, (n_it, n_keys)),
-        ("it.gt", it.gt, f32, (n_it, n_keys)), ("it.lt", it.lt, f32, (n_it, n_keys)),
-        ("vocab_ints", vocab_ints, f32, (n_keys, n_vocab)),
-        ("zone_ok", zone_ok, b, (n, n_zones)), ("ct_ok", ct_ok, b, (n, n_ct)),
-        ("it_avail", it_avail, b, (n_it, n_zones, n_ct)),
-        ("used", used, f32, (n, n_res)), ("size", size, f32, (n_res,)),
-        ("it_alloc", it_alloc, f32, (n_it, n_res)),
+        ("viable", viable, b, (n_b, n, n_it)), ("cls_it", cls_it, b, (n_b, n_it)),
+        ("merged.mask", merged.mask, i32, (n_b, n, n_keys, n_words)),
+        ("merged.defined", merged.defined, b, (n_b, n, n_keys)),
+        ("merged.negative", merged.negative, b, (n_b, n, n_keys)),
+        ("merged.gt", merged.gt, f32, (n_b, n, n_keys)),
+        ("merged.lt", merged.lt, f32, (n_b, n, n_keys)),
+        ("it.mask", it.mask, i32, (n_b, n_it, n_keys, n_words)),
+        ("it.defined", it.defined, b, (n_b, n_it, n_keys)),
+        ("it.negative", it.negative, b, (n_b, n_it, n_keys)),
+        ("it.gt", it.gt, f32, (n_b, n_it, n_keys)), ("it.lt", it.lt, f32, (n_b, n_it, n_keys)),
+        ("vocab_ints", vocab_ints, f32, (n_b, n_keys, n_vocab)),
+        ("zone_ok", zone_ok, b, (n_b, n, n_zones)), ("ct_ok", ct_ok, b, (n_b, n, n_ct)),
+        ("it_avail", it_avail, b, (n_b, n_it, n_zones, n_ct)),
+        ("used", used, f32, (n_b, n, n_res)), ("size", size, f32, (n_b, n_res)),
+        ("it_alloc", it_alloc, f32, (n_b, n_it, n_res)),
     ):
         build.check_input(name, t, dt, shape, dev)
     if mask_ops.words_for(v) != n_words:
         raise ValueError(f"mask width {n_words} words does not hold v={v} slots")
-    it_ok = torch.empty((n, n_it), dtype=b, device=dev)
-    cap_ni = torch.empty((n, n_it), dtype=i32, device=dev)
-    cap_n = torch.empty((n,), dtype=i32, device=dev)
+    it_ok = torch.empty((n_b, n, n_it), dtype=b, device=dev)
+    cap_ni = torch.empty((n_b, n, n_it), dtype=i32, device=dev)
+    cap_n = torch.empty((n_b, n), dtype=i32, device=dev)
     vw = mask_ops.const_words("vocab", v, dev)
     flags = _key_flags(key_has_bounds, dev)
     lib = build.load("it_capacity")
@@ -173,7 +187,7 @@ def it_capacity(viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
         it.mask, it.defined, it.negative, it.gt, it.lt, vw, vocab_ints, flags,
         zone_ok, ct_ok, it_avail, used, size, it_alloc, it_ok, cap_ni, cap_n,
     )]
-    rc = fn(n, n_it, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, n_res,
+    rc = fn(n_b, n, n_it, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, n_res,
             n_zones, n_ct, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "it_capacity")
     launches += 1

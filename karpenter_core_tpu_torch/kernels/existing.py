@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED, to_i32
 
 intake_launches = 0  # K5 launches (CUDA path only)
@@ -96,43 +96,60 @@ def existing_intake_plain(alloc, used, open_, key_ok, tol, zone, cls_zone, ct, c
     return cap, zone_full, ct_ok
 
 
+existing_intake_twin = batch.tenantwise(existing_intake_plain, lambda alloc, *_: alloc.dim() == 2)
+
+
 def existing_intake(alloc, used, open_, key_ok, tol, zone, cls_zone, ct, cls_ct,
                     ports, cls_ports, vol_limit, vol_used, vol_add, vol_per_pod,
                     requests, host_cap, host_ports: bool, volume_limits: bool):
     """K5 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (no fallback between them)."""
+    CUDA tensors (no fallback between them).  Every operand may carry a
+    leading tenant axis B (rows [B, E, ...], class vectors [B, ...]): one
+    launch covers every tenant."""
+    args = (alloc, used, open_, key_ok, tol, zone, cls_zone, ct, cls_ct, ports, cls_ports,
+            vol_limit, vol_used, vol_add, vol_per_pod, requests, host_cap, host_ports,
+            volume_limits)
+    if alloc.device.type != "cuda":
+        return existing_intake_twin(*args)
+    if alloc.dim() == 2:
+        return batch.drop_axis(_existing_intake_cuda(*batch.add_axis(args)))
+    return _existing_intake_cuda(*args)
+
+
+def _existing_intake_cuda(alloc, used, open_, key_ok, tol, zone, cls_zone, ct, cls_ct,
+                          ports, cls_ports, vol_limit, vol_used, vol_add, vol_per_pod,
+                          requests, host_cap, host_ports: bool, volume_limits: bool):
     global intake_launches
     dev = alloc.device
-    if dev.type != "cuda":
-        return existing_intake_plain(alloc, used, open_, key_ok, tol, zone, cls_zone, ct,
-                                     cls_ct, ports, cls_ports, vol_limit, vol_used, vol_add,
-                                     vol_per_pod, requests, host_cap, host_ports, volume_limits)
-    n, n_res = alloc.shape
-    n_zones, n_ct, n_ports, n_drivers = zone.shape[1], ct.shape[1], ports.shape[1], vol_used.shape[1]
+    n_b, n, n_res = alloc.shape
+    n_zones, n_ct, n_ports = zone.shape[2], ct.shape[2], ports.shape[2]
+    n_drivers = vol_used.shape[2]
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for name, t, dt, shape in (
-        ("alloc", alloc, f32, (n, n_res)), ("used", used, f32, (n, n_res)),
-        ("open_", open_, b, (n,)), ("key_ok", key_ok, b, (n,)), ("tol", tol, b, (n,)),
-        ("zone", zone, b, (n, n_zones)), ("cls_zone", cls_zone, b, (n_zones,)),
-        ("ct", ct, b, (n, n_ct)), ("cls_ct", cls_ct, b, (n_ct,)),
-        ("ports", ports, b, (n, n_ports)), ("cls_ports", cls_ports, b, (n_ports,)),
-        ("vol_limit", vol_limit, i32, (n, n_drivers)), ("vol_used", vol_used, i32, (n, n_drivers)),
-        ("vol_add", vol_add, i32, (n, n_drivers)), ("vol_per_pod", vol_per_pod, i32, (n_drivers,)),
-        ("requests", requests, f32, (n_res,)), ("host_cap", host_cap, i32, (n,)),
+        ("alloc", alloc, f32, (n_b, n, n_res)), ("used", used, f32, (n_b, n, n_res)),
+        ("open_", open_, b, (n_b, n)), ("key_ok", key_ok, b, (n_b, n)), ("tol", tol, b, (n_b, n)),
+        ("zone", zone, b, (n_b, n, n_zones)), ("cls_zone", cls_zone, b, (n_b, n_zones)),
+        ("ct", ct, b, (n_b, n, n_ct)), ("cls_ct", cls_ct, b, (n_b, n_ct)),
+        ("ports", ports, b, (n_b, n, n_ports)), ("cls_ports", cls_ports, b, (n_b, n_ports)),
+        ("vol_limit", vol_limit, i32, (n_b, n, n_drivers)),
+        ("vol_used", vol_used, i32, (n_b, n, n_drivers)),
+        ("vol_add", vol_add, i32, (n_b, n, n_drivers)),
+        ("vol_per_pod", vol_per_pod, i32, (n_b, n_drivers)),
+        ("requests", requests, f32, (n_b, n_res)), ("host_cap", host_cap, i32, (n_b, n)),
     ):
         build.check_input(name, t, dt, shape, dev)
-    cap = torch.empty((n,), dtype=i32, device=dev)
-    zone_full = torch.empty((n, n_zones), dtype=b, device=dev)
-    ct_ok = torch.empty((n, n_ct), dtype=b, device=dev)
+    cap = torch.empty((n_b, n), dtype=i32, device=dev)
+    zone_full = torch.empty((n_b, n, n_zones), dtype=b, device=dev)
+    ct_ok = torch.empty((n_b, n, n_ct), dtype=b, device=dev)
     fn = build.load("existing_intake").kc_existing_intake
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 21
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 21
     fn.restype = ctypes.c_int
     ptrs = [t.data_ptr() for t in (
         alloc, used, open_, key_ok, tol, zone, cls_zone, ct, cls_ct, ports, cls_ports,
         vol_limit, vol_used, vol_add, vol_per_pod, requests, host_cap, cap, zone_full, ct_ok,
     )]
-    rc = fn(n, n_res, n_zones, n_ct, n_ports, n_drivers, int(host_ports), int(volume_limits),
-            *ptrs, _stream(dev))
+    rc = fn(n_b, n, n_res, n_zones, n_ct, n_ports, n_drivers, int(host_ports),
+            int(volume_limits), *ptrs, _stream(dev))
     build.check(rc, "existing_intake")
     intake_launches += 1
     return cap, zone_full, ct_ok
@@ -158,31 +175,43 @@ def existing_mask_plain(prep_cap, zone, cls_zone, zone_restrict,
     return cap, priority, zone_ok
 
 
+existing_mask_twin = batch.tenantwise(
+    existing_mask_plain, lambda prep_cap, *_: prep_cap.dim() == 1)
+
+
 def existing_mask(prep_cap, zone, cls_zone, zone_restrict,
                   extra_elig: Optional[torch.Tensor], single_node: bool):
     """K6 wrapper, first entry point: the caps and index priorities of one
-    existing-node fill."""
+    existing-node fill.  Every operand may carry a leading tenant axis B."""
+    args = (prep_cap, zone, cls_zone, zone_restrict, extra_elig, single_node)
+    if prep_cap.device.type != "cuda":
+        return existing_mask_twin(*args)
+    if prep_cap.dim() == 1:
+        return batch.drop_axis(_existing_mask_cuda(*batch.add_axis(args)))
+    return _existing_mask_cuda(*args)
+
+
+def _existing_mask_cuda(prep_cap, zone, cls_zone, zone_restrict,
+                        extra_elig: Optional[torch.Tensor], single_node: bool):
     global phase_launches
     dev = prep_cap.device
-    if dev.type != "cuda":
-        return existing_mask_plain(prep_cap, zone, cls_zone, zone_restrict, extra_elig,
-                                   single_node)
-    n, n_zones = zone.shape
+    n_b, n, n_zones = zone.shape
     b, i32 = torch.bool, torch.int32
     for name, t, dt, shape in (
-        ("prep_cap", prep_cap, i32, (n,)), ("zone", zone, b, (n, n_zones)),
-        ("cls_zone", cls_zone, b, (n_zones,)), ("zone_restrict", zone_restrict, b, (n_zones,)),
+        ("prep_cap", prep_cap, i32, (n_b, n)), ("zone", zone, b, (n_b, n, n_zones)),
+        ("cls_zone", cls_zone, b, (n_b, n_zones)),
+        ("zone_restrict", zone_restrict, b, (n_b, n_zones)),
     ):
         build.check_input(name, t, dt, shape, dev)
     if extra_elig is not None:
-        build.check_input("extra_elig", extra_elig, b, (n,), dev)
-    cap = torch.empty((n,), dtype=i32, device=dev)
-    priority = torch.empty((n,), dtype=i32, device=dev)
-    zone_ok = torch.empty((n, n_zones), dtype=b, device=dev)
+        build.check_input("extra_elig", extra_elig, b, (n_b, n), dev)
+    cap = torch.empty((n_b, n), dtype=i32, device=dev)
+    priority = torch.empty((n_b, n), dtype=i32, device=dev)
+    zone_ok = torch.empty((n_b, n, n_zones), dtype=b, device=dev)
     fn = build.load("existing_phase").kc_existing_mask
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
-    rc = fn(n, n_zones, int(extra_elig is not None), int(single_node), prep_cap.data_ptr(),
+    rc = fn(n_b, n, n_zones, int(extra_elig is not None), int(single_node), prep_cap.data_ptr(),
             zone.data_ptr(), cls_zone.data_ptr(), zone_restrict.data_ptr(),
             extra_elig.data_ptr() if extra_elig is not None else 0, cap.data_ptr(),
             priority.data_ptr(), zone_ok.data_ptr(), _stream(dev))
@@ -216,48 +245,65 @@ def existing_commit_plain(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
     )
 
 
+existing_commit_twin = batch.tenantwise(existing_commit_plain, lambda ex, *_: ex.used.dim() == 2)
+
+
 def existing_commit(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
                     vol_per_pod, requests, assigned, host_ports: bool,
                     volume_limits: bool) -> ExistingState:
-    """K6 wrapper, second entry point: the state commit after a fill."""
+    """K6 wrapper, second entry point: the state commit after a fill.  Every
+    operand may carry a leading tenant axis B."""
+    args = (ex, merged, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
+            host_ports, volume_limits)
+    if ex.used.device.type != "cuda":
+        return existing_commit_twin(*args)
+    if ex.used.dim() == 2:
+        return batch.drop_axis(_existing_commit_cuda(*batch.add_axis(args)))
+    return _existing_commit_cuda(*args)
+
+
+def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
+                          vol_per_pod, requests, assigned, host_ports: bool,
+                          volume_limits: bool) -> ExistingState:
     global phase_launches
     dev = ex.used.device
-    if dev.type != "cuda":
-        return existing_commit_plain(ex, merged, zone_new, ct_ok, cls_ports, vol_add,
-                                     vol_per_pod, requests, assigned, host_ports, volume_limits)
-    n, n_res = ex.used.shape
-    _, n_keys, n_words = ex.kmask.shape
-    n_zones, n_ct, n_ports = ex.zone.shape[1], ex.ct.shape[1], ex.ports.shape[1]
-    n_drivers = ex.vol_used.shape[1]
+    n_b, n, n_res = ex.used.shape
+    _, _, n_keys, n_words = ex.kmask.shape
+    n_zones, n_ct, n_ports = ex.zone.shape[2], ex.ct.shape[2], ex.ports.shape[2]
+    n_drivers = ex.vol_used.shape[2]
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     shapes = {
-        "used": (f32, (n, n_res)), "kmask": (i32, (n, n_keys, n_words)),
-        "kdef": (b, (n, n_keys)), "kneg": (b, (n, n_keys)), "kgt": (f32, (n, n_keys)),
-        "klt": (f32, (n, n_keys)), "zone": (b, (n, n_zones)), "ct": (b, (n, n_ct)),
-        "ports": (b, (n, n_ports)), "vol_used": (i32, (n, n_drivers)), "pod_count": (i32, (n,)),
+        "used": (f32, (n_b, n, n_res)), "kmask": (i32, (n_b, n, n_keys, n_words)),
+        "kdef": (b, (n_b, n, n_keys)), "kneg": (b, (n_b, n, n_keys)),
+        "kgt": (f32, (n_b, n, n_keys)), "klt": (f32, (n_b, n, n_keys)),
+        "zone": (b, (n_b, n, n_zones)), "ct": (b, (n_b, n, n_ct)),
+        "ports": (b, (n_b, n, n_ports)), "vol_used": (i32, (n_b, n, n_drivers)),
+        "pod_count": (i32, (n_b, n)),
     }
     for name, (dt, shape) in shapes.items():
         build.check_input(name, getattr(ex, name), dt, shape, dev)
     for name, t, dt, shape in (
-        ("merged.mask", merged.mask, i32, (n, n_keys, n_words)),
-        ("merged.defined", merged.defined, b, (n, n_keys)),
-        ("merged.negative", merged.negative, b, (n, n_keys)),
-        ("merged.gt", merged.gt, f32, (n, n_keys)), ("merged.lt", merged.lt, f32, (n, n_keys)),
-        ("zone_new", zone_new, b, (n, n_zones)), ("ct_ok", ct_ok, b, (n, n_ct)),
-        ("cls_ports", cls_ports, b, (n_ports,)), ("vol_add", vol_add, i32, (n, n_drivers)),
-        ("vol_per_pod", vol_per_pod, i32, (n_drivers,)), ("requests", requests, f32, (n_res,)),
-        ("assigned", assigned, i32, (n,)),
+        ("merged.mask", merged.mask, i32, (n_b, n, n_keys, n_words)),
+        ("merged.defined", merged.defined, b, (n_b, n, n_keys)),
+        ("merged.negative", merged.negative, b, (n_b, n, n_keys)),
+        ("merged.gt", merged.gt, f32, (n_b, n, n_keys)),
+        ("merged.lt", merged.lt, f32, (n_b, n, n_keys)),
+        ("zone_new", zone_new, b, (n_b, n, n_zones)), ("ct_ok", ct_ok, b, (n_b, n, n_ct)),
+        ("cls_ports", cls_ports, b, (n_b, n_ports)),
+        ("vol_add", vol_add, i32, (n_b, n, n_drivers)),
+        ("vol_per_pod", vol_per_pod, i32, (n_b, n_drivers)),
+        ("requests", requests, f32, (n_b, n_res)), ("assigned", assigned, i32, (n_b, n)),
     ):
         build.check_input(name, t, dt, shape, dev)
     rows = [torch.empty(shape, dtype=dt, device=dev) for dt, shape in shapes.values()]
     fn = build.load("existing_phase").kc_existing_commit
-    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 35
+    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 35
     fn.restype = ctypes.c_int
     ptrs = [t.data_ptr() for t in (
         *ex[:-1], *merged, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
         *rows,
     )]
-    rc = fn(n, n_res, n_keys * n_words, n_keys, n_zones, n_ct, n_ports, n_drivers,
+    rc = fn(n_b, n, n_res, n_keys * n_words, n_keys, n_zones, n_ct, n_ports, n_drivers,
             int(host_ports), int(volume_limits), *ptrs, _stream(dev))
     build.check(rc, "existing_phase (commit)")
     phase_launches += 1

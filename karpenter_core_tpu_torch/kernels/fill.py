@@ -7,7 +7,8 @@ slots all share pod count 0, and ``jnp.argsort`` keeps their index order —
 and the cumsum stays int32 and wraps exactly as the reference's does.
 The CUDA source is ``csrc/fill_priority.cu``: one block up to
 ``kc_fill_priority_max_n()`` = 16,384 slots, a multi-block sort, scan and
-scatter above it (any N, as the reference takes).
+scatter above it (any N, as the reference takes); one block a tenant, or
+one segment of the sort a tenant, under a leading tenant axis.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import ctypes
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels import batch, build
 
 launches = 0  # kernel launches (CUDA path only)
 
@@ -31,33 +32,48 @@ def fill_by_priority_plain(quota: torch.Tensor, cap: torch.Tensor,
     return torch.zeros_like(cap).scatter(0, order, assigned_sorted)
 
 
+fill_by_priority_twin = batch.tenantwise(
+    fill_by_priority_plain, lambda quota, cap, priority: cap.dim() == 1)
+
+
 def fill_by_priority(quota: torch.Tensor, cap: torch.Tensor,
                      priority: torch.Tensor) -> torch.Tensor:
     """K2 wrapper: i32[N] pods per slot.  ``quota`` is a 0-dim int32 tensor
-    on the slots' device; the kernel reads it there (no host sync)."""
-    global launches
+    on the slots' device; the kernel reads it there (no host sync).  With a
+    leading tenant axis (``quota`` i32[B], ``cap`` / ``priority`` i32[B, N])
+    each tenant is filled on its own, in one launch."""
+    args = (quota, cap, priority)
     if cap.device.type != "cuda":
-        return fill_by_priority_plain(quota, cap, priority)
-    n = cap.shape[0]
-    for name, t, shape in (("quota", quota, ()), ("cap", cap, (n,)), ("priority", priority, (n,))):
+        return fill_by_priority_twin(*args)
+    if cap.dim() == 1:
+        return _fill_cuda(*batch.add_axis(args))[0]
+    return _fill_cuda(*args)
+
+
+def _fill_cuda(quota, cap, priority):
+    global launches
+    n_b, n = cap.shape
+    for name, t, shape in (("quota", quota, (n_b,)), ("cap", cap, (n_b, n)),
+                           ("priority", priority, (n_b, n))):
         build.check_input(name, t, torch.int32, shape, cap.device)
     lib = build.load("fill_priority")
     out = torch.empty_like(cap)
     stream = torch.cuda.current_stream(cap.device).cuda_stream
     if n <= lib.kc_fill_priority_max_n():
         fn = lib.kc_fill_priority
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
-        rc = fn(n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(), stream)
+        rc = fn(n_b, n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
+                stream)
     else:
         size = lib.kc_fill_priority_scratch_bytes
-        size.argtypes = [ctypes.c_int]
+        size.argtypes = [ctypes.c_int, ctypes.c_int]
         size.restype = ctypes.c_size_t
-        scratch = torch.empty(size(n), dtype=torch.uint8, device=cap.device)
+        scratch = torch.empty(size(n_b, n), dtype=torch.uint8, device=cap.device)
         fn = lib.kc_fill_priority_multi
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
-        rc = fn(n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
+        rc = fn(n_b, n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), stream)
     build.check(rc, "fill_priority")
     launches += 1

@@ -284,11 +284,13 @@ def _window_plan(n: int):
 
 
 def xla_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
-    """The float32 sum of f32[R, S] in XLA's CPU order: while an axis is
-    longer than 32, each window (32 along a long axis, the whole of a short
-    one) is summed row-major from +0; then the rest, row-major from +0.
-    (Where the sum starts with at most 8 columns and more than one row, XLA
-    vectorizes over the rows instead; that order is not reproduced.)"""
+    """The float32 sum of f32[R, S] in XLA's CPU order inside ``relax_core``:
+    while an axis is longer than 32, each window (32 along a long axis, the
+    whole of a short one) is summed row-major from +0; then the rest,
+    row-major from +0.  At S <= 8 columns too the fusion is one scalar
+    accumulator, row-major (the object code of ``jit_relax_core`` at S = 3
+    and 6); a standalone ``jnp.sum`` of the same expression vectorises over
+    the rows instead, but ``relax_core`` does not."""
     while v.shape[0] > WINDOW or v.shape[1] > WINDOW:
         (wr, nr, lr), (wc, nc, lc) = _window_plan(v.shape[0]), _window_plan(v.shape[1])
         vp = torch.zeros((nr * wr, nc * wc), dtype=F32, device=v.device)

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
 launches = 0  # kernel launches (CUDA path only)
@@ -27,50 +27,62 @@ def merge_compat_plain(node, cls, valid, vocab_ints, is_custom, v, key_has_bound
     return merged, compat
 
 
+merge_compat_twin = batch.tenantwise(merge_compat_plain, lambda node, *_: node.mask.dim() == 3)
+
+
 def merge_compat(node, cls, valid, vocab_ints, is_custom, v, key_has_bounds):
     """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors.  Every operand may carry a leading tenant axis B (rows
+    [B, N, K, W], the class row [B, 1, K, W], the vocabulary planes
+    [B, K, ...]): one launch covers every tenant."""
+    args = (node, cls, valid, vocab_ints, is_custom, v, key_has_bounds)
+    if node.mask.device.type != "cuda":
+        return merge_compat_twin(*args)
+    if node.mask.dim() == 3:
+        return batch.drop_axis(_merge_compat_cuda(*batch.add_axis(args)))
+    return _merge_compat_cuda(*args)
+
+
+def _merge_compat_cuda(node, cls, valid, vocab_ints, is_custom, v, key_has_bounds):
     global launches
     dev = node.mask.device
-    if dev.type != "cuda":
-        return merge_compat_plain(node, cls, valid, vocab_ints, is_custom, v, key_has_bounds)
-    n, n_keys, n_words = node.mask.shape
+    n_b, n, n_keys, n_words = node.mask.shape
     n_vocab = vocab_ints.shape[-1]
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     for name, t, dt, shape in (
-        ("node.mask", node.mask, i32, (n, n_keys, n_words)),
-        ("node.defined", node.defined, b, (n, n_keys)),
-        ("node.negative", node.negative, b, (n, n_keys)),
-        ("node.gt", node.gt, f32, (n, n_keys)), ("node.lt", node.lt, f32, (n, n_keys)),
-        ("cls.mask", cls.mask, i32, (1, n_keys, n_words)),
-        ("cls.defined", cls.defined, b, (1, n_keys)),
-        ("cls.negative", cls.negative, b, (1, n_keys)),
-        ("cls.gt", cls.gt, f32, (1, n_keys)), ("cls.lt", cls.lt, f32, (1, n_keys)),
-        ("valid", valid, i32, (n_keys, n_words)),
-        ("vocab_ints", vocab_ints, f32, (n_keys, n_vocab)),
-        ("is_custom", is_custom, b, (n_keys,)),
+        ("node.mask", node.mask, i32, (n_b, n, n_keys, n_words)),
+        ("node.defined", node.defined, b, (n_b, n, n_keys)),
+        ("node.negative", node.negative, b, (n_b, n, n_keys)),
+        ("node.gt", node.gt, f32, (n_b, n, n_keys)), ("node.lt", node.lt, f32, (n_b, n, n_keys)),
+        ("cls.mask", cls.mask, i32, (n_b, 1, n_keys, n_words)),
+        ("cls.defined", cls.defined, b, (n_b, 1, n_keys)),
+        ("cls.negative", cls.negative, b, (n_b, 1, n_keys)),
+        ("cls.gt", cls.gt, f32, (n_b, 1, n_keys)), ("cls.lt", cls.lt, f32, (n_b, 1, n_keys)),
+        ("valid", valid, i32, (n_b, n_keys, n_words)),
+        ("vocab_ints", vocab_ints, f32, (n_b, n_keys, n_vocab)),
+        ("is_custom", is_custom, b, (n_b, n_keys)),
     ):
         build.check_input(name, t, dt, shape, dev)
     if mask_ops.words_for(v) != n_words:
         raise ValueError(f"mask width {n_words} words does not hold v={v} slots")
     merged = mask_ops.ReqTensor(
-        torch.empty((n, n_keys, n_words), dtype=i32, device=dev),
-        torch.empty((n, n_keys), dtype=b, device=dev),
-        torch.empty((n, n_keys), dtype=b, device=dev),
-        torch.empty((n, n_keys), dtype=f32, device=dev),
-        torch.empty((n, n_keys), dtype=f32, device=dev),
+        torch.empty((n_b, n, n_keys, n_words), dtype=i32, device=dev),
+        torch.empty((n_b, n, n_keys), dtype=b, device=dev),
+        torch.empty((n_b, n, n_keys), dtype=b, device=dev),
+        torch.empty((n_b, n, n_keys), dtype=f32, device=dev),
+        torch.empty((n_b, n, n_keys), dtype=f32, device=dev),
     )
-    compat = torch.empty((n,), dtype=b, device=dev)
+    compat = torch.empty((n_b, n), dtype=b, device=dev)
     needs_bounds = int(any(key_has_bounds))
     lib = build.load("req_merge")
     fn = lib.kc_req_merge
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 21
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 21
     fn.restype = ctypes.c_int
     vw = mask_ops.const_words("vocab", v, dev)
     ptrs = [t.data_ptr() for t in (
         *node, *cls, valid, vw, vocab_ints, is_custom, *merged, compat,
     )]
-    rc = fn(n, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, needs_bounds,
+    rc = fn(n_b, n, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, needs_bounds,
             *ptrs, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "req_merge")
     launches += 1

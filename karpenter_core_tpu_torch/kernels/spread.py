@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import build
+from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.kernels.capacity import BIG, UNLIMITED, to_i32
 
 BIGI = UNLIMITED  # the reference's BIGI, the count of a zone that bounds nothing
@@ -96,32 +96,44 @@ def spread_quota_plain(counts, allowed, fillable, cap_pods, skew, m, member):
     return quotas, sat, m_rem, fill_residual
 
 
+spread_quota_twin = batch.tenantwise(spread_quota_plain, lambda counts, *_: counts.dim() == 1)
+
+
 def spread_quota(counts, allowed, fillable, cap_pods, skew, m, member):
     """K7 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (no fallback between them)."""
+    CUDA tensors (no fallback between them).  With a leading tenant axis
+    (``counts`` i32[B, Z], ``skew`` / ``m`` / ``member`` [B]) each tenant
+    runs its own rounds, in one launch."""
+    args = (counts, allowed, fillable, cap_pods, skew, m, member)
+    if counts.device.type != "cuda":
+        return spread_quota_twin(*args)
+    if counts.dim() == 1:
+        return batch.drop_axis(_spread_quota_cuda(*batch.add_axis(args)))
+    return _spread_quota_cuda(*args)
+
+
+def _spread_quota_cuda(counts, allowed, fillable, cap_pods, skew, m, member):
     global launches
     dev = counts.device
-    if dev.type != "cuda":
-        return spread_quota_plain(counts, allowed, fillable, cap_pods, skew, m, member)
-    n_zones = counts.shape[0]
+    n_b, n_zones = counts.shape
     b, i32 = torch.bool, torch.int32
     for name, t, dt, shape in (
-        ("counts", counts, i32, (n_zones,)), ("allowed", allowed, b, (n_zones,)),
-        ("fillable", fillable, b, (n_zones,)), ("cap_pods", cap_pods, i32, (n_zones,)),
-        ("skew", skew, i32, ()), ("m", m, i32, ()), ("member", member, b, ()),
+        ("counts", counts, i32, (n_b, n_zones)), ("allowed", allowed, b, (n_b, n_zones)),
+        ("fillable", fillable, b, (n_b, n_zones)), ("cap_pods", cap_pods, i32, (n_b, n_zones)),
+        ("skew", skew, i32, (n_b,)), ("m", m, i32, (n_b,)), ("member", member, b, (n_b,)),
     ):
         build.check_input(name, t, dt, shape, dev)
     lib = build.load("spread_quota")
     if n_zones > lib.kc_spread_quota_max_zones():
         raise ValueError(f"spread_quota takes at most {lib.kc_spread_quota_max_zones()} zones")
-    quotas = torch.empty((n_zones,), dtype=i32, device=dev)
-    sat = torch.empty((n_zones,), dtype=b, device=dev)
-    m_rem = torch.empty((), dtype=i32, device=dev)
-    residual = torch.empty((), dtype=b, device=dev)
+    quotas = torch.empty((n_b, n_zones), dtype=i32, device=dev)
+    sat = torch.empty((n_b, n_zones), dtype=b, device=dev)
+    m_rem = torch.empty((n_b,), dtype=i32, device=dev)
+    residual = torch.empty((n_b,), dtype=b, device=dev)
     fn = lib.kc_spread_quota
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
     fn.restype = ctypes.c_int
-    rc = fn(n_zones, *(t.data_ptr() for t in (
+    rc = fn(n_b, n_zones, *(t.data_ptr() for t in (
         counts, allowed, fillable, cap_pods, skew, m, member, quotas, sat, m_rem, residual,
     )), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "spread_quota")

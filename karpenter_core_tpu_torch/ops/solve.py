@@ -35,7 +35,16 @@ wrappers run the twins anyway.
 
 Where the reference runs ``lax.scan`` over classes and ``lax.cond`` around
 each class and phase, this runs a Python loop with explicit skips; each skip
-decision reads one device scalar on the host (``host_syncs`` counts them).
+decision is one host read (``host_syncs`` counts them).
+
+Every plane carries a leading tenant axis B: ``solve_core_batched`` is the
+reference's ``jax.vmap`` of the solve body (the coalesced multi-tenant
+solve, ``utils/compilecache.batched_solve_callable``), and ``solve_core`` is
+its B = 1 case.  A skip reads the [B] predicates at once: the class or
+phase runs when some tenant needs it, for all of them, and the others keep
+their carry (``_select``, vmap's select of a batched ``lax.cond``).  Each
+kernel launch covers every tenant, so launches and host reads do not grow
+with B.
 
 Every integer plane is int32 exactly where the reference's is (JAX's default
 with x64 off; torch would default to int64): sums pass ``dtype=torch.int32``
@@ -59,6 +68,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from karpenter_core_tpu_torch.kernels import batch
 from karpenter_core_tpu_torch.kernels import capacity as k1
 from karpenter_core_tpu_torch.kernels import classfinish as k15
 from karpenter_core_tpu_torch.kernels import existing as k56
@@ -218,9 +228,10 @@ KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_
                   k56.existing_intake, k56.existing_mask, k56.existing_commit,
                   k7.spread_quota, k1012.repair_free, k1012.gather_window,
                   k1012.scatter_window)
-PLAIN = Kernels(k1.it_capacity_plain, k2.fill_by_priority_plain,
-                k3.merge_compat_plain, k4.pack_bool_plain, k56.existing_intake_plain,
-                k56.existing_mask_plain, k56.existing_commit_plain, k7.spread_quota_plain,
+# the twins of the scan's kernels take the tenant axis as their wrappers do
+PLAIN = Kernels(k1.it_capacity_twin, k2.fill_by_priority_twin,
+                k3.merge_compat_twin, k4.pack_bool_plain, k56.existing_intake_twin,
+                k56.existing_mask_twin, k56.existing_commit_twin, k7.spread_quota_twin,
                 k1012.repair_free_plain, k1012.gather_window_plain,
                 k1012.scatter_window_plain)
 
@@ -305,6 +316,8 @@ class ExClassPrep(NamedTuple):
 
 
 # -- small helpers ------------------------------------------------------------
+# Every plane of the scan carries a leading tenant axis B (a solo solve is
+# B = 1): a per-tenant scalar is a [B] vector, a per-node plane [B, N, ...].
 
 
 def _isum(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -323,27 +336,65 @@ def _i32c(cond: torch.Tensor, a: int, b: int) -> torch.Tensor:
     return torch.where(cond, a, b).to(I32)
 
 
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """A per-tenant [B] vector as a [B, 1] column, broadcast along a row."""
+    return x[:, None]
+
+
 def _argmax_first(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True (0 when none) — ``jnp.argmax`` of a bool."""
-    return torch.argmax(mask.to(torch.uint8))
+    """Index of the first True along the last axis (0 when none) —
+    ``jnp.argmax`` of a bool."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
-# ``x[idx]`` for a 0-dim index tensor, gathered on the device.  Plain
-# indexing with a 0-dim integer tensor reads the index on the host
-# (``.item()``), a hidden synchronisation per use.
-_take = k7._take
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]`` for every tenant b: one gather on the device.  (Plain
+    indexing with a 0-dim integer tensor reads the index on the host, a
+    hidden synchronisation per use.)"""
+    at = idx.long().view((-1, 1) + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, at.expand((-1, 1) + tuple(x.shape[2:]))).squeeze(1)
 
 
-def _sync_positive(x: torch.Tensor) -> bool:
-    """Host read of ``x > 0``: the port's ``lax.cond`` predicate."""
+def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, n]]``: per-tenant rows of ``x`` [B, T, ...] named by
+    ``idx`` [B, N], as [B, N, ...] (one gather)."""
+    at = idx.long().view(tuple(idx.shape) + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, at.expand(tuple(idx.shape) + tuple(x.shape[2:])))
+
+
+def _add_row(x: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]] += delta[b]`` for every tenant (the reference's
+    ``.at[t].add``): one add per tenant, every other row untouched."""
+    at = idx.long()[:, None, None].expand(-1, 1, x.shape[-1])
+    return x.scatter_add(1, at, delta[:, None, :])
+
+
+def _sync_positive(x: torch.Tensor):
+    """Host read of ``x > 0`` for every tenant (one read of a [B] vector):
+    the port's ``lax.cond`` predicate, batched as vmap batches it.  Returns
+    (any tenant, every tenant, the device mask)."""
     global host_syncs
     host_syncs += 1
-    return bool(x > 0)
+    on = x > 0
+    on_host = on.cpu().numpy()
+    return bool(on_host.any()), bool(on_host.all()), on
+
+
+def _select(on: torch.Tensor, new, old):
+    """Per tenant, ``new`` where ``on[b]`` else ``old``, leaf for leaf over
+    nested tuples: vmap's select for a ``lax.cond`` whose predicate differs
+    between tenants (no kernel writes a tensor it was given, so ``old`` is
+    intact)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(on.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+    parts = [_select(on, a, b) for a, b in zip(new, old)]
+    return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
 
 
 def _cls_req(cls) -> mask_ops.ReqTensor:
     return mask_ops.ReqTensor(
-        cls.mask[None], cls.defined[None], cls.negative[None], cls.gt[None], cls.lt[None]
+        cls.mask[:, None], cls.defined[:, None], cls.negative[:, None], cls.gt[:, None],
+        cls.lt[:, None],
     )
 
 
@@ -364,10 +415,10 @@ def _it_cap(statics: Statics, viable, cls, merged, zone_ok, ct_ok, used):
     )
 
 
-def _onehot_rows(n: int, n_zones: int, z: int, device) -> torch.Tensor:
-    """bool[n, Z] with only column z set: a single-zone restriction."""
-    out = torch.zeros((n, n_zones), dtype=torch.bool, device=device)
-    out[:, z] = True
+def _onehot_rows(n_b: int, n: int, n_zones: int, z: int, device) -> torch.Tensor:
+    """bool[B, n, Z] with only column z set: a single-zone restriction."""
+    out = torch.zeros((n_b, n, n_zones), dtype=torch.bool, device=device)
+    out[..., z] = True
     return out
 
 
@@ -376,11 +427,12 @@ def _fill_with_pref(k: Kernels, quota, cap, priority, pref):
     the quota first, capped at their freed counts."""
     if pref is None:
         return k.fill(quota, cap, priority)
-    idx = _ar(cap.shape[0], cap.device)
+    idx = _ar(cap.shape[-1], cap.device)
     hole_cap = torch.minimum(cap, pref)
     a0 = k.fill(quota, hole_cap, torch.where(hole_cap > 0, idx, INT32_MAX))
     cap_rest = cap - a0
-    a1 = k.fill(quota - _isum(a0), cap_rest, torch.where(cap_rest > 0, priority, INT32_MAX))
+    a1 = k.fill(quota - _isum(a0, dim=-1), cap_rest,
+                torch.where(cap_rest > 0, priority, INT32_MAX))
     return a0 + a1
 
 
@@ -427,7 +479,7 @@ def _phase_existing(ex, prep, cls, quota, zone_restrict, k: Kernels, extra_elig=
     cap, priority, zone_ok = k.existing_mask(prep.cap, ex.zone, cls.zone, zone_restrict,
                                              extra_elig, single_node)
     assigned = _fill_with_pref(k, quota, cap, priority, pref)
-    placed = _isum(assigned)
+    placed = _isum(assigned, dim=-1)
     return _commit_existing(k, ex, prep, cls, assigned, zone_ok, ft), assigned, placed
 
 
@@ -436,17 +488,17 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
            ft=ALL_FEATURES, pref=None):
     """Place up to ``quota`` pods of the class on slots whose zone mask meets
     ``zone_restrict`` — open slots first (emptiest first), then fresh slots
-    from the first viable template.  Returns (state, assigned[N], placed,
+    from the first viable template.  Returns (state, assigned[B, N], placed,
     remaining)."""
     k = statics.k
-    n_slots = state.used.shape[0]
+    n_slots = state.used.shape[1]
     dev = state.used.device
 
     node_t = mask_ops.ReqTensor(state.kmask, state.kdef, state.kneg, state.kgt, state.klt)
     merged, key_ok = _merge_compat(node_t, cls, statics)
-    zone_ok = state.zone & zone_restrict[None, :] & cls.zone[None, :]  # [N, Z]
-    ct_ok = state.ct & cls.ct[None, :]  # [N, CT]
-    tol_ok = cls.tol[state.tmpl_id.long()]  # [N]
+    zone_ok = state.zone & zone_restrict[:, None, :] & cls.zone[:, None, :]  # [B, N, Z]
+    ct_ok = state.ct & cls.ct[:, None, :]  # [B, N, CT]
+    tol_ok = torch.gather(cls.tol, 1, state.tmpl_id.long())  # [B, N]
 
     it_ok, cap_ni, cap_n = _it_cap(statics, state.viable, cls, merged, zone_ok, ct_ok, state.used)
 
@@ -455,14 +507,14 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
         elig = elig & extra_elig
     has_ports = None
     if ft.host_ports:
-        has_ports = cls.ports.any()
-        port_conflict = (state.ports & cls.ports[None, :]).any(dim=-1)
+        has_ports = cls.ports.any(dim=-1)
+        port_conflict = (state.ports & cls.ports[:, None, :]).any(dim=-1)
         elig = elig & ~port_conflict
-        cap_n = torch.minimum(cap_n, _i32c(has_ports, 1, UNLIMITED))
+        cap_n = torch.minimum(cap_n, _col(_i32c(has_ports, 1, UNLIMITED)))
     cap_n = torch.where(elig, torch.minimum(cap_n, host_cap_vec), 0)
     if max_new_nodes is not None and max_new_nodes == 1:
         first = _argmax_first(cap_n > 0)
-        cap_n = torch.where(_ar(n_slots, dev) == first, cap_n, 0)
+        cap_n = torch.where(_ar(n_slots, dev)[None, :] == _col(first), cap_n, 0)
 
     # emptiest first (pod count, then slot index), packed into int32 exactly
     # as the reference packs it — the product wraps the same way if it ever
@@ -470,10 +522,10 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     priority = state.pod_count * n_slots + _ar(n_slots, dev)
     priority = torch.where(cap_n > 0, priority, INT32_MAX)
     assigned = _fill_with_pref(k, quota, cap_n, priority, pref)
-    placed_existing = _isum(assigned)
+    placed_existing = _isum(assigned, dim=-1)
 
-    sel = (assigned > 0)[:, None]
-    used = state.used + assigned[:, None].to(F32) * cls.requests[None, :]
+    sel = (assigned > 0)[..., None]
+    used = state.used + assigned[..., None].to(F32) * cls.requests[:, None, :]
     kmask = torch.where(sel[..., None], merged.mask, state.kmask)
     kdef = torch.where(sel, merged.defined, state.kdef)
     kneg = torch.where(sel, merged.negative, state.kneg)
@@ -481,9 +533,9 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     klt = torch.where(sel, merged.lt, state.klt)
     new_zone = torch.where(sel, zone_ok, state.zone)
     new_ct = torch.where(sel, ct_ok, state.ct)
-    viable = torch.where(sel, it_ok & (cap_ni >= assigned[:, None]), state.viable)
+    viable = torch.where(sel, it_ok & (cap_ni >= assigned[..., None]), state.viable)
     ports_plane = (
-        torch.where(sel, state.ports | cls.ports[None, :], state.ports)
+        torch.where(sel, state.ports | cls.ports[:, None, :], state.ports)
         if ft.host_ports else state.ports
     )
     pod_count = state.pod_count + assigned
@@ -491,19 +543,19 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     # -- open fresh nodes (scheduler.go:192-217) ------------------------------
     rem = quota - placed_existing
     tmpl_merged, tmpl_key_ok = _merge_compat(statics.tmpl, cls, statics)
-    t_zone = statics.tmpl_zone & zone_restrict[None, :] & cls.zone[None, :]  # [T, Z]
-    t_ct = statics.tmpl_ct & cls.ct[None, :]
+    t_zone = statics.tmpl_zone & zone_restrict[:, None, :] & cls.zone[:, None, :]  # [B, T, Z]
+    t_ct = statics.tmpl_ct & cls.ct[:, None, :]
     # provisioner limits: drop types whose launch would breach the remaining
     # budget (scheduler.go:292-309)
     within_limits = (
-        statics.it_capacity[None, :, :] <= remaining[:, None, :] + 1e-4
-    ).all(dim=-1)  # [T, I]
+        statics.it_capacity[:, None, :, :] <= remaining[:, :, None, :] + 1e-4
+    ).all(dim=-1)  # [B, T, I]
     t_it_ok, t_cap_ti, t_cap = _it_cap(
         statics, statics.tmpl_it & within_limits, cls, tmpl_merged, t_zone, t_ct,
         statics.tmpl_daemon,
     )
     t_viable = cls.tol & tmpl_key_ok & t_zone.any(dim=-1) & t_ct.any(dim=-1) & (t_cap > 0)
-    t_star = _argmax_first(t_viable)
+    t_star = _argmax_first(t_viable)  # [B]
     t_ok = _take(t_viable, t_star)
 
     per_node = torch.minimum(_take(t_cap, t_star), fresh_host_cap)
@@ -517,15 +569,15 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     # provisioner-limit budget: each opened node pessimistically consumes the
     # largest surviving instance type (scheduler.go:273-290 subtractMax)
     max_cap_star = torch.where(
-        _take(t_it_ok, t_star)[:, None], statics.it_capacity, 0.0
-    ).amax(dim=0)  # [R]
+        _take(t_it_ok, t_star)[..., None], statics.it_capacity, 0.0
+    ).amax(dim=1)  # [B, R]
     rem_star = _take(remaining, t_star)
     budget_per_r = torch.where(
         torch.isfinite(rem_star) & (max_cap_star > 0),
         torch.floor((rem_star + 1e-4) / torch.clamp(max_cap_star, min=1e-9)),
         BIG,
     )
-    budget_nodes = to_i32(torch.clamp(budget_per_r.amin(), min=0.0))
+    budget_nodes = to_i32(torch.clamp(budget_per_r.amin(dim=-1), min=0.0))
     n_new = torch.minimum(n_new, budget_nodes)
     if max_new_nodes is not None:
         # once the class bootstrapped onto an open slot, no fresh node
@@ -533,76 +585,81 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
             placed_existing > 0, 0, torch.clamp(n_new, max=max_new_nodes)
         ).to(I32)
 
-    slot_idx = _ar(n_slots, dev)
-    is_new = (slot_idx >= state.n_next) & (slot_idx < state.n_next + n_new)
-    rank = slot_idx - state.n_next
+    slot_idx = _ar(n_slots, dev)[None, :]
+    n_next0 = _col(state.n_next)
+    is_new = (slot_idx >= n_next0) & (slot_idx < n_next0 + _col(n_new))
+    rank = slot_idx - n_next0
     a_new = torch.where(
-        is_new, torch.minimum(torch.clamp(rem - rank * per_node, min=0), per_node), 0
+        is_new,
+        torch.minimum(torch.clamp(_col(rem) - rank * _col(per_node), min=0), _col(per_node)), 0,
     )
-    placed_new = _isum(a_new)
+    placed_new = _isum(a_new, dim=-1)
 
-    seln = is_new[:, None]
+    seln = is_new[..., None]
     used = torch.where(
         seln,
-        _take(statics.tmpl_daemon, t_star)[None, :] + a_new[:, None].to(F32) * cls.requests[None, :],
+        _take(statics.tmpl_daemon, t_star)[:, None, :]
+        + a_new[..., None].to(F32) * cls.requests[:, None, :],
         used,
     )
-    kmask = torch.where(seln[..., None], _take(tmpl_merged.mask, t_star)[None], kmask)
-    kdef = torch.where(seln, _take(tmpl_merged.defined, t_star)[None], kdef)
-    kneg = torch.where(seln, _take(tmpl_merged.negative, t_star)[None], kneg)
-    kgt = torch.where(seln, _take(tmpl_merged.gt, t_star)[None], kgt)
-    klt = torch.where(seln, _take(tmpl_merged.lt, t_star)[None], klt)
-    new_zone = torch.where(seln, _take(t_zone, t_star)[None, :], new_zone)
-    new_ct = torch.where(seln, _take(t_ct, t_star)[None, :], new_ct)
-    fresh_viable = _take(t_it_ok, t_star)[None, :] & (_take(t_cap_ti, t_star)[None, :] >= a_new[:, None])
+    kmask = torch.where(seln[..., None], _take(tmpl_merged.mask, t_star)[:, None], kmask)
+    kdef = torch.where(seln, _take(tmpl_merged.defined, t_star)[:, None], kdef)
+    kneg = torch.where(seln, _take(tmpl_merged.negative, t_star)[:, None], kneg)
+    kgt = torch.where(seln, _take(tmpl_merged.gt, t_star)[:, None], kgt)
+    klt = torch.where(seln, _take(tmpl_merged.lt, t_star)[:, None], klt)
+    new_zone = torch.where(seln, _take(t_zone, t_star)[:, None, :], new_zone)
+    new_ct = torch.where(seln, _take(t_ct, t_star)[:, None, :], new_ct)
+    fresh_viable = _take(t_it_ok, t_star)[:, None, :] & (
+        _take(t_cap_ti, t_star)[:, None, :] >= a_new[..., None])
     viable = torch.where(seln, fresh_viable, viable)
     if ft.host_ports:
-        ports_plane = torch.where(seln, (a_new > 0)[:, None] & cls.ports[None, :], ports_plane)
+        ports_plane = torch.where(seln, (a_new > 0)[..., None] & cls.ports[:, None, :],
+                                  ports_plane)
     pod_count = torch.where(is_new, a_new, pod_count)
-    tmpl_id = torch.where(is_new, t_star.to(I32), state.tmpl_id)
+    tmpl_id = torch.where(is_new, _col(t_star.to(I32)), state.tmpl_id)
     open_ = state.open_ | is_new
     n_next = state.n_next + n_new
 
-    remaining = remaining.index_add(
-        0, t_star.reshape(1), (-n_new.to(F32) * max_cap_star)[None, :]
-    )
+    remaining = _add_row(remaining, t_star, _col(-n_new.to(F32)) * max_cap_star)
     new_state = NodeState(used, kmask, kdef, kneg, kgt, klt, new_zone, new_ct, viable,
                           ports_plane, pod_count, tmpl_id, open_, n_next)
     return new_state, assigned + a_new, placed_existing + placed_new, remaining
 
 
 def _zone_counts(counts: torch.Tensor, zone_i: torch.Tensor) -> torch.Tensor:
-    """i32[G1, Z] = einsum("gn,nz->gz") of int32 planes, as an int32
+    """i32[B, G1, Z] = einsum("bgn,bnz->bgz") of int32 planes, as an int32
     broadcast-multiply-sum (CUDA has no int32 matmul)."""
-    return _isum(counts[:, :, None] * zone_i[None, :, :], dim=1)
+    return _isum(counts[..., None] * zone_i[:, None, :, :], dim=2)
 
 
 def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry,
                 cls, cls_index: int, features: SnapshotFeatures = ALL_FEATURES, pref=None,
                 topo_base=None):
-    """One class step: schedule every pod of one class — existing nodes
-    first, then new slots, phase by phase — and record topology counts.
-    ``features`` prunes phase families the snapshot cannot exercise."""
+    """One class step for every tenant: schedule every pod of one class —
+    existing nodes first, then new slots, phase by phase — and record
+    topology counts.  ``features`` prunes phase families the snapshot cannot
+    exercise.  A phase runs when some tenant has a quota for it; tenants
+    without one keep their carry (``_select``)."""
     ft = features
     k = statics.k
     state, ex, topo, remaining = carry
     dev = state.used.device
     pref_new = pref[0] if pref is not None else None
     pref_ex = pref[1] if pref is not None else None
-    m = cls.count
-    n_ex = ex.pod_count.shape[0]
-    n_new_slots = state.pod_count.shape[0]
-    g1 = statics.grp_skew.shape[0]
+    m = cls.count  # [B]
+    n_b, n_ex = ex.pod_count.shape
+    n_new_slots = state.pod_count.shape[1]
+    g1 = statics.grp_skew.shape[-1]
     g_dummy = g1 - 1
 
-    g_zs, g_hs, g_zaf, g_haf, g_zan, g_han = (cls.groups[i].long() for i in range(6))
-    member_row = statics.grp_member[cls_index]  # [G1]
-    tol_row = ex_static.tol[cls_index]  # [E]
-    vol_add_row = ex_static.cls_vol_add[cls_index]  # [E, D]
-    vol_per_pod_row = ex_static.cls_vol_per_pod[cls_index]  # [D]
+    g_zs, g_hs, g_zaf, g_haf, g_zan, g_han = (cls.groups[:, i].long() for i in range(6))
+    member_row = statics.grp_member[:, cls_index]  # [B, G1]
+    tol_row = ex_static.tol[:, cls_index].contiguous()  # [B, E]
+    vol_add_row = ex_static.cls_vol_add[:, cls_index].contiguous()  # [B, E, D]
+    vol_per_pod_row = ex_static.cls_vol_per_pod[:, cls_index].contiguous()  # [B, D]
 
     def own_onehot(g):
-        return (torch.arange(g1, device=dev) == g) & (g < g_dummy)
+        return (torch.arange(g1, device=dev)[None, :] == _col(g)) & _col(g < g_dummy)
 
     has_zs = g_zs < g_dummy
     has_zaf = g_zaf < g_dummy
@@ -613,15 +670,15 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
     # (singleton-mask) nodes, anti groups every zone a node could still be in
     any_zone_groups = ft.zone_spread or ft.zone_affinity or ft.zone_anti
     if any_zone_groups or ft.inv_zone_anti:
-        ex_zone_i = ex.zone.to(I32) * ex.open_.to(I32)[:, None]
-        new_zone_i = state.zone.to(I32) * state.open_.to(I32)[:, None]
+        ex_zone_i = ex.zone.to(I32) * ex.open_.to(I32)[..., None]
+        new_zone_i = state.zone.to(I32) * state.open_.to(I32)[..., None]
     zone_fwd = None
     if any_zone_groups:
-        ex_sing_zone = torch.where(_isum(ex_zone_i, dim=-1)[:, None] == 1, ex_zone_i, 0)
-        new_sing_zone = torch.where(_isum(new_zone_i, dim=-1)[:, None] == 1, new_zone_i, 0)
+        ex_sing_zone = torch.where(_isum(ex_zone_i, dim=-1)[..., None] == 1, ex_zone_i, 0)
+        new_sing_zone = torch.where(_isum(new_zone_i, dim=-1)[..., None] == 1, new_zone_i, 0)
         zone_fwd_sing = _zone_counts(topo.fwd_ex, ex_sing_zone) + _zone_counts(
             topo.fwd_new, new_sing_zone
-        )  # [G1, Z]
+        )  # [B, G1, Z]
         if topo_base is not None:
             zone_fwd_sing = zone_fwd_sing + topo_base[0]
         if ft.zone_anti:
@@ -630,7 +687,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             )
             if topo_base is not None:
                 zone_fwd_full = zone_fwd_full + topo_base[1]
-            zone_fwd = torch.where(statics.grp_is_anti[:, None], zone_fwd_full, zone_fwd_sing)
+            zone_fwd = torch.where(statics.grp_is_anti[..., None], zone_fwd_full, zone_fwd_sing)
         else:
             zone_fwd = zone_fwd_sing
 
@@ -642,14 +699,14 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         if topo_base is not None:
             zone_inv_full = zone_inv_full + topo_base[2]
         mem_anti_zone = member_row & statics.grp_is_anti & statics.grp_is_zone
-        blocked_z = (mem_anti_zone[:, None] & (zone_inv_full > 0)).any(dim=0)  # [Z]
+        blocked_z = (mem_anti_zone[..., None] & (zone_inv_full > 0)).any(dim=1)  # [B, Z]
         allowed_zone = cls.zone & ~blocked_z
     else:
         allowed_zone = cls.zone
     if ft.inv_host_anti:
         mem_anti_host = member_row & statics.grp_is_anti & ~statics.grp_is_zone
-        ok_ex = ~(mem_anti_host[:, None] & (topo.inv_ex > 0)).any(dim=0)  # [E]
-        ok_new = ~(mem_anti_host[:, None] & (topo.inv_new > 0)).any(dim=0)  # [N]
+        ok_ex = ~(mem_anti_host[..., None] & (topo.inv_ex > 0)).any(dim=1)  # [B, E]
+        ok_new = ~(mem_anti_host[..., None] & (topo.inv_new > 0)).any(dim=1)  # [B, N]
     else:
         ok_ex = None
         ok_new = None
@@ -662,12 +719,12 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         hs_fwd_ex = _take(topo.fwd_ex, g_hs)
         hs_fwd_new = _take(topo.fwd_new, g_hs)
         cap_parts_ex.append(torch.where(
-            member_hs, torch.clamp(skew_hs - hs_fwd_ex, min=0),
-            _i32c(hs_fwd_ex <= skew_hs, UNLIMITED, 0),
+            _col(member_hs), torch.clamp(_col(skew_hs) - hs_fwd_ex, min=0),
+            _i32c(hs_fwd_ex <= _col(skew_hs), UNLIMITED, 0),
         ))
         cap_parts_new.append(torch.where(
-            member_hs, torch.clamp(skew_hs - hs_fwd_new, min=0),
-            _i32c(hs_fwd_new <= skew_hs, UNLIMITED, 0),
+            _col(member_hs), torch.clamp(_col(skew_hs) - hs_fwd_new, min=0),
+            _i32c(hs_fwd_new <= _col(skew_hs), UNLIMITED, 0),
         ))
         fresh_parts.append(torch.where(member_hs, skew_hs, UNLIMITED).to(I32))
     if ft.host_anti:
@@ -675,13 +732,12 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         han_fwd_new = _take(topo.fwd_new, g_han)
         member_han = _take(member_row, g_han)
         own_han = g_han < g_dummy
+        member_cap = _col(_i32c(member_han, 1, UNLIMITED))
         cap_parts_ex.append(torch.where(
-            own_han, torch.where(han_fwd_ex == 0, _i32c(member_han, 1, UNLIMITED), 0),
-            UNLIMITED,
+            _col(own_han), torch.where(han_fwd_ex == 0, member_cap, 0), UNLIMITED,
         ).to(I32))
         cap_parts_new.append(torch.where(
-            own_han, torch.where(han_fwd_new == 0, _i32c(member_han, 1, UNLIMITED), 0),
-            UNLIMITED,
+            _col(own_han), torch.where(han_fwd_new == 0, member_cap, 0), UNLIMITED,
         ).to(I32))
         fresh_parts.append(_i32c(own_han & member_han, 1, UNLIMITED))
     if cap_parts_ex:
@@ -689,16 +745,16 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         host_cap_new = functools.reduce(torch.minimum, cap_parts_new).to(I32)
         fresh_host_cap = functools.reduce(torch.minimum, fresh_parts).to(I32)
     else:
-        host_cap_ex = torch.full((n_ex,), UNLIMITED, dtype=I32, device=dev)
-        host_cap_new = torch.full((n_new_slots,), UNLIMITED, dtype=I32, device=dev)
-        fresh_host_cap = torch.full((), UNLIMITED, dtype=I32, device=dev)
+        host_cap_ex = torch.full((n_b, n_ex), UNLIMITED, dtype=I32, device=dev)
+        host_cap_new = torch.full((n_b, n_new_slots), UNLIMITED, dtype=I32, device=dev)
+        fresh_host_cap = torch.full((n_b,), UNLIMITED, dtype=I32, device=dev)
 
     ex_prep = _prep_existing(ex, ex_static, cls, statics, host_cap_ex, tol_row,
                              vol_add_row, vol_per_pod_row, ft)
 
-    zeros_new = torch.zeros(n_new_slots, dtype=I32, device=dev)
-    zeros_ex = torch.zeros(n_ex, dtype=I32, device=dev)
-    zero = torch.zeros((), dtype=I32, device=dev)
+    zeros_new = torch.zeros((n_b, n_new_slots), dtype=I32, device=dev)
+    zeros_ex = torch.zeros((n_b, n_ex), dtype=I32, device=dev)
+    zero = torch.zeros(n_b, dtype=I32, device=dev)
     totals = {"new": zeros_new, "ex": zeros_ex, "placed": zero}
 
     def accumulate(results):
@@ -708,12 +764,17 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         totals["ex"] = totals["ex"] + assigned_ex
         totals["placed"] = totals["placed"] + placed
 
+    def skipped():
+        return state, ex, zeros_new, zeros_ex, zero, remaining
+
     def run_phase(quota, restrict, targets_ex=None, targets_new=None, single_node=False,
                   max_new_nodes=None):
-        """One placement phase; a zero quota skips it (the reference's
-        ``lax.cond(quota > 0)``)."""
-        if not _sync_positive(quota):
-            return state, ex, zeros_new, zeros_ex, zero, remaining
+        """One placement phase; it runs when some tenant's quota is positive
+        (the reference's ``lax.cond(quota > 0)``) and the others keep their
+        carry."""
+        any_on, all_on, on = _sync_positive(quota)
+        if not any_on:
+            return skipped()
         extra_ex = _and_opt(ok_ex, targets_ex)
         extra_new = _and_opt(ok_new, targets_new)
         ex_o, a_ex, placed_ex = _phase_existing(
@@ -727,76 +788,79 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             state, cls, statics, q_new, restrict, host_cap_new, fresh_host_cap, remaining,
             extra_elig=extra_new, max_new_nodes=max_new_nodes, ft=ft, pref=pref_new,
         )
-        return state_o, ex_o, a_new, a_ex, placed_ex + placed_new, rem_o
+        out = (state_o, ex_o, a_new, a_ex, placed_ex + placed_new, rem_o)
+        return out if all_on else _select(on, out, skipped())
 
     def committal_block(quota_z, cap_total):
         """All zone-committal phases of one family (zone spread quotas /
         required zonal anti) in one sweep: the merge/compat prep is shared,
         and shared-slot conflicts resolve by zone order (a slot that takes
         pods in zone z commits to z and leaves every later zone)."""
-        if not _sync_positive(_isum(quota_z)):
-            return state, ex, zeros_new, zeros_ex, zero, remaining
+        any_on, all_on, on = _sync_positive(_isum(quota_z, dim=-1))
+        if not any_on:
+            return skipped()
         state_i, ex_i, rem = state, ex, remaining
         node_t = mask_ops.ReqTensor(state_i.kmask, state_i.kdef, state_i.kneg,
                                     state_i.kgt, state_i.klt)
         merged, key_ok = _merge_compat(node_t, cls, statics)
-        ct_ok = state_i.ct & cls.ct[None, :]
-        tol_ok = cls.tol[state_i.tmpl_id.long()]
+        ct_ok = state_i.ct & cls.ct[:, None, :]
+        tol_ok = torch.gather(cls.tol, 1, state_i.tmpl_id.long())
         elig = state_i.open_ & key_ok & tol_ok & ct_ok.any(dim=-1)
         if ok_new is not None:
             elig = elig & ok_new
         has_ports = None
         if ft.host_ports:
-            has_ports = cls.ports.any()
-            port_conflict = (state_i.ports & cls.ports[None, :]).any(dim=-1)
+            has_ports = cls.ports.any(dim=-1)
+            port_conflict = (state_i.ports & cls.ports[:, None, :]).any(dim=-1)
             elig = elig & ~port_conflict
-        zone_has_new = state_i.zone & cls.zone[None, :]  # [N, Z]
+        zone_has_new = state_i.zone & cls.zone[:, None, :]  # [B, N, Z]
         cap_open_z, viable_z, capm_z = [], [], []
         for z in range(n_zones):
             # K1 with the zone restricted to z: it_ok is the reference's
             # ok_z = it_base & (offering in zone z); cap_z its row max
             ok_z, capm, cap_z = _it_cap(
                 statics, state_i.viable, cls, merged,
-                _onehot_rows(n_new_slots, n_zones, z, dev), ct_ok, state_i.used,
+                _onehot_rows(n_b, n_new_slots, n_zones, z, dev), ct_ok, state_i.used,
             )
             viable_z.append(ok_z)
             capm_z.append(capm)
             if ft.host_ports:
-                cap_z = torch.minimum(cap_z, _i32c(has_ports, 1, UNLIMITED))
-            cap_z = torch.where(elig & zone_has_new[:, z], torch.minimum(cap_z, host_cap_new), 0)
+                cap_z = torch.minimum(cap_z, _col(_i32c(has_ports, 1, UNLIMITED)))
+            cap_z = torch.where(elig & zone_has_new[..., z], torch.minimum(cap_z, host_cap_new), 0)
             cap_open_z.append(cap_z)
         priority = state_i.pod_count * n_new_slots + _ar(n_new_slots, dev)
         tmpl_merged, tmpl_key_ok = _merge_compat(statics.tmpl, cls, statics)
-        t_ct = statics.tmpl_ct & cls.ct[None, :]
+        t_ct = statics.tmpl_ct & cls.ct[:, None, :]
         t_ct_any = t_ct.any(dim=-1)
-        t_zone_cls = statics.tmpl_zone & cls.zone[None, :]  # [T, Z]
-        n_tmpl = statics.tmpl_zone.shape[0]
+        t_zone_cls = statics.tmpl_zone & cls.zone[:, None, :]  # [B, T, Z]
+        n_tmpl = statics.tmpl_zone.shape[1]
 
-        taken_ex = torch.zeros(n_ex, dtype=torch.bool, device=dev)
+        taken_ex = torch.zeros((n_b, n_ex), dtype=torch.bool, device=dev)
         zone_onehot = torch.eye(n_zones, dtype=torch.bool, device=dev)
         a_ex_acc = zeros_ex
         zex = zeros_ex
-        taken_new = torch.zeros(n_new_slots, dtype=torch.bool, device=dev)
+        taken_new = torch.zeros((n_b, n_new_slots), dtype=torch.bool, device=dev)
         a_open_acc = zeros_new
         zopen = zeros_new
-        fresh_t = torch.full((n_new_slots,), -1, dtype=I32, device=dev)
+        fresh_t = torch.full((n_b, n_new_slots), -1, dtype=I32, device=dev)
         fresh_a = zeros_new
         fresh_z = zeros_new
         fresh_viable = torch.zeros_like(state_i.viable)
         n_next = state_i.n_next
         placed = zero
-        slot_idx = _ar(n_new_slots, dev)
+        slot_idx = _ar(n_new_slots, dev)[None, :]
         for z in range(n_zones):
-            quota = quota_z[z].to(I32)
+            quota = quota_z[:, z].to(I32)
             q = torch.clamp(torch.minimum(quota, cap_total - placed), min=0)
             # existing nodes first, in index order (scheduler.go:176-180);
             # rows that took pods in an earlier zone are out
             cap_e, pri_e, _ = k.existing_mask(
-                ex_prep.cap, ex_i.zone, cls.zone, zone_onehot[z],
+                ex_prep.cap, ex_i.zone, cls.zone,
+                zone_onehot[z].expand(n_b, n_zones).contiguous(),
                 ~taken_ex if ok_ex is None else ~taken_ex & ok_ex, False,
             )
             a_ex = _fill_with_pref(k, q, cap_e, pri_e, pref_ex)
-            placed_ex = _isum(a_ex)
+            placed_ex = _isum(a_ex, dim=-1)
             took_e = a_ex > 0
             taken_ex = taken_ex | took_e
             a_ex_acc = a_ex_acc + a_ex
@@ -806,7 +870,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             cap_n = torch.where(~taken_new, cap_open_z[z], 0)
             pri_n = torch.where(cap_n > 0, priority, INT32_MAX)
             a_op = _fill_with_pref(k, q2, cap_n, pri_n, pref_new)
-            placed_op = _isum(a_op)
+            placed_op = _isum(a_op, dim=-1)
             took_n = a_op > 0
             taken_new = taken_new | took_n
             a_open_acc = a_open_acc + a_op
@@ -814,13 +878,13 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             # then fresh slots from the first viable template for the zone
             rem_pods = q2 - placed_op
             within = (
-                statics.it_capacity[None, :, :] <= rem[:, None, :] + 1e-4
+                statics.it_capacity[:, None, :, :] <= rem[:, :, None, :] + 1e-4
             ).all(dim=-1)
             t_it_ok, t_cap_ti, t_cap = _it_cap(
                 statics, statics.tmpl_it & within, cls, tmpl_merged,
-                _onehot_rows(n_tmpl, n_zones, z, dev), t_ct, statics.tmpl_daemon,
+                _onehot_rows(n_b, n_tmpl, n_zones, z, dev), t_ct, statics.tmpl_daemon,
             )
-            t_viable = cls.tol & tmpl_key_ok & t_zone_cls[:, z] & t_ct_any & (t_cap > 0)
+            t_viable = cls.tol & tmpl_key_ok & t_zone_cls[..., z] & t_ct_any & (t_cap > 0)
             t_star = _argmax_first(t_viable)
             t_ok = _take(t_viable, t_star)
             per_node = torch.minimum(_take(t_cap, t_star), fresh_host_cap)
@@ -832,73 +896,80 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             ).to(I32)
             n_new = torch.minimum(n_new, n_new_slots - n_next)
             max_cap_star = torch.where(
-                _take(t_it_ok, t_star)[:, None], statics.it_capacity, 0.0
-            ).amax(dim=0)
+                _take(t_it_ok, t_star)[..., None], statics.it_capacity, 0.0
+            ).amax(dim=1)
             rem_star = _take(rem, t_star)
             budget_per_r = torch.where(
                 torch.isfinite(rem_star) & (max_cap_star > 0),
                 torch.floor((rem_star + 1e-4) / torch.clamp(max_cap_star, min=1e-9)),
                 BIG,
             )
-            budget_nodes = to_i32(torch.clamp(budget_per_r.amin(), min=0.0))
+            budget_nodes = to_i32(torch.clamp(budget_per_r.amin(dim=-1), min=0.0))
             n_new = torch.minimum(n_new, budget_nodes)
-            is_new = (slot_idx >= n_next) & (slot_idx < n_next + n_new)
+            is_new = (slot_idx >= _col(n_next)) & (slot_idx < _col(n_next + n_new))
             a_fr = torch.where(
                 is_new,
-                torch.minimum(torch.clamp(rem_pods - (slot_idx - n_next) * per_node, min=0), per_node),
+                torch.minimum(
+                    torch.clamp(_col(rem_pods) - (slot_idx - _col(n_next)) * _col(per_node),
+                                min=0),
+                    _col(per_node)),
                 0,
             )
-            fresh_t = torch.where(is_new, t_star.to(I32), fresh_t)
+            fresh_t = torch.where(is_new, _col(t_star.to(I32)), fresh_t)
             fresh_a = fresh_a + a_fr
             fresh_z = torch.where(is_new, z, fresh_z).to(I32)
-            fv_row = _take(t_it_ok, t_star)[None, :] & (_take(t_cap_ti, t_star)[None, :] >= a_fr[:, None])
-            fresh_viable = torch.where(is_new[:, None], fv_row, fresh_viable)
-            rem = rem.index_add(0, t_star.reshape(1), (-n_new.to(F32) * max_cap_star)[None, :])
+            fv_row = _take(t_it_ok, t_star)[:, None, :] & (
+                _take(t_cap_ti, t_star)[:, None, :] >= a_fr[..., None])
+            fresh_viable = torch.where(is_new[..., None], fv_row, fresh_viable)
+            rem = _add_row(rem, t_star, _col(-n_new.to(F32)) * max_cap_star)
             n_next = n_next + n_new
-            placed = placed + placed_ex + placed_op + _isum(a_fr)
+            placed = placed + placed_ex + placed_op + _isum(a_fr, dim=-1)
 
         # -- one-shot commit (each node took pods in at most one zone) --------
         zar = torch.arange(n_zones, device=dev)
-        zhot_e = (zar[None, :] == zex[:, None]) & (a_ex_acc > 0)[:, None]
+        zhot_e = (zar == zex[..., None]) & (a_ex_acc > 0)[..., None]
         ex_o = _commit_existing(k, ex_i, ex_prep, cls, a_ex_acc, zhot_e, ft)
         took_o = a_open_acc > 0
         is_fresh = fresh_t >= 0
         tmpl_idx = torch.clamp(fresh_t, min=0).long()
-        sel_o = took_o[:, None]
-        sel_f = is_fresh[:, None]
-        zhot_o = (zar[None, :] == zopen[:, None]) & sel_o
-        zhot_f = (zar[None, :] == fresh_z[:, None]) & sel_f
-        used = state_i.used + a_open_acc[:, None].to(F32) * cls.requests[None, :]
+        sel_o = took_o[..., None]
+        sel_f = is_fresh[..., None]
+        zhot_o = (zar == zopen[..., None]) & sel_o
+        zhot_f = (zar == fresh_z[..., None]) & sel_f
+        used = state_i.used + a_open_acc[..., None].to(F32) * cls.requests[:, None, :]
         used = torch.where(
-            sel_f, statics.tmpl_daemon[tmpl_idx] + fresh_a[:, None].to(F32) * cls.requests[None, :],
+            sel_f,
+            _rows_at(statics.tmpl_daemon, tmpl_idx)
+            + fresh_a[..., None].to(F32) * cls.requests[:, None, :],
             used,
         )
         kmask = torch.where(sel_o[..., None], merged.mask, state_i.kmask)
-        kmask = torch.where(sel_f[..., None], tmpl_merged.mask[tmpl_idx], kmask)
+        kmask = torch.where(sel_f[..., None], _rows_at(tmpl_merged.mask, tmpl_idx), kmask)
         kdef = torch.where(sel_o, merged.defined, state_i.kdef)
-        kdef = torch.where(sel_f, tmpl_merged.defined[tmpl_idx], kdef)
+        kdef = torch.where(sel_f, _rows_at(tmpl_merged.defined, tmpl_idx), kdef)
         kneg = torch.where(sel_o, merged.negative, state_i.kneg)
-        kneg = torch.where(sel_f, tmpl_merged.negative[tmpl_idx], kneg)
+        kneg = torch.where(sel_f, _rows_at(tmpl_merged.negative, tmpl_idx), kneg)
         kgt = torch.where(sel_o, merged.gt, state_i.kgt)
-        kgt = torch.where(sel_f, tmpl_merged.gt[tmpl_idx], kgt)
+        kgt = torch.where(sel_f, _rows_at(tmpl_merged.gt, tmpl_idx), kgt)
         klt = torch.where(sel_o, merged.lt, state_i.klt)
-        klt = torch.where(sel_f, tmpl_merged.lt[tmpl_idx], klt)
+        klt = torch.where(sel_f, _rows_at(tmpl_merged.lt, tmpl_idx), klt)
         zone = torch.where(sel_o, zhot_o, state_i.zone)
         zone = torch.where(sel_f, zhot_f, zone)
         ct = torch.where(sel_o, ct_ok, state_i.ct)
-        ct = torch.where(sel_f, t_ct[tmpl_idx], ct)
+        ct = torch.where(sel_f, _rows_at(t_ct, tmpl_idx), ct)
         # the reference's v_open & (cap_ni >= a) — the zone's masked capacity
         # equals cap_ni wherever v_open holds
         v_open, c_open = viable_z[0], capm_z[0]
         for z in range(1, n_zones):
-            at_z = (zopen == z)[:, None]
+            at_z = (zopen == z)[..., None]
             v_open = torch.where(at_z, viable_z[z], v_open)
             c_open = torch.where(at_z, capm_z[z], c_open)
-        viable = torch.where(sel_o, v_open & (c_open >= a_open_acc[:, None]), state_i.viable)
+        viable = torch.where(sel_o, v_open & (c_open >= a_open_acc[..., None]), state_i.viable)
         viable = torch.where(sel_f, fresh_viable, viable)
         if ft.host_ports:
-            ports_pl = torch.where(sel_o, state_i.ports | cls.ports[None, :], state_i.ports)
-            ports_pl = torch.where(sel_f, (fresh_a > 0)[:, None] & cls.ports[None, :], ports_pl)
+            ports_pl = torch.where(sel_o, state_i.ports | cls.ports[:, None, :], state_i.ports)
+            ports_pl = torch.where(sel_f, (fresh_a > 0)[..., None] & cls.ports[:, None, :],
+                                   ports_pl)
         else:
             ports_pl = state_i.ports
         pod_count = state_i.pod_count + a_open_acc
@@ -906,60 +977,64 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         tmpl_id = torch.where(is_fresh, tmpl_idx.to(I32), state_i.tmpl_id)
         state_o = NodeState(used, kmask, kdef, kneg, kgt, klt, zone, ct, viable, ports_pl,
                             pod_count, tmpl_id, state_i.open_ | is_fresh, n_next)
-        return state_o, ex_o, a_open_acc + fresh_a, a_ex_acc, placed, rem
+        out = (state_o, ex_o, a_open_acc + fresh_a, a_ex_acc, placed, rem)
+        return out if all_on else _select(on, out, skipped())
 
     # zones some template can serve for this class, or where an eligible
     # existing node with intake left sits
     if ft.zone_spread or ft.zone_affinity:
         offers = (
-            statics.tmpl_it[:, :, None, None]
-            & (statics.it_avail & cls.it[:, None, None])[None]
-            & statics.tmpl_zone[:, None, :, None]
-            & (statics.tmpl_ct & cls.ct[None, :])[:, None, None, :]
-        )  # [T, I, Z, CT]
-        tmpl_offers = offers.any(dim=3).any(dim=1).any(dim=0)  # [Z]
+            statics.tmpl_it[:, :, :, None, None]
+            & (statics.it_avail & cls.it[:, :, None, None])[:, None]
+            & statics.tmpl_zone[:, :, None, :, None]
+            & (statics.tmpl_ct & cls.ct[:, None, :])[:, :, None, None, :]
+        )  # [B, T, I, Z, CT]
+        tmpl_offers = offers.any(dim=4).any(dim=2).any(dim=1)  # [B, Z]
         ex_cap_spread = ex_prep.cap if ok_ex is None else torch.where(ok_ex, ex_prep.cap, 0)
         ex_cap_z = _isum(
-            torch.minimum(ex_cap_spread, m)[:, None] * ex_prep.zone_full.to(I32), dim=0
-        )  # i32[Z]
+            torch.minimum(ex_cap_spread, _col(m))[..., None] * ex_prep.zone_full.to(I32), dim=1
+        )  # i32[B, Z]
         fillable = tmpl_offers | (ex_cap_z > 0)
 
     # -- zone spread phases ---------------------------------------------------
-    spread_suspect = torch.zeros((), dtype=torch.bool, device=dev)
+    spread_suspect = torch.zeros(n_b, dtype=torch.bool, device=dev)
     if ft.zone_spread:
-        counts_zs = _take(zone_fwd, g_zs)  # [Z]
+        counts_zs = _take(zone_fwd, g_zs)  # [B, Z]
         member_zs = _take(member_row, g_zs)
-        cap_pods_z = torch.where(tmpl_offers, UNLIMITED, torch.clamp(ex_cap_z, max=UNLIMITED)).to(I32)
+        cap_pods_z = torch.where(tmpl_offers, UNLIMITED,
+                                 torch.clamp(ex_cap_z, max=UNLIMITED)).to(I32)
         skew_zs = _take(statics.grp_skew, g_zs)
         # K7: the capped water-fill rounds, the member gate and the
         # under-placement flag (the reference's :1440-1475)
         quotas, _, _, fill_residual = k.spread_quota(
             counts_zs, allowed_zone, fillable, cap_pods_z, skew_zs, m, member_zs,
         )
-        quotas_gated = torch.where(has_zs, quotas, 0)
-        results_zs = committal_block(quotas_gated, torch.full((), UNLIMITED, dtype=I32, device=dev))
+        quotas_gated = torch.where(_col(has_zs), quotas, 0)
+        results_zs = committal_block(quotas_gated,
+                                     torch.full((n_b,), UNLIMITED, dtype=I32, device=dev))
         placed_zs = results_zs[4]
         accumulate(results_zs)
-        quota_shortfall = placed_zs < _isum(quotas)
+        quota_shortfall = placed_zs < _isum(quotas, dim=-1)
         spread_suspect = has_zs & member_zs & (fill_residual | quota_shortfall)
 
         # non-self-selecting zone spread: a static admissible-zone mask
-        min_zs = torch.where(cls.zone, counts_zs, 1 << 30).amin()
-        admissible_zs = allowed_zone & (counts_zs - min_zs <= _take(statics.grp_skew, g_zs))
-        q_nm = torch.where(has_zs & ~member_zs & admissible_zs.any(), m, 0).to(I32)
+        min_zs = torch.where(cls.zone, counts_zs, 1 << 30).amin(dim=-1)
+        admissible_zs = allowed_zone & (counts_zs - _col(min_zs) <= _col(skew_zs))
+        q_nm = torch.where(has_zs & ~member_zs & admissible_zs.any(dim=-1), m, 0).to(I32)
         accumulate(run_phase(q_nm, admissible_zs))
 
     # -- owned zone anti-affinity: zero-forward-count zones only --------------
     if ft.zone_anti:
         zero_zones = allowed_zone & (_take(zone_fwd, g_zan) == 0)
         anti_member = _take(member_row, g_zan)
-        anti_required = has_zan & anti_member & ~cls.anti_soft[0]
+        anti_required = has_zan & anti_member & ~cls.anti_soft[:, 0]
         if ft.required_zone_anti:
-            anti_quota_z = (anti_required & zero_zones).to(I32)
+            anti_quota_z = (_col(anti_required) & zero_zones).to(I32)
             accumulate(committal_block(anti_quota_z, m))
         anti_quota = torch.where(
-            has_zan & zero_zones.any(),
-            torch.where(anti_member, torch.where(cls.anti_soft[0], torch.clamp(m, max=1), 0), m),
+            has_zan & zero_zones.any(dim=-1),
+            torch.where(anti_member, torch.where(cls.anti_soft[:, 0], torch.clamp(m, max=1), 0),
+                        m),
             0,
         ).to(I32)
         accumulate(run_phase(anti_quota, zero_zones))
@@ -968,26 +1043,26 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
     if ft.zone_affinity:
         bootstrap_allowed = allowed_zone & fillable
         nonzero_zones = allowed_zone & (_take(zone_fwd, g_zaf) > 0)
-        bootstrap_zone = torch.zeros(n_zones, dtype=torch.bool, device=dev).index_put(
-            (_argmax_first(bootstrap_allowed).reshape(1),),
-            (bootstrap_allowed.any() & _take(member_row, g_zaf)).reshape(1),
-        )
-        zone_aff_restrict = torch.where(nonzero_zones.any(), nonzero_zones, bootstrap_zone)
+        bootstrap_zone = (
+            torch.arange(n_zones, device=dev)[None, :] == _col(_argmax_first(bootstrap_allowed))
+        ) & _col(bootstrap_allowed.any(dim=-1) & _take(member_row, g_zaf))
+        zone_aff_restrict = torch.where(_col(nonzero_zones.any(dim=-1)), nonzero_zones,
+                                        bootstrap_zone)
         zone_aff_quota = torch.where(
-            has_zaf & ~has_haf & zone_aff_restrict.any(), m, 0
+            has_zaf & ~has_haf & zone_aff_restrict.any(dim=-1), m, 0
         ).to(I32)
         accumulate(run_phase(zone_aff_quota, zone_aff_restrict))
 
     # -- hostname affinity: fill target nodes; else bootstrap exactly one node
-    all_zones = torch.ones(n_zones, dtype=torch.bool, device=dev)
+    all_zones = torch.ones((n_b, n_zones), dtype=torch.bool, device=dev)
     if ft.host_affinity:
         if ft.zone_affinity:
-            host_restrict = torch.where(has_zaf, zone_aff_restrict, all_zones) & allowed_zone
+            host_restrict = torch.where(_col(has_zaf), zone_aff_restrict, all_zones) & allowed_zone
         else:
             host_restrict = all_zones & allowed_zone
         targets_ex = (_take(topo.fwd_ex, g_haf) > 0) & ex.open_
         targets_new = (_take(topo.fwd_new, g_haf) > 0) & state.open_
-        targets_exist = targets_ex.any() | targets_new.any()
+        targets_exist = targets_ex.any(dim=-1) | targets_new.any(dim=-1)
         host_quota = torch.where(has_haf, m, 0).to(I32)
         q_targets = torch.where(targets_exist, host_quota, 0).to(I32)
         accumulate(run_phase(q_targets, host_restrict, targets_ex=targets_ex,
@@ -1005,14 +1080,14 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         a_ex_f = totals["ex"]
         a_new_f = totals["new"]
         member_i = member_row.to(I32)
-        own_zan_inv = torch.where(cls.anti_soft[0], 0, own_onehot(g_zan).to(I32)).to(I32)
-        own_han_inv = torch.where(cls.anti_soft[1], 0, own_onehot(g_han).to(I32)).to(I32)
+        own_zan_inv = torch.where(_col(cls.anti_soft[:, 0]), 0, own_onehot(g_zan).to(I32)).to(I32)
+        own_han_inv = torch.where(_col(cls.anti_soft[:, 1]), 0, own_onehot(g_han).to(I32)).to(I32)
         own_inv = own_zan_inv + own_han_inv
         topo = TopoCounts(
-            fwd_ex=topo.fwd_ex + member_i[:, None] * a_ex_f[None, :],
-            inv_ex=topo.inv_ex + own_inv[:, None] * a_ex_f[None, :],
-            fwd_new=topo.fwd_new + member_i[:, None] * a_new_f[None, :],
-            inv_new=topo.inv_new + own_inv[:, None] * a_new_f[None, :],
+            fwd_ex=topo.fwd_ex + member_i[..., None] * a_ex_f[:, None, :],
+            inv_ex=topo.inv_ex + own_inv[..., None] * a_ex_f[:, None, :],
+            fwd_new=topo.fwd_new + member_i[..., None] * a_new_f[:, None, :],
+            inv_new=topo.inv_new + own_inv[..., None] * a_new_f[:, None, :],
         )
 
     failed = m - totals["placed"]
@@ -1049,7 +1124,45 @@ def solve_core(
     the delta pods.  ``existing_static`` defaults to the empty planes.
     ``repair_plan`` (warm path only) threads the freed-hole preferences into
     every fill and the out-of-window bases into the zone derivations.
-    Nothing given is written into."""
+    Nothing given is written into.
+
+    This is ``solve_core_batched`` at one tenant: every leaf gains a leading
+    axis of 1 on the way in and loses it on the way out."""
+    out = solve_core_batched(
+        batch.add_axis(class_tensors), batch.add_axis(statics_arrays), n_slots, key_has_bounds,
+        batch.add_axis(existing_state), batch.add_axis(existing_static), n_passes=n_passes,
+        features=features, use_kernels=use_kernels, warm_carry=batch.add_axis(warm_carry),
+        repair_plan=batch.add_axis(repair_plan),
+    )
+    return batch.drop_axis(out)
+
+
+def solve_core_batched(
+    class_tensors: ClassTensors,
+    statics_arrays: StaticArrays,
+    n_slots: int,
+    key_has_bounds,
+    existing_state: Optional[ExistingState] = None,
+    existing_static: Optional[ExistingStatic] = None,
+    n_passes: int = 1,
+    features: Optional[SnapshotFeatures] = None,
+    use_kernels: bool = True,
+    warm_carry: Optional[WarmCarry] = None,
+    repair_plan: Optional[RepairPlan] = None,
+) -> SolveOutputs:
+    """``solve_core`` over B tenants at once: every leaf of every argument
+    (and of the outputs) carries a leading tenant axis B, the reference's
+    ``jax.vmap`` of the solve body (``utils/compilecache.py:638
+    batched_solve_callable``).  The tenants share one shape bucket (shapes,
+    ``n_slots``, ``key_has_bounds``, ``n_passes``, ``features``), never
+    values: each reads its own catalog, templates and vocabulary.
+
+    Every kernel launch covers all B tenants.  Where the reference skips a
+    class or a phase with ``lax.cond``, which vmap turns into a select, one
+    host read of the [B] predicates decides: the step is skipped when no
+    tenant needs it, else it runs for all and a tenant that did not need it
+    keeps its carry.  Launches and host reads are a solo solve's, whatever
+    B is, and each tenant's outputs equal its solo solve."""
     ft = (ALL_FEATURES if features is None else SnapshotFeatures(*features)).canonical()
     sa = StaticArrays(*statics_arrays)
     width = sa.valid.shape[-1]  # semantic slot count V+1, pre-packing
@@ -1061,7 +1174,7 @@ def solve_core(
     class_tensors = class_tensors._replace(mask=mask_ops.pack_mask(class_tensors.mask))
     statics = Statics(*sa, key_has_bounds=tuple(key_has_bounds), mask_v=width,
                       k=KERNELS if use_kernels else PLAIN)
-    n_classes = class_tensors.count.shape[0]
+    n_b, n_classes = class_tensors.count.shape
     n_ports = class_tensors.ports.shape[-1] if n_classes else 1
 
     if warm_carry is not None:
@@ -1069,20 +1182,25 @@ def solve_core(
         state = NodeState(*wc.state)
         existing_state = wc.ex_state
         if existing_static is None:
-            existing_static = empty_existing_static(
-                statics.it_alloc.shape[-1], n_classes, statics.grp_skew.shape[0],
-                device=sa.it_alloc.device)
+            existing_static = _tenants(empty_existing_static(
+                statics.it_alloc.shape[-1], n_classes, statics.grp_skew.shape[-1],
+                device=sa.it_alloc.device), n_b)
         topo = TopoCounts(*wc.topo)
         remaining0 = wc.remaining
     else:
         state, existing_state, existing_static, topo, remaining0 = _cold_carry(
-            statics, n_slots, width, n_ports, existing_state, existing_static, n_classes)
+            statics, n_b, n_slots, width, n_ports, existing_state, existing_static, n_classes)
     return _scan(class_tensors, statics, existing_static, ft, n_passes,
                  (state, existing_state, topo, remaining0), repair_plan)
 
 
-def _cold_carry(statics: Statics, n_slots: int, width: int, n_ports: int, existing_state,
-                existing_static, n_classes: int):
+def _tenants(tree, n_b: int):
+    """Every leaf repeated over a leading tenant axis of ``n_b``."""
+    return batch.tree_map(lambda t: t.unsqueeze(0).expand((n_b,) + t.shape).contiguous(), tree)
+
+
+def _cold_carry(statics: Statics, n_b: int, n_slots: int, width: int, n_ports: int,
+                existing_state, existing_static, n_classes: int):
     """The cold solve's initial carry: empty slots, the existing nodes'
     topology seeding (topology.go:231-276) and the budget charge of open
     owned nodes."""
@@ -1090,51 +1208,51 @@ def _cold_carry(statics: Statics, n_slots: int, width: int, n_ports: int, existi
     n_zones = statics.tmpl_zone.shape[-1]
     n_res = statics.it_alloc.shape[-1]
     n_keys = statics.it.defined.shape[-1]
-    n_it = statics.it_alloc.shape[0]
+    n_it = statics.it_alloc.shape[1]
     n_ct = statics.tmpl_ct.shape[-1]
-    g1 = statics.grp_skew.shape[0]
+    g1 = statics.grp_skew.shape[-1]
     kmask0 = mask_ops.const_words("full", width, dev).expand(
-        n_slots, n_keys, mask_ops.words_for(width)
+        n_b, n_slots, n_keys, mask_ops.words_for(width)
     ).contiguous()
     state = NodeState(
-        used=torch.zeros((n_slots, n_res), dtype=F32, device=dev),
+        used=torch.zeros((n_b, n_slots, n_res), dtype=F32, device=dev),
         kmask=kmask0,
-        kdef=torch.zeros((n_slots, n_keys), dtype=torch.bool, device=dev),
-        kneg=torch.zeros((n_slots, n_keys), dtype=torch.bool, device=dev),
-        kgt=torch.full((n_slots, n_keys), -np.inf, dtype=F32, device=dev),
-        klt=torch.full((n_slots, n_keys), np.inf, dtype=F32, device=dev),
-        zone=torch.ones((n_slots, n_zones), dtype=torch.bool, device=dev),
-        ct=torch.ones((n_slots, n_ct), dtype=torch.bool, device=dev),
-        viable=torch.ones((n_slots, n_it), dtype=torch.bool, device=dev),
-        ports=torch.zeros((n_slots, n_ports), dtype=torch.bool, device=dev),
-        pod_count=torch.zeros(n_slots, dtype=I32, device=dev),
-        tmpl_id=torch.zeros(n_slots, dtype=I32, device=dev),
-        open_=torch.zeros(n_slots, dtype=torch.bool, device=dev),
-        n_next=torch.zeros((), dtype=I32, device=dev),
+        kdef=torch.zeros((n_b, n_slots, n_keys), dtype=torch.bool, device=dev),
+        kneg=torch.zeros((n_b, n_slots, n_keys), dtype=torch.bool, device=dev),
+        kgt=torch.full((n_b, n_slots, n_keys), -np.inf, dtype=F32, device=dev),
+        klt=torch.full((n_b, n_slots, n_keys), np.inf, dtype=F32, device=dev),
+        zone=torch.ones((n_b, n_slots, n_zones), dtype=torch.bool, device=dev),
+        ct=torch.ones((n_b, n_slots, n_ct), dtype=torch.bool, device=dev),
+        viable=torch.ones((n_b, n_slots, n_it), dtype=torch.bool, device=dev),
+        ports=torch.zeros((n_b, n_slots, n_ports), dtype=torch.bool, device=dev),
+        pod_count=torch.zeros((n_b, n_slots), dtype=I32, device=dev),
+        tmpl_id=torch.zeros((n_b, n_slots), dtype=I32, device=dev),
+        open_=torch.zeros((n_b, n_slots), dtype=torch.bool, device=dev),
+        n_next=torch.zeros(n_b, dtype=I32, device=dev),
     )
     if existing_state is None:
-        existing_state = empty_existing_state(n_res, n_keys, width, n_zones, n_ct, n_ports,
-                                              device=dev)
-        existing_static = empty_existing_static(n_res, n_classes, g1, device=dev)
+        existing_state = _tenants(
+            empty_existing_state(n_res, n_keys, width, n_zones, n_ct, n_ports, device=dev), n_b)
+        existing_static = _tenants(empty_existing_static(n_res, n_classes, g1, device=dev), n_b)
     if existing_state.kmask.dtype == torch.bool:
         existing_state = existing_state._replace(kmask=mask_ops.pack_mask(existing_state.kmask))
 
     # seed topology counts from pre-existing pods (topology.go:231-276)
     open_i = existing_state.open_.to(I32)
     topo = TopoCounts(
-        fwd_ex=existing_static.grp_node_member * open_i[None, :],
-        inv_ex=existing_static.grp_node_owner * open_i[None, :],
-        fwd_new=torch.zeros((g1, n_slots), dtype=I32, device=dev),
-        inv_new=torch.zeros((g1, n_slots), dtype=I32, device=dev),
+        fwd_ex=existing_static.grp_node_member * open_i[:, None, :],
+        inv_ex=existing_static.grp_node_owner * open_i[:, None, :],
+        fwd_new=torch.zeros((n_b, g1, n_slots), dtype=I32, device=dev),
+        inv_new=torch.zeros((n_b, g1, n_slots), dtype=I32, device=dev),
     )
     # charge open owned nodes' capacity against their provisioner's budget
-    n_tmpl = statics.tmpl_zone.shape[0]
+    n_tmpl = statics.tmpl_zone.shape[1]
     tmpl_onehot = (
-        existing_static.node_tmpl[:, None] == torch.arange(n_tmpl, device=dev)[None, :]
-    ) & (existing_static.node_owned & existing_state.open_)[:, None]  # [E, T]
+        existing_static.node_tmpl[..., None] == torch.arange(n_tmpl, device=dev)
+    ) & (existing_static.node_owned & existing_state.open_)[..., None]  # [B, E, T]
     used_budget = (
-        tmpl_onehot.to(F32)[:, :, None] * existing_static.node_capacity[:, None, :]
-    ).sum(dim=0)  # [T, R]
+        tmpl_onehot.to(F32)[..., None] * existing_static.node_capacity[:, :, None, :]
+    ).sum(dim=1)  # [B, T, R]
     remaining0 = statics.tmpl_limits0 - used_budget
     return state, existing_state, existing_static, topo, remaining0
 
@@ -1142,70 +1260,86 @@ def _cold_carry(statics: Statics, n_slots: int, width: int, n_ports: int, existi
 def _scan(class_tensors: ClassTensors, statics: Statics, existing_static, ft, n_passes: int,
           carry, repair_plan: Optional[RepairPlan]) -> SolveOutputs:
     """The class loop over a carry, ``n_passes`` times (the reference's
-    ``lax.scan`` with ``lax.cond(count > 0)`` around each step)."""
+    ``lax.scan`` with ``lax.cond(count > 0)`` around each step): a class
+    runs when some tenant holds pods of it, and the tenants that hold none
+    keep their carry."""
     state, existing_state = carry[0], carry[1]
     dev = state.used.device
     n_zones = statics.tmpl_zone.shape[-1]
-    n_classes = class_tensors.count.shape[0]
-    n_slots = state.pod_count.shape[0]
+    n_b, n_classes = class_tensors.count.shape
+    n_slots = state.pod_count.shape[1]
     base = pref_new = pref_ex = None
     if repair_plan is not None:
         base = (repair_plan.base_fwd_sing, repair_plan.base_fwd_full,
                 repair_plan.base_inv_full)
         pref_new, pref_ex = repair_plan.pref_new, repair_plan.pref_ex
-    n_ex = existing_state.pod_count.shape[0]
-    assign = torch.zeros((n_classes, n_slots), dtype=I32, device=dev)
-    assign_ex = torch.zeros((n_classes, n_ex), dtype=I32, device=dev)
+    n_ex = existing_state.pod_count.shape[1]
+    assign = torch.zeros((n_b, n_classes, n_slots), dtype=I32, device=dev)
+    assign_ex = torch.zeros((n_b, n_classes, n_ex), dtype=I32, device=dev)
     count_left = class_tensors.count
     failed = count_left
-    suspect = torch.zeros(n_classes, dtype=torch.bool, device=dev)
+    suspect = torch.zeros((n_b, n_classes), dtype=torch.bool, device=dev)
     cls_indices = _ar(n_classes, dev)
     global host_syncs
     for p in range(max(n_passes, 1)):
         # the reference's per-class lax.cond(count > 0): one host read of the
-        # pass's counts decides every skip
+        # pass's [B, C] counts decides every skip
         host_syncs += 1
-        counts_host = count_left.cpu().tolist()
+        live_host = count_left.cpu().numpy() > 0
         a_rows, a_ex_rows, failed_rows, suspect_rows = [], [], [], []
         for c in range(n_classes):
-            if counts_host[c] > 0:
-                cls = ClassTensors(*(t[c] for t in class_tensors))._replace(count=count_left[c])
-                carry, (a, a_ex, f, s) = _class_step(
+            if bool(live_host[:, c].any()):
+                cls = ClassTensors(*(t[:, c].contiguous() for t in class_tensors))._replace(
+                    count=count_left[:, c].contiguous())
+                stepped, (a, a_ex, f, s) = _class_step(
                     statics, existing_static, n_zones, carry, cls, c, features=ft,
-                    pref=None if repair_plan is None else (pref_new[c], pref_ex[c]),
+                    pref=None if repair_plan is None else (pref_new[:, c].contiguous(),
+                                                           pref_ex[:, c].contiguous()),
                     topo_base=base,
                 )
+                if bool(live_host[:, c].all()):
+                    carry = stepped
+                else:
+                    on = count_left[:, c] > 0
+                    carry = _select(on, stepped, carry)
+                    a, a_ex, f = (torch.where(on.view((-1,) + (1,) * (x.dim() - 1)), x, 0)
+                                  for x in (a, a_ex, f))
+                    s = s & on
             else:
-                a = torch.zeros(n_slots, dtype=I32, device=dev)
-                a_ex = torch.zeros(n_ex, dtype=I32, device=dev)
-                f = torch.zeros((), dtype=I32, device=dev)
-                s = torch.zeros((), dtype=torch.bool, device=dev)
+                a = torch.zeros((n_b, n_slots), dtype=I32, device=dev)
+                a_ex = torch.zeros((n_b, n_ex), dtype=I32, device=dev)
+                f = torch.zeros(n_b, dtype=I32, device=dev)
+                s = torch.zeros(n_b, dtype=torch.bool, device=dev)
             a_rows.append(a)
             a_ex_rows.append(a_ex)
             failed_rows.append(f)
             suspect_rows.append(s)
         if n_classes:
-            assign = assign + torch.stack(a_rows)
-            assign_ex = assign_ex + torch.stack(a_ex_rows)
-            failed = torch.stack(failed_rows).to(I32)
-            suspect = suspect | torch.stack(suspect_rows)
+            assign = assign + torch.stack(a_rows, dim=1)
+            assign_ex = assign_ex + torch.stack(a_ex_rows, dim=1)
+            failed = torch.stack(failed_rows, dim=1).to(I32)
+            suspect = suspect | torch.stack(suspect_rows, dim=1)
         # roll failed counts one step down the preference ladder; classes with
         # no successor retry as themselves (late-affinity re-scan).  Several
-        # rows can roll into one: index_add sums duplicates as `.at[].add`
-        roll_to = torch.where(class_tensors.relax_next >= 0, class_tensors.relax_next, cls_indices)
-        count_left = torch.zeros_like(failed).index_add(0, roll_to.long(), failed)
+        # rows can roll into one: scatter_add sums duplicates as `.at[].add`
+        roll_to = torch.where(class_tensors.relax_next >= 0, class_tensors.relax_next,
+                              cls_indices)
+        count_left = torch.zeros_like(failed).scatter_add(1, roll_to.long(), failed)
         if p + 1 < n_passes:
             # shared volume adds are once per (ladder, node): collapse
             # placements to the root row before the add (scatter_reduce amax
             # over duplicate roots, the reference's `.at[root].max`)
             state_c, ex_c, topo_c, rem_c = carry
-            placed_any = (assign_ex > 0).to(I32)  # [C, E]
+            placed_any = (assign_ex > 0).to(I32)  # [B, C, E]
             placed_root = torch.zeros_like(placed_any).scatter_reduce(
-                0, class_tensors.root.long()[:, None].expand_as(placed_any), placed_any, "amax",
+                1, class_tensors.root.long()[..., None].expand_as(placed_any), placed_any,
+                "amax",
             )
-            is_root = (class_tensors.root == cls_indices)[:, None].to(I32)
-            shared = _isum((placed_root * is_root)[:, :, None] * existing_static.cls_vol_add, dim=0)
-            per_pod = _isum(assign_ex[:, :, None] * existing_static.cls_vol_per_pod[:, None, :], dim=0)
+            is_root = (class_tensors.root == cls_indices)[..., None].to(I32)
+            shared = _isum((placed_root * is_root)[..., None] * existing_static.cls_vol_add,
+                           dim=1)
+            per_pod = _isum(
+                assign_ex[..., None] * existing_static.cls_vol_per_pod[:, :, None, :], dim=1)
             ex_c = ex_c._replace(vol_used=existing_state.vol_used + shared + per_pod)
             carry = (state_c, ex_c, topo_c, rem_c)
     final_state, final_ex, final_topo, final_remaining = carry

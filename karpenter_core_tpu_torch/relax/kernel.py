@@ -95,7 +95,9 @@ def class_template_planes(cls, statics: solve_ops.Statics):
     all_avail = torch.ones((n_it, n_zones, n_ct), **ones)
     merged_rows, compat, it_int, per_pod = [], [], [], []
     for c in range(n_classes):
-        row = solve_ops._cls_req(solve_ops.ClassTensors(*(t[c] for t in cls)))
+        # the class row with a leading axis of 1 (K3's solo class operand)
+        row = mask_ops.ReqTensor(*(t[c:c + 1] for t in (cls.mask, cls.defined, cls.negative,
+                                                         cls.gt, cls.lt)))
         merged_c, compat_c = statics.k.merge_compat(
             statics.tmpl, row, statics.valid, statics.vocab_ints, statics.is_custom,
             statics.mask_v, statics.key_has_bounds)

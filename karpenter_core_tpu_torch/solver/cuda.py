@@ -201,6 +201,18 @@ class SolvePrep(NamedTuple):
     pol: Optional[policy_planes.ObjectivePlanes] = None
 
 
+def prep_classes(prep: SolvePrep, count=None) -> solve_ops.ClassTensors:
+    """The prep's class planes, with ``count`` (a repair's delta pods; the
+    padded class axis) as the count vector: an int32 tensor on the planes'
+    device.  ``run_prepared`` and the tenant plane's batched dispatch read a
+    prep through it."""
+    cls = prep.cls
+    if count is None:
+        return cls
+    return cls._replace(count=torch.as_tensor(
+        np.asarray(count, dtype=np.int32), device=cls.count.device))
+
+
 @dataclass
 class CudaSolveResults:
     new_nodes: List[CudaNodeDecision] = field(default_factory=list)
@@ -704,11 +716,10 @@ class CudaSolver:
         by solver family (``solver.modes``, the reference's :1013-1040): the
         relax family runs the batch unless it declines, and the scan runs it
         then as if relax never existed.  A repair never routes, which also
-        keeps the relax family's own repair from re-entering it."""
-        cls = prep.cls
-        if count is not None:
-            cls = cls._replace(count=torch.as_tensor(
-                np.asarray(count, dtype=np.int32), device=cls.count.device))
+        keeps the relax family's own repair from re-entering it.  ``n_slots``
+        overrides the prep's slot count of a cold call; a repair takes the
+        carry's (its window width), whatever ``n_slots`` says."""
+        cls = prep_classes(prep, count)
         if warm_carry is None and repair_plan is None:
             self.stages.pop("relax_s", None)
             self.stages.pop("relax_repair_s", None)

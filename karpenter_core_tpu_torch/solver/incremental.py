@@ -32,11 +32,18 @@ configured for (``solver.modes.resolve_mode`` at adopt time), and a later
 flip of that configuration re-anchors with reason ``mode-changed``: repairs
 always run the scan.
 
+``run_prepared=`` is the dispatch hook a host (the tenant plane,
+``service/tenant.py``) routes the device work through: every full solve,
+its slot-exhaustion retry and every repair dispatch call
+``run_prepared(prep, **kw)`` in place of ``solver.run_prepared``.  The port
+never donates a carry, so the reference's "hooked repairs never donate"
+needs no code here.
+
 Left out, each for a later slice: the pipelined tick on CUDA streams
 (``deferred=``, ``PendingResults``, ``_PendingTick``, ``settle``,
 ``_delta_dispatch_deferred``, ``_cancel_tick``, the staging ring) and carry
-donation; the tenant service's ``run_prepared`` hook and prebuilt
-PodClass lists as the population (the port takes a PodIngest); the fleet
+donation; prebuilt PodClass lists as the population (the port takes a
+PodIngest); the fleet
 checkpoint's ``lineage_state``, ``export_lineage`` and ``adopt_restored``;
 ``decide``'s ``mesh_changed`` (the mesh); the ``SOLVE_MODE`` counter, the
 tracing span, the ``SOLVER_DISPATCH`` chaos hook and ``from_env`` /
@@ -156,7 +163,7 @@ class IncrementalSolveSession:
     and bookkeeping, K12 included); a full solve's ``full_s``."""
 
     def __init__(self, solver, policy: Optional[FallbackPolicy] = None,
-                 window_min: Optional[int] = None) -> None:
+                 window_min: Optional[int] = None, run_prepared=None) -> None:
         self.solver = solver
         self.policy = policy or FallbackPolicy()
         self.window_min = window_min
@@ -170,6 +177,15 @@ class IncrementalSolveSession:
         self.mode_counts: Dict[str, int] = {MODE_FULL: 0, MODE_DELTA: 0}
         self.stages: Dict[str, float] = {}
         self._forced_reason: Optional[str] = None
+        # the dispatch hook (module docstring); None runs solver.run_prepared
+        self._run_prepared = run_prepared
+
+    def rebind(self, solver) -> None:
+        """Bind the solver the next solves run through."""
+        self.solver = solver
+
+    def _run(self):
+        return self._run_prepared or self.solver.run_prepared
 
     def reset(self) -> None:
         """Drop the warm lineage (the next solve is full)."""
@@ -282,12 +298,13 @@ class IncrementalSolveSession:
             snapshot = solver.encode(ingest, state_nodes, bound_pods)
             versioned = self.store.commit(snapshot, supply=supply)
             prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
-            outputs = solver.run_prepared(prep)
+            run = self._run()
+            outputs = run(prep)
             fetched = solver.begin_fetch(outputs)
             slots = outputs.assign.shape[1]
             if solver.fetch_exhausted(fetched.small, slots):
                 # slot exhaustion: retry once with double capacity
-                outputs = solver.run_prepared(prep, n_slots=slots * 2)
+                outputs = run(prep, n_slots=slots * 2)
                 fetched = solver.begin_fetch(outputs)
             results = solver.decode(snapshot, outputs, state_nodes or [], fetched=fetched)
         except Exception:
@@ -439,8 +456,11 @@ class IncrementalSolveSession:
             )
             run_carry, keep_carry = carry, None
         t1 = time.perf_counter()
-        outputs = solver.run_prepared(w.prep, count=counts, warm_carry=run_carry,
-                                      repair_plan=repair_plan)
+        # a windowed repair names its window width, which is the repair's
+        # bucket identity when a host coalesces repairs (service/tenant.py)
+        width = {} if window is None else {"n_slots": len(window[0])}
+        outputs = self._run()(w.prep, count=counts, warm_carry=run_carry,
+                              repair_plan=repair_plan, **width)
         fetched = solver.begin_fetch(outputs)
         self.stages["dispatch_s"] = t1 - t0
         self.stages["repair_s"] = time.perf_counter() - t1

@@ -1,7 +1,7 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing | --consolidation | --churn | --policy | --relax]
-                             [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation | --churn | --policy | --relax |
+                              --tenants] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -48,6 +48,15 @@ move under ``PolicyConfig(enabled=True, solver_mode="relax")`` (phase 7 (a)
 of ``chip_smoke.py``): ``relax_core`` (K3 and K1 a class, K14, K16-K18),
 one host read of its verdict (``relax_s`` ends there), the scan's repair of
 the leftover at full width and the policy decode.
+
+With ``--tenants`` the profiled call is the coalesced multi-tenant solve
+(phase 8 (a) of ``chip_smoke.py``): eight tenants of 50,000 to 43,000 pods
+of the headline mix, one shape bucket, prepared once and run as ONE batched
+dispatch (``service.tenant.BatchCoalescer._run_batched``, the tenant
+plane's batched program); beside it, traced the same way, tenant 0's solo
+``run_prepared``.  It reports both walls, host reads, device operations,
+busy shares, each kernel's device time per launch, and the batched call's
+peak device memory.
 
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
@@ -212,6 +221,52 @@ def profile_churn(prof_factory, smi: str) -> tuple:
     }
 
 
+def profile_tenants(prof_factory, smi: str) -> tuple:
+    """(profiler, report) of the batched dispatch of eight headline tenants,
+    beside tenant 0's solo dispatch."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.service import tenant as tenant_mod
+    from karpenter_core_tpu_torch.testing.workloads import build_inputs
+
+    counts = (50_000, 49_000, 48_000, 47_000, 46_000, 45_000, 44_000, 43_000)
+    solvers, preps = [], []
+    for n in counts:
+        solver, pods = build_inputs(n, 1000, 5)
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        solvers.append(solver)
+        preps.append(solver.prepare_encoded(solver.encode(ingest)))
+    keys = {tenant_mod.bucket_key(p) for p in preps}
+    if len(keys) != 1:
+        print(f"FAIL: the tenants span {len(keys)} shape buckets", file=sys.stderr)
+        sys.exit(1)
+    reports = {}
+    prof = None
+    for label, call in (
+        ("solo", lambda: solvers[0].run_prepared(preps[0])),
+        ("batched", lambda: tenant_mod.BatchCoalescer._run_batched(preps)),
+    ):
+        call()  # warm-up
+        torch.cuda.synchronize()
+        solve_ops.host_syncs = 0
+        torch.cuda.reset_peak_memory_stats()
+        with prof_factory() as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summary = device_summary(prof)
+        d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
+        reports[label] = {
+            "wall_s": wall, "host_syncs": solve_ops.host_syncs, "device_to_host_copies": d2h,
+            "device_busy_share_of_call": summary["device_busy_us"] / 1e6 / wall,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **summary,
+        }
+    return prof, {"card": smi, "path": "tenants", "tenants": len(counts), "pods": list(counts),
+                  "slots": preps[0].n_slots, **reports}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
@@ -227,6 +282,9 @@ def main() -> None:
                            "with the class planes finished on the card")
     mode.add_argument("--relax", action="store_true",
                       help="the solve through the relax family, as chip_smoke.py phase 7 (a)")
+    mode.add_argument("--tenants", action="store_true",
+                      help="eight headline tenants in one batched dispatch, as chip_smoke.py "
+                           "phase 8 (a), beside one solo dispatch")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -249,10 +307,14 @@ def main() -> None:
     )
     print(smi.stdout.strip(), flush=True)
     build.build_all()
-    if args.consolidation or args.churn:
+    if args.consolidation or args.churn or args.tenants:
         if args.consolidation:
             prof, report = profile_consolidation(
                 lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
+        elif args.tenants:
+            prof, report = profile_tenants(
+                lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                smi.stdout.strip())
         else:
             prof, report = profile_churn(
                 lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),

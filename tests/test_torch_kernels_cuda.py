@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from karpenter_core_tpu_torch.kernels import (
+    batch,
     capacity,
     classfinish,
     consolidate,
@@ -471,6 +472,19 @@ def test_relax_round_matches_plain(card, seed, knobs):
     _equal(relax.relax_round(*args), relax.relax_round_plain(*args))
 
 
+@pytest.mark.parametrize("n_it,n_z", [(1, 3), (2, 3), (4, 2)])
+def test_relax_round_small_catalog_matches_plain(card, n_it, n_z):
+    """K17 where the relaxed cost sums at most 8 cells a class (S = I * Z of
+    3, 6 and 8) over several rows: one thread's row-major order."""
+    t, planes, cost, support, tstar, _, cost_max = _relax_chain(
+        11, card, n_c=8, n_t=2, n_it=n_it, n_z=n_z)
+    x, cost_eff, _, _ = relax.simplex_pgd_plain(cost, support, cost_max, t["counts"], 64, 1e-4)
+    perm = torch.as_tensor(relax_prng.permutation(1, cost.shape[1]).copy()).to(card)
+    args = (x, cost, cost_eff, support, t["counts"], perm, tstar, planes)
+    assert cost.shape == (8, n_it * n_z)
+    _equal(relax.relax_round(*args), relax.relax_round_plain(*args))
+
+
 @pytest.mark.parametrize("n_slots", [8192, 64, 1])
 def test_relax_materialize_matches_plain(card, n_slots):
     t, planes, cost, support, tstar, feas, cost_max = _relax_chain(5, card)
@@ -513,3 +527,163 @@ def test_relax_solve_matches_plain(card, sizes, n_pods):
         _equal(tuple(getattr(a, group)), tuple(getattr(b, group)))
     _equal((a.assign, a.assign_existing, a.failed, a.spread_suspect, a.remaining),
            (b.assign, b.assign_existing, b.failed, b.spread_suspect, b.remaining))
+
+
+# -- the tenant axis (the coalesced multi-tenant solve) -------------------------------
+#
+# Each batched entry point takes B tenants' operands stacked on a leading axis,
+# every tenant's drawn from its own seed (catalogs and class rows included), and
+# must equal its twin applied tenant by tenant, and the solo kernel on each
+# tenant's slice.
+
+TENANTS = [1, 3, 8]
+
+
+def _leaves_of(tree):
+    out = []
+    batch.tree_map(out.append, tree)
+    return out
+
+
+def _check_batched(kernel, plain, arg_sets):
+    args = batch.stack(arg_sets)
+    got = _leaves_of(kernel(*args))
+    want = _leaves_of(batch.stack([plain(*a) for a in arg_sets]))
+    solo = _leaves_of(batch.stack([kernel(*a) for a in arg_sets]))
+    assert len(got) == len(want) == len(solo)
+    for a, b, c in zip(got, want, solo):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _k1_args(rng, card, n, types, k, v, khb, size):
+    def b(shape, p):
+        return torch.as_tensor(rng.random(shape) < p).to(card)
+
+    return (
+        b((n, types), 0.9), b((types,), 0.9), _req(rng, n, k, v, True, card),
+        _req(rng, types, k, v, True, card), _vocab_ints(rng, k, v, card), v, khb,
+        b((n, 3), 0.6), b((n, 2), 0.6), b((types, 3, 2), 0.5),
+        torch.as_tensor(rng.integers(0, 20, (n, 3)).astype(np.float32) * 0.25).to(card),
+        torch.tensor(size, dtype=torch.float32, device=card),
+        torch.as_tensor(rng.integers(0, 64, (types, 3)).astype(np.float32) * 0.5).to(card),
+    )
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+def test_it_capacity_tenant_axis_matches_plain(card, n_b):
+    khb = (True, False, True, False)
+    sets = [_k1_args(np.random.default_rng(100 + b), card, 300, 77, 4, 40, khb,
+                     (0.25, 0.0 if b % 2 else 0.5, 1.0)) for b in range(n_b)]
+    _check_batched(capacity.it_capacity, capacity.it_capacity_plain, sets)
+
+
+def test_it_capacity_tenant_axis_headline_shape(card):
+    """Eight tenants at the headline's slot and catalog widths."""
+    sets = [_k1_args(np.random.default_rng(200 + b), card, 8192, 1000, 8, 9, (False,) * 8,
+                     (0.25, 0.25, 1.0)) for b in range(8)]
+    _check_batched(capacity.it_capacity, capacity.it_capacity_plain, sets)
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+def test_req_merge_tenant_axis_matches_plain(card, n_b):
+    k, v = 3, 40
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(300 + b)
+        valid = mask_ops.pack_mask(torch.as_tensor(rng.random((k, v)) < 0.8).to(card))
+        sets.append((_req(rng, 500, k, v, True, card), _req(rng, 1, k, v, True, card), valid,
+                     _vocab_ints(rng, k, v, card), torch.as_tensor(rng.random(k) < 0.5).to(card),
+                     v, (True, False, True)))
+    _check_batched(reqmerge.merge_compat, reqmerge.merge_compat_plain, sets)
+
+
+def _fill_args(rng, n, card, quota):
+    cap = torch.as_tensor(rng.integers(0, 5, n).astype(np.int32)).to(card)
+    prio = torch.as_tensor(rng.integers(0, 4, n).astype(np.int32)).to(card)
+    prio = torch.where(cap > 0, prio, 2**31 - 1)
+    return torch.tensor(quota, dtype=torch.int32, device=card), cap, prio
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+@pytest.mark.parametrize("n", [1025, 8192])
+def test_fill_priority_tenant_axis_matches_plain(card, n_b, n):
+    sets = [_fill_args(np.random.default_rng(400 + b), n, card, (0, n // 3, 3 * n)[b % 3])
+            for b in range(n_b)]
+    _check_batched(fill.fill_by_priority, fill.fill_by_priority_plain, sets)
+
+
+@pytest.mark.parametrize("n_b,n", [(2, 32768), (3, 100003)])
+def test_fill_priority_tenant_axis_multi_block_matches_plain(card, n_b, n):
+    """The multi-block path: one sort, a segment a tenant, the tile scan
+    restarting at each segment."""
+    sets = [_fill_args(np.random.default_rng(500 + b), n, card, (n // 3, 3 * n, 7)[b % 3])
+            for b in range(n_b)]
+    _check_batched(fill.fill_by_priority, fill.fill_by_priority_plain, sets)
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+def test_existing_intake_tenant_axis_matches_plain(card, n_b):
+    sets = [_intake_args(np.random.default_rng(600 + b), 1000, card, True, True, b == 1)
+            for b in range(n_b)]
+    _check_batched(existing.existing_intake, existing.existing_intake_plain, sets)
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+@pytest.mark.parametrize("extra,single", [(True, False), (False, True)])
+def test_existing_mask_tenant_axis_matches_plain(card, n_b, extra, single):
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(700 + b)
+        n = 2000
+        cap = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(0, 9, n), 0)
+                              .astype(np.int32)).to(card)
+        sets.append((cap, torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+                     torch.as_tensor(rng.random(3) < 0.7).to(card),
+                     torch.as_tensor(rng.random(3) < 0.7).to(card),
+                     torch.as_tensor(rng.random(n) < 0.7).to(card) if extra else None, single))
+    _check_batched(existing.existing_mask, existing.existing_mask_plain, sets)
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+def test_existing_commit_tenant_axis_matches_plain(card, n_b):
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(800 + b)
+        n, k = 1000, 8
+        rows = existing.ExistingState(
+            torch.as_tensor((rng.integers(0, 64, (n, 3)) * 0.1).astype(np.float32)).to(card),
+            _req(rng, n, k, 9, False, card).mask,
+            *(t for t in _req(rng, n, k, 9, True, card)[1:]),
+            torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+            torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
+            torch.as_tensor(rng.random((n, 4)) < 0.2).to(card),
+            torch.as_tensor(rng.integers(0, 5, (n, 2)).astype(np.int32)).to(card),
+            torch.as_tensor(rng.integers(0, 50, n).astype(np.int32)).to(card),
+            torch.as_tensor(rng.random(n) < 0.8).to(card),
+        )
+        assigned = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(1, 7, n), 0)
+                                   .astype(np.int32)).to(card)
+        sets.append((rows, _req(rng, n, k, 9, True, card),
+                     torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+                     torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
+                     torch.as_tensor(rng.random(4) < 0.5).to(card),
+                     torch.as_tensor(rng.integers(0, 3, (n, 2)).astype(np.int32)).to(card),
+                     torch.as_tensor(rng.integers(0, 3, 2).astype(np.int32)).to(card),
+                     torch.as_tensor(rng.random(3).astype(np.float32)).to(card), assigned,
+                     True, True))
+    _check_batched(existing.existing_commit, existing.existing_commit_plain, sets)
+
+
+@pytest.mark.parametrize("n_b", TENANTS)
+def test_spread_quota_tenant_axis_matches_plain(card, n_b):
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(900 + b)
+        unlimited = np.int32(1 << 30)
+        caps = np.where(rng.random(3) < 0.5, rng.integers(0, 60, 3), unlimited).astype(np.int32)
+        args = [rng.integers(0, 40, 3).astype(np.int32), rng.random(3) < 0.8,
+                rng.random(3) < 0.8, caps, np.int32(rng.integers(1, 5) if b % 4 else unlimited),
+                np.int32(rng.integers(0, 300)), np.bool_(b % 3 != 2)]
+        sets.append(tuple(torch.as_tensor(np.asarray(a)).to(card) for a in args))
+    _check_batched(spread.spread_quota, spread.spread_quota_plain, sets)

@@ -240,6 +240,23 @@ def test_relax_core_matches_reference(fixture, knobs):
     assert bool(ref.converged)
 
 
+@pytest.mark.parametrize("n_its", [1, 2])
+@pytest.mark.parametrize("n_classes", [3, 10, 20])
+def test_relaxed_cost_small_catalog_matches_reference(n_its, n_classes):
+    """``relaxed_cost`` where the sum over [C, S] has at most 8 columns (S =
+    I * Z = 3 and 6) and several rows (C = 8, 16, 24): bit for bit.  Inside
+    ``relax_core`` XLA's CPU code for this sum is one scalar accumulator,
+    row-major from +0 (``objdump -d`` of the ``select_reduce_fusion`` of
+    ``jit_relax_core``), which ``xla_sum_2d_plain`` takes; the row-vectorised
+    order belongs to a standalone ``jnp.sum`` of the same expression."""
+    rng = np.random.default_rng(1)
+    sizes = [{"cpu": f"{int(rng.integers(1, 10)) * 50}m"} for _ in range(n_classes)]
+    pods = [make_pod(requests=dict(size)) for size in sizes
+            for _ in range(int(rng.integers(3, 12)))]
+    ref, got = compare_core(_skewed_solver(n_its), pods, KNOBS["on"])
+    assert float(ref.relaxed_cost) > 0.0
+
+
 def test_relax_core_non_convergence_matches_reference():
     ref, _ = compare_core(_skewed_solver(), FIXTURES["uniform-64"](), KNOBS["off"], max_iters=1)
     assert int(ref.iters) == 1 and not bool(ref.converged)
