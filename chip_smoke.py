@@ -1,12 +1,12 @@
 """Smoke run of the port on one CUDA card: the provisioning solve, cold
 into an empty cluster and into a live 5,000-node cluster, multi-node
 consolidation of that cluster, the warm repair under steady churn, the
-policy objective, the relax solver family and the coalesced multi-tenant
-solve.
+policy objective, the relax solver family, the coalesced multi-tenant
+solve and the what-if studies.
 
     python3 chip_smoke.py
 
-Builds the eighteen hand-written CUDA kernels from ``karpenter_core_tpu_torch/
+Builds the twenty hand-written CUDA kernels from ``karpenter_core_tpu_torch/
 csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
@@ -133,6 +133,26 @@ csrc`` (one nvcc per source, all at once), then:
      solo solve, tenants 0 and 1 equal to the JAX package's answer
      (``EX_TENANT_PINS``).  Prints the solo and batched walls, launches,
      host reads and peak memory.
+  9. what-if path (BASELINE.json config 5) — ``parallel.mesh``'s studies, the
+     replica axis the batched scan's tenant axis, in chunks sized to the
+     card's free memory.  (c), run right after phase 4 on its 5,000-node
+     cluster and its preparation: the crossed grid of 8 replicas at
+     interruption rate 0.3 x phase 4's coarse pass of prefix sizes; its
+     rate-0 row must equal that pass's ``failed`` and ``n_new``, a 2 x 4
+     sub-grid the twins'; K8, K19, K20 and the scan's kernels must launch.
+     Then, on phase 1's backlog: (a) ``monte_carlo_solve`` at 1,024
+     replicas, rate 0: every replica must equal phase 1's solve (50,000
+     scheduled, 0 failed, 7,162 nodes, its cost bit for bit, K20's twin
+     over phase 1's outputs); (b) rate 0.3, seed 0: every replica must keep
+     its 50,000 pods, replicas 0, 1, 511 and 1,023 must equal ``solve_core``
+     run alone on their availability, and a chunk of 8 replicas must equal
+     the twins' batch leaf for leaf; K19 (both modes, at [1,024, 1,000, 3,
+     2]) and K20 (on the study's last chunk) against their twins; (d)
+     ``policy_monte_carlo`` at 1,024 replicas, seed 5, after the policy
+     benchmark's spot move with every spot offering at interruption rate
+     0.3: the same pins, with ``best_replica`` and ``expected_cost``
+     printed.  Each study prints its wall, chunk size, each chunk's host
+     reads and launches, and its peak memory.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
@@ -147,12 +167,14 @@ others (K11 and K12 are gathers and scatters of 13 planes with a zone-count
 reduction, K13 a masked argmin with the spot tie rule and two ordered sums,
 K15 the padding of sixteen planes with a group remap, K14 and K16-K18 the
 relax family's masked minima, iterated sorts and scans, seeded rounding and
-slot gathers), so theirs is null.
+slot gathers, K19 a counter-based draw and K20 masked minima with ordered
+sums), so theirs is null.
 
 Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records (each with its launches on the tenant path,
-``tenants``, and K1-K3 and K5-K7 with their batched entry points' lines at
-B = 8, ``tenant_axis``), and last ``{"ok": true, "device": {...}}``.  Any
+``tenants``, and on the what-if paths, ``launches_per_path``; K1-K3 and
+K5-K7 with their batched entry points' lines at B = 8, ``tenant_axis``;
+K19 with its risk-plane mode, ``risk_mode``), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Needs one card; refuses to
 run without one.
 """
@@ -275,6 +297,21 @@ EX_TENANT_PINS = {
         "new_nodes": 708, "failed": 0, "residual": 0},
 }
 
+# phase 9: the what-if studies (BASELINE.json config 5) on the headline
+# backlog: 1,024 replicas, spot offerings interrupted at rate 0.3 (seed 0);
+# replicas WHATIF_SAMPLED are solved alone as well, and a chunk of
+# WHATIF_TWIN_CHUNK through the twins.  The policy study draws from the risk
+# priors (every spot offering at 0.3) with seed 5.  The crossed grid: 8
+# replicas x phase 4's coarse pass of prefix sizes, seed 0
+WHATIF_REPLICAS, WHATIF_RATE, WHATIF_SAMPLED = 1024, 0.3, (0, 1, 511, 1023)
+WHATIF_TWIN_CHUNK, POLICY_WHATIF_SEED = 8, 5
+CROSSED_REPLICAS, CROSSED_SEED = 8, 0
+WHATIF_KERNELS = TENANT_KERNELS + ("perturb_avail", "replica_finish")
+CROSSED_KERNELS = WHATIF_KERNELS + ("sweep_lanes",)
+# 32-bit integer operations of one threefry draw and its compare (20 rounds
+# of add, rotate and xor, 5 key injections, the float and the threshold)
+THREEFRY_OPS = 120
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
 
@@ -335,8 +372,8 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, objective, packbits, relax, repair,
-        reqmerge, spread,
+        capacity, classfinish, consolidate, existing, fill, montecarlo, objective, packbits,
+        perturb, relax, repair, reqmerge, spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
@@ -348,16 +385,18 @@ def launch_counts() -> dict:
         "repair_scatter": repair.scatter_launches, "select_offerings": objective.launches,
         "class_finish": classfinish.launches, "relax_cost": relax.cost_launches,
         "simplex_pgd": relax.pgd_launches, "relax_round": relax.round_launches,
-        "relax_materialize": relax.materialize_launches,
+        "relax_materialize": relax.materialize_launches, "perturb_avail": perturb.launches,
+        "replica_finish": montecarlo.launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, objective, packbits, relax, repair,
-        reqmerge, spread,
+        capacity, classfinish, consolidate, existing, fill, montecarlo, objective, packbits,
+        perturb, relax, repair, reqmerge, spread,
     )
-    for mod in (capacity, fill, reqmerge, packbits, spread, objective, classfinish):
+    for mod in (capacity, fill, reqmerge, packbits, spread, objective, classfinish, perturb,
+                montecarlo):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
@@ -393,7 +432,7 @@ def leaves(outputs) -> dict:
 
 
 def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops,
-                  library_fn=None):
+                  library_fn=None, plain_reps=20):
     """Hold one kernel against its plain twin (exactly), time both (and the
     one PyTorch call that computes the same function, where there is one),
     and append the kernel's record; returns the kernel's outputs."""
@@ -405,7 +444,7 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
     rec = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches_n, "max_abs_err": err,
-        "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+        "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, plain_reps),
         "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
         else "operations",
@@ -644,10 +683,12 @@ def command_summary(cmd) -> dict:
     }
 
 
-def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_launches) -> dict:
+def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_launches):
     """Phase 4: multi-node consolidation of phase 3's clusters, every node a
     candidate and no pending pods; then K8 and K9 against their twins at
-    this path's shapes.  Returns this path's launches."""
+    this path's shapes.  Returns this path's launches, and the full-size
+    search's (snapshot, SweepPrep, coarse prefix sizes, coarse pass
+    outputs) for phase 9's crossed grid."""
     import numpy as np
 
     from karpenter_core_tpu_torch.kernels import consolidate as k89
@@ -794,7 +835,7 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
         per_path = rec.setdefault("launches_per_path", {"cold": cold_launches[rec["name"]],
                                                         "existing": existing_launches[rec["name"]]})
         per_path["consolidation"] = launches[rec["name"]]
-    return launches
+    return launches, (snapshot, prep, coarse_sizes, coarse_out)
 
 
 def carry_leaves(carry) -> dict:
@@ -1943,6 +1984,307 @@ def tenant_kernel_lines(records, worlds, preps, path_launches) -> None:
     del outs
 
 
+def spied_chunks(study):
+    """``study()`` with the batched scan spied on: per chunk, the cells it
+    took, its host reads and its launches.  Returns (the study's result, the
+    chunks, the last chunk's outputs)."""
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+    chunks, last = [], {}
+    batched = solve_ops.solve_core_batched
+
+    def spy(*args, **kwargs):
+        l0, s0 = launch_counts(), solve_ops.host_syncs
+        out = batched(*args, **kwargs)
+        l1 = launch_counts()
+        chunks.append({"cells": int(out.failed.shape[0]),
+                       "host_syncs": solve_ops.host_syncs - s0,
+                       "launches": {k: l1[k] - l0[k] for k in l1 if l1[k] != l0[k]}})
+        last["out"] = out
+        return out
+
+    solve_ops.solve_core_batched = spy
+    try:
+        result = study()
+    finally:
+        solve_ops.solve_core_batched = batched
+    return result, chunks, last.get("out")
+
+
+def chunk_summary(chunks) -> dict:
+    """The chunks' sizes, host reads and scan launches (each chunk's, when
+    they differ)."""
+    launches = [c["launches"] for c in chunks]
+    return {"chunks": len(chunks), "cells": [c["cells"] for c in chunks],
+            "host_syncs": [c["host_syncs"] for c in chunks],
+            "launches": launches[0] if all(x == launches[0] for x in launches) else launches}
+
+
+def crossed_path(inputs) -> dict:
+    """Phase 9 (c), run right after phase 4 on its 5,000-node cluster: the
+    crossed replica x prefix grid (R = 8 interruption replicas at rate 0.3
+    x the search's coarse pass of prefix sizes), every cell a solve in the
+    batched scan.  Its rate-0 row must equal the coarse pass of phase 4's
+    serial sweep (failed and n_new); a 2 x 4 sub-grid must equal the twins'.
+    Returns the grid's launches."""
+    import numpy as np
+
+    from karpenter_core_tpu_torch.kernels import consolidate as k89
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.parallel import mesh
+
+    snapshot, prep, sizes, serial = inputs
+    # the rate-0 row: one replica of the unperturbed availability
+    zero = mesh.perturb_spot_availability(snapshot, 1, 0, 0.0)
+    t0 = time.perf_counter()
+    failed0, n_new0 = (t.cpu().numpy()[0] for t in mesh.crossed_sweep(prep, zero, sizes))
+    row_s = time.perf_counter() - t0
+    if not (np.array_equal(failed0, serial.failed) and np.array_equal(n_new0, serial.n_new)):
+        fail("crossed grid: the rate-0 row differs from the serial sweep's coarse pass")
+    print(json.dumps({"run": "crossed grid, rate-0 row", "cells": len(sizes), "wall_s": row_s,
+                      "equals_serial_sweep": True}), flush=True)
+
+    reset_launches()
+    solve_ops.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+
+    def study():
+        avail = mesh.perturb_spot_availability(snapshot, CROSSED_REPLICAS, CROSSED_SEED,
+                                               WHATIF_RATE)
+        return avail, mesh.crossed_sweep(prep, avail, sizes)
+
+    (avail, grid), chunks, _ = spied_chunks(study)
+    failed, n_new = (t.cpu().numpy() for t in grid)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    feasible_sizes = np.where(failed == 0, np.asarray(sizes)[None, :], 0).max(axis=1)
+    shared = (prep.cls, prep.statics_arrays, prep.ex_state, prep.ex_static)
+    # classes some cells hold pods of and others do not: each such class
+    # steps for all cells, the others keep their carry (the union of skips)
+    _, counts = k89.sweep_lanes_plain(prep.candidate_rank, prep.ex_state.open_,
+                                      prep.cls.count, prep.ex_cls_count,
+                                      torch.as_tensor(sizes, dtype=torch.int32, device="cuda"))
+    live = counts > 0
+    mixed = int((live.any(dim=0) & ~live.all(dim=0)).sum())
+    print(json.dumps({
+        "run": "crossed grid", "replicas": CROSSED_REPLICAS, "prefix_sizes": len(sizes),
+        "stacked_input_bytes_per_cell": nbytes(shared),
+        "estimate_bytes_per_cell": mesh.cell_bytes(mesh.consolidate_ops.SWEEP_SLOTS, shared),
+        "existing_rows": int(prep.ex_state.open_.shape[0]),
+        "slots": mesh.consolidate_ops.SWEEP_SLOTS,
+        "wall_s": wall_s, **chunk_summary(chunks),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": mem0, "safe_prefix": feasible_sizes.tolist(),
+        "failed_cells": int((failed > 0).sum()), "classes": int(counts.shape[1]),
+        "classes_live_in_some_cells_only": mixed, "launches": launches,
+    }), flush=True)
+    check_launched(launches, CROSSED_KERNELS, "crossed what-if grid")
+
+    sub_f, sub_n = (t.cpu().numpy() for t in mesh.crossed_sweep(
+        prep, avail[:2], sizes[:4], use_kernels=False))
+    if not (np.array_equal(sub_f, failed[:2, :4]) and np.array_equal(sub_n, n_new[:2, :4])):
+        fail("crossed grid: the 2 x 4 sub-grid through the twins differs from the kernels'")
+    print("crossed grid: the rate-0 row equals the serial sweep; the 2 x 4 sub-grid equals "
+          "the twins'", flush=True)
+    return launches
+
+
+def replica_line(out, it_price, use_kernels=True):
+    """K20 (or its twin) over one batched scan's outputs."""
+    from karpenter_core_tpu_torch.kernels import montecarlo
+
+    fn = montecarlo.replica_finish if use_kernels else montecarlo.replica_finish_plain
+    st = out.state
+    return fn(out.assign, out.failed, st.viable, st.zone, st.ct, st.open_, st.pod_count,
+              it_price)
+
+
+def whatif_study(label, run):
+    """One full-size study through its entry point, the batched scan spied
+    on; prints its wall, chunks and peak memory."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    result, chunks, last = spied_chunks(run)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    print(json.dumps({"run": label, "replicas": WHATIF_REPLICAS, "wall_s": wall_s,
+                      **chunk_summary(chunks),
+                      "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "allocated_before_bytes": mem0, "launches": launches}), flush=True)
+    check_launched(launches, WHATIF_KERNELS, label)
+    return result, launches, last
+
+
+def sampled_solos(snapshot, avail, study, n_slots, it_price, label):
+    """Replicas ``WHATIF_SAMPLED`` of a study, each solved alone by
+    ``solve_core`` on its own availability plane, must equal the study's
+    four sums."""
+    from karpenter_core_tpu_torch.kernels import batch
+    from karpenter_core_tpu_torch.parallel import mesh
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+    cls, sa, khb = mesh.prepared(snapshot, "cuda")
+    for r in WHATIF_SAMPLED:
+        out = solve_ops.solve_core(cls, sa._replace(it_avail=avail[r]), n_slots, khb,
+                                   n_passes=snapshot.scan_passes,
+                                   features=solve_ops.snapshot_features(snapshot))
+        got = [t.item() for t in replica_line(batch.add_axis(out), it_price)]
+        want = [study[k][r].item() for k in ("scheduled", "failed", "nodes", "cost")]
+        if got != want:
+            fail(f"{label}: replica {r} is {want}, its solo solve gives {got}")
+    print(f"{label}: replicas {list(WHATIF_SAMPLED)} equal their solo solve_core runs",
+          flush=True)
+
+
+def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches) -> None:
+    """Phase 9: the what-if studies (BASELINE.json config 5) on the headline
+    backlog.  (a) ``monte_carlo_solve`` at R = 1,024, rate 0: every replica
+    equals phase 1's solo solve (50,000 scheduled, 0 failed, 7,162 nodes,
+    the same cost bit for bit).  (b) Rate 0.3, seed 0: replicas 0, 1, 511
+    and 1,023 equal solo ``solve_core`` runs on their own availability; a
+    chunk of 8 replicas through the kernels equals the twins' batch leaf for
+    leaf.  (d) ``policy_monte_carlo`` at R = 1,024, seed 5, after the policy
+    benchmark's spot move with every spot offering at interruption rate 0.3.
+    Then K19 (both modes) and K20 against their twins at these shapes."""
+    import numpy as np
+
+    from karpenter_core_tpu_torch.kernels import batch, perturb
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.parallel import mesh
+    from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+    from karpenter_core_tpu_torch.testing.workloads import build_provider, move_spot_market
+
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    snapshot = solver.encode(ingest)
+    n_slots = solve_ops.estimate_slots(snapshot)
+    it_price = torch.as_tensor(snapshot.it_price, device="cuda")
+    if n_slots != solo_out.assign.shape[1]:
+        fail(f"what-if: {n_slots} slots, phase 1's solve had {solo_out.assign.shape[1]}")
+    solo = [t.item() for t in replica_line(batch.add_axis(solo_out), it_price)]
+    print(json.dumps({"whatif_solo": dict(zip(("scheduled", "failed", "nodes", "cost"), solo)),
+                      "slots": n_slots}), flush=True)
+    if solo[:3] != [N_PODS, 0, EXPECTED_NODES]:
+        fail(f"what-if: phase 1's solve sums to {solo}")
+
+    # -- (a) rate 0: every replica is the unperturbed solve --------------------
+    calm, _, _ = whatif_study("monte-carlo, rate 0", lambda: mesh.monte_carlo_solve(
+        snapshot, WHATIF_REPLICAS, seed=0, interruption_rate=0.0))
+    for key, want in zip(("scheduled", "failed", "nodes", "cost"), solo):
+        if not np.all(calm[key] == want):
+            fail(f"monte-carlo rate 0: {key} {np.unique(calm[key])[:4]}, the solo solve {want}")
+    print("monte-carlo rate 0: every replica equals the solo solve (cost bit for bit)",
+          flush=True)
+
+    # -- (b) rate 0.3: sampled replicas, and a chunk against the twins ---------
+    study, launches, last = whatif_study(
+        "monte-carlo, rate 0.3", lambda: mesh.monte_carlo_solve(
+            snapshot, WHATIF_REPLICAS, seed=0, interruption_rate=WHATIF_RATE))
+    print(json.dumps({"monte_carlo": {k: (v.tolist()[:8] if isinstance(v, np.ndarray) else v)
+                                      for k, v in study.items()}}), flush=True)
+    if not np.all(study["scheduled"] + study["failed"] == N_PODS):
+        fail("monte-carlo rate 0.3: a replica lost pods")
+    avail = mesh.perturb_spot_availability(snapshot, WHATIF_REPLICAS, 0, WHATIF_RATE)
+    sampled_solos(snapshot, avail, study, n_slots, it_price, "monte-carlo rate 0.3")
+    cls, sa, khb = mesh.prepared(snapshot, "cuda")
+    # what a replica's stacked copy of the shared planes costs (the kernels
+    # take dense operands; a stride-0 view would cost only the availability)
+    print(json.dumps({"stacked_input_bytes_per_replica": nbytes((cls, sa)),
+                      "own_availability_bytes_per_replica": int(avail[0].numel()),
+                      "estimate_bytes_per_replica": mesh.cell_bytes(n_slots, (cls, sa))}),
+          flush=True)
+    cls_b, sa_b = mesh.stacked_replicas(cls, sa, avail[:WHATIF_TWIN_CHUNK])
+    ft = solve_ops.snapshot_features(snapshot)
+    t0 = time.perf_counter()
+    kern = solve_ops.solve_core_batched(cls_b, sa_b, n_slots, khb,
+                                        n_passes=snapshot.scan_passes, features=ft)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = solve_ops.solve_core_batched(cls_b, sa_b, n_slots, khb,
+                                        n_passes=snapshot.scan_passes, features=ft,
+                                        use_kernels=False)
+    torch.cuda.synchronize()
+    print(json.dumps({"run": f"a chunk of {WHATIF_TWIN_CHUNK} replicas", "kernels_wall_s": kern_s,
+                      "twins_wall_s": time.perf_counter() - t0}), flush=True)
+    same_leaves(kern, twin, f"monte-carlo, a chunk of {WHATIF_TWIN_CHUNK} replicas",
+                "the twins' batch")
+    del kern, twin, cls_b, sa_b
+
+    # -- K19 at [1,024, 1,000, 3, 2], both modes; K20 on the last chunk ---------
+    avail0 = torch.as_tensor(snapshot.it_avail, device="cuda")
+    is_spot = torch.as_tensor(np.array([ct == "spot" for ct in snapshot.capacity_types]),
+                              device="cuda")
+    cells = WHATIF_REPLICAS * avail0.numel()
+    k19 = record_kernel(
+        records, "perturb_avail", "karpenter_core_tpu_torch/csrc/perturb_avail.cu",
+        "karpenter_core_tpu/parallel/mesh.py:397", launches["perturb_avail"],
+        lambda: perturb.perturb_avail(avail0, WHATIF_REPLICAS, 0, rate=WHATIF_RATE,
+                                      is_spot=is_spot),
+        lambda: perturb.perturb_avail_plain(avail0, WHATIF_REPLICAS, 0, rate=WHATIF_RATE,
+                                            is_spot=is_spot),
+        avail0.numel() + is_spot.numel() + cells, cells * THREEFRY_OPS, plain_reps=3,
+    )
+    if not torch.equal(k19, avail):
+        fail("perturb_avail: the study's draw differs from the recorded call's")
+    risk = torch.full(avail0.shape, WHATIF_RATE, dtype=torch.float32, device="cuda")
+    risk[:, :, ~is_spot] = 0.0
+    got = perturb.perturb_avail(avail0, WHATIF_REPLICAS, 0, risk=risk)
+    if not torch.equal(got, perturb.perturb_avail_plain(avail0, WHATIF_REPLICAS, 0, risk=risk)):
+        fail("perturb_avail (risk plane) differs from its twin")
+    records[-1]["risk_mode"] = {
+        "ms": time_ms(lambda: perturb.perturb_avail(avail0, WHATIF_REPLICAS, 0, risk=risk)),
+        "plain_ms": time_ms(lambda: perturb.perturb_avail_plain(avail0, WHATIF_REPLICAS, 0,
+                                                                risk=risk), 3),
+        "bound_ms": max((avail0.numel() * 5 + cells) / HBM_BYTES_PER_S,
+                        cells * THREEFRY_OPS / SCALAR_OPS_PER_S) * 1e3,
+        "bound_by": "operations",
+    }
+    st = last.state
+    priced = int((st.open_ & (st.pod_count > 0)).sum())
+    n_b, n_cls, n_sl = last.assign.shape
+    n_it, n_z, n_ct = it_price.shape
+    record_kernel(
+        records, "replica_finish", "karpenter_core_tpu_torch/csrc/replica_finish.cu",
+        "karpenter_core_tpu/parallel/mesh.py:480", launches["replica_finish"],
+        lambda: replica_line(last, it_price), lambda: replica_line(last, it_price, False),
+        nbytes(last.assign, last.failed, st.pod_count, st.open_, it_price)
+        + priced * (n_it + n_z + n_ct) + 16 * n_b,
+        priced * n_it * n_z * n_ct + n_b * n_cls * n_sl, plain_reps=3,
+    )
+    del last
+
+    # -- (d) the risk-weighted variants after the spot move --------------------
+    provider, provisioners = build_provider(N_TYPES, N_PROVISIONERS)
+    move_spot_market(provider)
+    for it in provider.get_instance_types(None):
+        provider.set_interruption_rate(it.name, WHATIF_RATE)
+    risky = CudaSolver(provider, provisioners)
+    snap_p = risky.encode(ingest)
+    policy, policy_launches, _ = whatif_study(
+        "policy monte-carlo", lambda: mesh.policy_monte_carlo(snap_p, WHATIF_REPLICAS,
+                                                              seed=POLICY_WHATIF_SEED))
+    print(json.dumps({"policy_monte_carlo": {
+        k: policy[k] for k in ("best_replica", "best_cost", "expected_cost", "cost_mean",
+                               "cost_max", "feasible_replicas")}}), flush=True)
+    if not np.all(policy["scheduled"] + policy["failed"] == N_PODS):
+        fail("policy monte-carlo: a replica lost pods")
+    avail_p = mesh.perturb_offering_availability(snap_p, snap_p.pol_risk, WHATIF_REPLICAS,
+                                                 POLICY_WHATIF_SEED)
+    sampled_solos(snap_p, avail_p, {**policy, "cost": policy["cost"].astype(np.float32)},
+                  n_slots, torch.as_tensor(snap_p.pol_price, device="cuda"),
+                  "policy monte-carlo")
+    for rec in records:
+        rec.setdefault("launches_per_path", {}).update(
+            whatif=launches.get(rec["name"], 0), crossed=crossed_launches.get(rec["name"], 0))
+    path_launches["whatif"] = launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2175,9 +2517,11 @@ def main() -> None:
           "fill_priority with preferences", flush=True)
 
     mid_cluster, cluster, existing_launches = existing_path(records, launches)
-    consolidation_launches = consolidation_path(records, mid_cluster, cluster, launches,
-                                                existing_launches)
+    consolidation_launches, crossed_inputs = consolidation_path(
+        records, mid_cluster, cluster, launches, existing_launches)
     del cluster
+    crossed_launches = crossed_path(crossed_inputs)
+    del crossed_inputs
     path_launches = {"cold": launches, "existing": existing_launches,
                      "consolidation": consolidation_launches}
     churn_launches = churn_path(records, mid_cluster, path_launches)
@@ -2185,6 +2529,7 @@ def main() -> None:
     path_launches["policy"] = policy_path(records, mid_cluster, path_launches)
     path_launches["relax"] = relax_path(records, path_launches)
     tenant_path(records, path_launches)
+    whatif_path(records, path_launches, solver, pods, kernel_out, crossed_launches)
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
           "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
           "requests; null for the others — no single PyTorch call computes them (K13: a "
@@ -2192,7 +2537,9 @@ def main() -> None:
           "with a group remap; K14: a masked min over capacity types and templates with its "
           "argmin; K16: a sort, a blocked scan, a count and a threshold, iterated under a "
           "global stop; K17: an argmin, floors and a seeded stable sort with an audit; K18: "
-          "a prefix over cells and a gather of slot rows)", flush=True)
+          "a prefix over cells and a gather of slot rows; K19: a counter-based threefry draw "
+          "and a threshold; K20: masked minima over offerings and sums in XLA's order)",
+          flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,32 +16,27 @@
 // C = 16 classes and E = 6,144 existing nodes it must read 25 MB of
 // assign_existing and 1 MB of viability: about 8 us at 3.35 TB/s.
 // Design: one block of 256 threads per lane.  Each warp prices one slot at
-// a time: its lanes stride over the instance types, skip non-viable ones
-// and take the minimum over the allowed (zone, capacity type) offerings,
-// then a shuffle reduction finishes the minimum.  The prices go to shared
-// memory; the block then scans the lane's C x E assignment plane, coalesced,
-// and `__syncthreads_or` gives uninit.  Thread 0 sums the slot prices in
-// slot order (one IEEE round-to-nearest add each, `__fadd_rn`: the plain
-// twin's order) and the class failures in unsigned arithmetic (int32 wrap).
+// a time (`kc::warp_slot_price`, slot_price.cuh, the code K20 shares).  The
+// prices go to shared memory; the block then scans the lane's C x E
+// assignment plane, coalesced, and `__syncthreads_or` gives uninit.  Thread
+// 0 sums the slot prices in slot order (one IEEE round-to-nearest add each,
+// `__fadd_rn`: the plain twin's order) and the class failures in unsigned
+// arithmetic (int32 wrap).
 //
-// The minimum is exact in any order.  A NaN price propagates as
-// `jnp.min` and `torch.amin` propagate it.  The reference's f32 sum of the
-// slot prices may round in another order than this slot-order sum; the
-// reference's own mesh parity suite allows that one leaf rtol 1e-6.
+// The reference's f32 sum of the slot prices may round in another order
+// than this slot-order sum; the reference's own mesh parity suite allows
+// that one leaf rtol 1e-6.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "slot_price.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  // the smaller of two floats; NaN wins, as in jnp.min / torch.amin
-  return (isnan(b) || b < a) ? b : a;
-}
 
 __global__ void __launch_bounds__(kThreads) lane_finish_kernel(
     int n_slots, int n_it, int n_zones, int n_ct, int n_cls, int n_ex,
@@ -65,27 +60,12 @@ __global__ void __launch_bounds__(kThreads) lane_finish_kernel(
 
   for (int n = warp; n < n_slots; n += kWarps) {
     const size_t row = static_cast<size_t>(s) * n_slots + n;
-    const uint8_t* v = viable + row * n_it;
-    const uint8_t* zr = zone + row * n_zones;
-    const uint8_t* cr = ct + row * n_ct;
-    float best = INFINITY;
-    for (int i = lane; i < n_it; i += 32) {
-      if (!v[i]) continue;
-      const float* p = it_price + static_cast<size_t>(i) * n_zones * n_ct;
-      for (int z = 0; z < n_zones; ++z) {
-        if (!zr[z]) continue;
-        for (int c = 0; c < n_ct; ++c) {
-          if (cr[c]) best = min_nan(best, p[z * n_ct + c]);
-        }
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      best = min_nan(best, __shfl_down_sync(0xffffffffu, best, off));
-    }
+    const float best = kc::warp_slot_price(
+        open_[row] && pod_count[row] > 0, viable + row * n_it, zone + row * n_zones,
+        ct + row * n_ct, it_price, n_it, n_zones, n_ct, lane);
     if (lane == 0) {
-      const float out = (open_[row] && pod_count[row] > 0) ? best : 0.0f;
-      price_out[row] = out;
-      slot_price[n] = out;
+      price_out[row] = best;
+      slot_price[n] = best;
     }
   }
 

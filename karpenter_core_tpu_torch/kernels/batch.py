@@ -41,6 +41,12 @@ def drop_axis(tree):
     return tree_map(lambda t: t[0], tree)
 
 
+def repeat(tree, n_batch: int):
+    """Every tensor repeated over a new leading tenant axis of ``n_batch``,
+    dense (the kernels take no stride-0 operand)."""
+    return tree_map(lambda t: t.unsqueeze(0).expand((n_batch,) + t.shape).contiguous(), tree)
+
+
 def stack(trees):
     """Per-tenant results stacked on a leading tenant axis, leaf for leaf."""
     first = trees[0]

@@ -2,7 +2,7 @@
 
 Each source in ``karpenter_core_tpu_torch/csrc/`` is compiled by ``nvcc``
 into its own shared library with a plain C interface and loaded with
-``ctypes``:
+``ctypes`` (a source may include the shared headers ``csrc/*.cuh``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -14,7 +14,8 @@ reference's does (K6's ``used + a * req``, K7's water-fill, K10's eviction
 free, K13's scores, the relax family's K14-K18) spell it with the ``__f*_rn``
 intrinsics.  Libraries land in
 ``karpenter_core_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source, so an edited source rebuilds and a stale library is never loaded.
+source and the headers, so an edited source or header rebuilds and a stale
+library is never loaded.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them.  Nothing here runs at import time.
 """
@@ -38,7 +39,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("it_capacity", "fill_priority", "req_merge", "pack_bool", "existing_intake",
            "existing_phase", "spread_quota", "sweep_lanes", "lane_finish", "repair_free",
            "repair_gather", "repair_scatter", "select_offerings", "class_finish", "relax_cost",
-           "simplex_pgd", "relax_round", "relax_materialize")
+           "simplex_pgd", "relax_round", "relax_materialize", "perturb_avail",
+           "replica_finish")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,10 +62,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library's path, named by a hash of its source, of every shared
+    header in ``csrc/`` and of the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [os.path.join(CSRC, f"{name}.cu")] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:

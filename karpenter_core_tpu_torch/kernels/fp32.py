@@ -26,6 +26,13 @@ lengths 1-40, 255-257, 3,000 and 4,097 with values across 2^-20 .. 2^20
 (tests/test_torch_relax.py); a sequential f32 scan differs from it in most
 elements past 16.  The relax family's simplex projection (K16) sums in this
 order.
+
+``tree_sum_plain``: ``jnp.sum`` of float32 rows as XLA's CPU code computes
+it (its tree-reduction rewrite: a reduce-window of 32, then a reduce).
+While a row is longer than 32, it is padded with zeros evenly at both ends
+to a multiple of 32 and each window of 32 is summed in order from +0.0;
+the last row of at most 32 is summed in order from +0.0.  K13's fleet sums
+and K20's replica costs take this order.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ def fma_f32(a, b, c) -> torch.Tensor:
 
 
 CUMSUM_BLOCK = 16  # XLA's CPU scan block
+WINDOW = 32  # XLA's CPU tree-reduction window
 
 
 def _block_scan(x: torch.Tensor) -> torch.Tensor:
@@ -74,3 +82,25 @@ def cumsum_xla_plain(x: torch.Tensor) -> torch.Tensor:
     exclusive = torch.cat([torch.zeros_like(inclusive[..., :1]), inclusive[..., :-1]], dim=-1)
     out = exclusive[..., None] + within
     return out.reshape(x.shape[:-1] + (nb * CUMSUM_BLOCK,))[..., :n]
+
+
+def tree_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of the last axis in XLA's CPU tree order (module
+    doc); leading axes are independent rows."""
+    rows = x.shape[:-1]
+    while x.shape[-1] > WINDOW:
+        n = x.shape[-1]
+        pad = -(-n // WINDOW) * WINDOW - n
+        lo = pad // 2
+        # padding adds +0.0, which leaves a sum started at +0.0 unchanged
+        zeros = torch.zeros(rows + (pad,), dtype=torch.float32, device=x.device)
+        x = torch.cat([zeros[..., :lo], x, zeros[..., lo:]], dim=-1)
+        x = x.reshape(rows + (-1, WINDOW))
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for k in range(WINDOW):
+            acc = acc + x[..., k]
+        x = acc
+    acc = torch.zeros(rows, dtype=torch.float32, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc

@@ -38,11 +38,9 @@ from typing import NamedTuple
 import torch
 
 from karpenter_core_tpu_torch.kernels import build
-from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
+from karpenter_core_tpu_torch.kernels.fp32 import WINDOW, fma_f32, tree_sum_plain
 
 launches = 0  # kernel launches (CUDA path only)
-
-WINDOW = 32  # XLA's CPU tree-reduction window
 
 
 class Weights(NamedTuple):
@@ -64,25 +62,6 @@ def cell_scores_plain(price, risk, throughput, weights: Weights):
     score = fma_f32(torch.tensor(weights.cost_weight, dtype=torch.float32, device=price.device),
                     expected, -penalty)
     return expected, score
-
-
-def tree_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    """The float32 sum of a 1-D tensor in XLA's CPU order (module doc)."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    while x.shape[0] > WINDOW:
-        n = x.shape[0]
-        pad = -(-n // WINDOW) * WINDOW - n
-        lo = pad // 2
-        # padding adds +0.0, which leaves a sum started at +0.0 unchanged
-        x = torch.cat([zero.expand(lo), x, zero.expand(pad - lo)]).reshape(-1, WINDOW)
-        acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-        for k in range(WINDOW):
-            acc = acc + x[:, k]
-        x = acc
-    acc = zero
-    for k in range(x.shape[0]):
-        acc = acc + x[k]
-    return acc
 
 
 def select_offerings_plain(viable, zone, ct, open_, pod_count, price, risk, throughput,

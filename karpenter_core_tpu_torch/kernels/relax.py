@@ -60,8 +60,7 @@ import torch
 
 from karpenter_core_tpu_torch.kernels import build
 from karpenter_core_tpu_torch.kernels.capacity import to_i32
-from karpenter_core_tpu_torch.kernels.fp32 import cumsum_xla_plain, fma_f32
-from karpenter_core_tpu_torch.kernels.objective import WINDOW
+from karpenter_core_tpu_torch.kernels.fp32 import WINDOW, cumsum_xla_plain, fma_f32
 
 I32 = torch.int32
 F32 = torch.float32

@@ -1182,7 +1182,7 @@ def solve_core_batched(
         state = NodeState(*wc.state)
         existing_state = wc.ex_state
         if existing_static is None:
-            existing_static = _tenants(empty_existing_static(
+            existing_static = batch.repeat(empty_existing_static(
                 statics.it_alloc.shape[-1], n_classes, statics.grp_skew.shape[-1],
                 device=sa.it_alloc.device), n_b)
         topo = TopoCounts(*wc.topo)
@@ -1192,11 +1192,6 @@ def solve_core_batched(
             statics, n_b, n_slots, width, n_ports, existing_state, existing_static, n_classes)
     return _scan(class_tensors, statics, existing_static, ft, n_passes,
                  (state, existing_state, topo, remaining0), repair_plan)
-
-
-def _tenants(tree, n_b: int):
-    """Every leaf repeated over a leading tenant axis of ``n_b``."""
-    return batch.tree_map(lambda t: t.unsqueeze(0).expand((n_b,) + t.shape).contiguous(), tree)
 
 
 def _cold_carry(statics: Statics, n_b: int, n_slots: int, width: int, n_ports: int,
@@ -1231,9 +1226,9 @@ def _cold_carry(statics: Statics, n_b: int, n_slots: int, width: int, n_ports: i
         n_next=torch.zeros(n_b, dtype=I32, device=dev),
     )
     if existing_state is None:
-        existing_state = _tenants(
+        existing_state = batch.repeat(
             empty_existing_state(n_res, n_keys, width, n_zones, n_ct, n_ports, device=dev), n_b)
-        existing_static = _tenants(empty_existing_static(n_res, n_classes, g1, device=dev), n_b)
+        existing_static = batch.repeat(empty_existing_static(n_res, n_classes, g1, device=dev), n_b)
     if existing_state.kmask.dtype == torch.bool:
         existing_state = existing_state._replace(kmask=mask_ops.pack_mask(existing_state.kmask))
 

@@ -8,8 +8,10 @@ runs under (``jax_threefry_partitionable=True``):
 
   - ``threefry2x32``: Random123's Threefry-2x32, 20 rounds (JAX's
     ``_src/prng.py`` ``threefry_2x32``);
-  - ``prng_key(seed)``: ``PRNGKey`` of a 32-bit seed, ``[seed >> 32, seed &
-    0xFFFFFFFF]`` (``threefry_seed``);
+  - ``prng_key(seed)``: ``PRNGKey(seed)`` as the reference builds it with
+    64-bit types off: the seed becomes an int32 (its low 32 bits), so the
+    key is ``[0, seed & 0xFFFFFFFF]`` (``threefry_seed``; a seed of 2**32 + 3
+    gives the key of 3);
   - ``split`` and ``random_bits``: the partitionable forms
     (``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``):
     counters ``(0, i)`` from ``iota_2x32_shape``; 32-bit bits are
@@ -23,8 +25,9 @@ memoized by ``(seed, n)``: it is computed once and, in ``relax.kernel``,
 uploaded once per device.  That memo stands in for the reference's
 ``utils/compilecache.relax_callable`` (:580): the port runs eagerly and has
 no executable to cache, and the permutation is the one input worth keeping.
-The mesh programs' ``jax.random.uniform`` masks (ROADMAP 1.8) draw from the
-same generator.
+The what-if studies' ``jax.random.uniform`` draws (``parallel.mesh``) come
+from the same generator: ``uniform`` here is the host version, and K19
+(``kernels/perturb.py``) computes the same draw on the card.
 """
 
 from __future__ import annotations
@@ -59,9 +62,9 @@ def threefry2x32(key, x0, x1):
 
 
 def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)`` (raw uint32[2]) for 0 <= seed < 2**64."""
-    seed = int(seed)
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=np.uint32)
+    """``jax.random.PRNGKey(seed)`` (raw uint32[2]) with 64-bit types off:
+    only the seed's low 32 bits reach the key."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
 
 
 def _bits_pair(key, n: int):
@@ -79,6 +82,21 @@ def random_bits(key, n: int) -> np.ndarray:
     """``jax.random.bits(key, (n,), uint32)``."""
     b1, b2 = _bits_pair(key, n)
     return b1 ^ b2
+
+
+def uniform(key, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32)`` (minval 0, maxval 1) in
+    the partitionable mode, bit for bit: each cell's 32 bits are ``b1 ^ b2``
+    at counters ``(hi, lo)`` of its row-major flat index
+    (``iota_2x32_shape``); their top 23 bits become the mantissa of a float
+    in [1, 2), less 1.  The reference then takes ``max(0, x * (1 - 0) +
+    0)``, which leaves every such x as it is."""
+    shape = tuple(int(d) for d in shape)
+    idx = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.uint64)
+    b1, b2 = threefry2x32(key, (idx >> np.uint64(32)).astype(np.uint32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,7 +1,7 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
     python3 profile_solve.py [--existing | --consolidation | --churn | --policy | --relax |
-                              --tenants] [--trace PATH]
+                              --tenants | --montecarlo] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -58,6 +58,13 @@ plane's batched program); beside it, traced the same way, tenant 0's solo
 busy shares, each kernel's device time per launch, and the batched call's
 peak device memory.
 
+With ``--montecarlo`` the profiled call is the Monte-Carlo what-if study
+(phase 9 (b) of ``chip_smoke.py``): ``parallel.mesh.monte_carlo_solve`` of
+that backlog at 1,024 replicas, spot offerings interrupted at rate 0.3
+(seed 0), after one unprofiled study.  It reports the wall, the chunking
+(replicas a chunk, each chunk's host reads), the peak device memory, the
+busy share and each kernel's device time, K19 and K20 included.
+
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
 """
@@ -95,6 +102,8 @@ PORT_KERNELS = {
     "relax_cost_sum_kernel": "relax_round (relaxed_cost)",
     "materialize_groups_kernel": "relax_materialize (groups)",
     "materialize_slots_kernel": "relax_materialize (slots)",
+    "perturb_avail_kernel": "perturb_avail",
+    "replica_finish_kernel": "replica_finish",
 }
 
 
@@ -267,6 +276,54 @@ def profile_tenants(prof_factory, smi: str) -> tuple:
                   "slots": preps[0].n_slots, **reports}
 
 
+def profile_montecarlo(prof_factory, smi: str) -> tuple:
+    """(profiler, report) of a warm 1,024-replica Monte-Carlo study of the
+    headline backlog."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.parallel import mesh
+    from karpenter_core_tpu_torch.testing.workloads import build_inputs
+
+    solver, pods = build_inputs(50_000, 1000, 5)
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    snapshot = solver.encode(ingest)
+    chunks = []
+    batched = solve_ops.solve_core_batched
+
+    def counted(*args, **kwargs):
+        before = solve_ops.host_syncs
+        out = batched(*args, **kwargs)
+        chunks.append((int(out.failed.shape[0]), solve_ops.host_syncs - before))
+        return out
+
+    def study():
+        return mesh.monte_carlo_solve(snapshot, 1024, seed=0, interruption_rate=0.3)
+
+    study()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solve_ops.solve_core_batched = counted
+    try:
+        with prof_factory() as prof:
+            t0 = time.perf_counter()
+            result = study()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        solve_ops.solve_core_batched = batched
+    summary = device_summary(prof)
+    d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
+    return prof, {
+        "card": smi, "path": "montecarlo", "replicas": 1024, "wall_s": wall,
+        "replicas_per_chunk": [c[0] for c in chunks],
+        "host_syncs_per_chunk": [c[1] for c in chunks], "device_to_host_copies": d2h,
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "device_busy_share_of_call": summary["device_busy_us"] / 1e6 / wall,
+        "cost_mean": result["cost_mean"], "failed_mean": result["failed_mean"], **summary,
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
@@ -285,6 +342,8 @@ def main() -> None:
     mode.add_argument("--tenants", action="store_true",
                       help="eight headline tenants in one batched dispatch, as chip_smoke.py "
                            "phase 8 (a), beside one solo dispatch")
+    mode.add_argument("--montecarlo", action="store_true",
+                      help="the 1,024-replica what-if study, as chip_smoke.py phase 9 (b)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -307,10 +366,14 @@ def main() -> None:
     )
     print(smi.stdout.strip(), flush=True)
     build.build_all()
-    if args.consolidation or args.churn or args.tenants:
+    if args.consolidation or args.churn or args.tenants or args.montecarlo:
         if args.consolidation:
             prof, report = profile_consolidation(
                 lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
+        elif args.montecarlo:
+            prof, report = profile_montecarlo(
+                lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                smi.stdout.strip())
         elif args.tenants:
             prof, report = profile_tenants(
                 lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),

@@ -184,10 +184,10 @@ def fixture_problem(name) -> Problem:
 # -- the JAX package's sweep on one problem ------------------------------------
 
 
-def _jax_sweep(problem: Problem, sizes):
+def sweep_inputs(problem: Problem):
     """``TPUConsolidationSearch.compute_command``'s set-up
-    (karpenter_core_tpu/solver/consolidation.py:126-163), then ``run_sweep``
-    over ``sizes`` on the single-device program."""
+    (karpenter_core_tpu/solver/consolidation.py:126-163): (snapshot, ex_state,
+    ex_static, rank, ex_cls_count), the snapshot's counts the base ones."""
     jsearch, state_nodes, bound_pods, candidates = problem.j
     all_pods = [p for c in candidates for p in c.pods]
     snapshot = jsearch.solver.encode(all_pods, state_nodes, bound_pods)
@@ -210,8 +210,14 @@ def _jax_sweep(problem: Problem, sizes):
     rank = np.full(E, 1 << 30, dtype=np.int32)
     for i, candidate in enumerate(candidates):
         rank[node_index[candidate.node.name]] = i
-    out = jcons.run_sweep(snapshot, ex_state, ex_static, rank, ex_cls_count,
-                          np.asarray(sizes, dtype=np.int32), mesh_axes=None)
+    return snapshot, ex_state, ex_static, rank, ex_cls_count
+
+
+def _jax_sweep(problem: Problem, sizes):
+    """``sweep_inputs``, then ``run_sweep`` over ``sizes`` on the
+    single-device program."""
+    out = jcons.run_sweep(*sweep_inputs(problem), np.asarray(sizes, dtype=np.int32),
+                          mesh_axes=None)
     return jax.device_get(out)
 
 

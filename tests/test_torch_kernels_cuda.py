@@ -22,8 +22,10 @@ from karpenter_core_tpu_torch.kernels import (
     consolidate,
     existing,
     fill,
+    montecarlo,
     objective,
     packbits,
+    perturb,
     relax,
     repair,
     reqmerge,
@@ -687,3 +689,51 @@ def test_spread_quota_tenant_axis_matches_plain(card, n_b):
                 np.int32(rng.integers(0, 300)), np.bool_(b % 3 != 2)]
         sets.append(tuple(torch.as_tensor(np.asarray(a)).to(card) for a in args))
     _check_batched(spread.spread_quota, spread.spread_quota_plain, sets)
+
+
+# -- K19 and K20: the what-if studies -------------------------------------------
+
+
+@pytest.mark.parametrize("n_rep,n_it,n_ct", [(1024, 1000, 2), (7, 13, 3), (1, 1, 1)])
+@pytest.mark.parametrize("seed", [0, 7, 2**32 + 3])
+def test_perturb_avail_matches_plain(card, n_rep, n_it, n_ct, seed):
+    """Both modes bit for bit: a spot rate (0, 0.3, 1) and a risk plane
+    with zeros, ones and a NaN."""
+    rng = np.random.default_rng(n_it)
+    avail = torch.as_tensor(rng.random((n_it, 3, n_ct)) < 0.8).to(card)
+    is_spot = torch.as_tensor(np.arange(n_ct) % 2 == 0).to(card)
+    for rate in (0.0, 0.3, 1.0):
+        got = perturb.perturb_avail(avail, n_rep, seed, rate=rate, is_spot=is_spot)
+        assert torch.equal(got, perturb.perturb_avail_plain(avail, n_rep, seed, rate=rate,
+                                                            is_spot=is_spot))
+    risk = rng.random((n_it, 3, n_ct)).astype(np.float32)
+    risk[rng.random(risk.shape) < 0.2] = 0.0
+    risk[rng.random(risk.shape) < 0.2] = 1.0
+    risk.flat[0] = np.nan
+    risk = torch.as_tensor(risk).to(card)
+    assert torch.equal(perturb.perturb_avail(avail, n_rep, seed, risk=risk),
+                       perturb.perturb_avail_plain(avail, n_rep, seed, risk=risk))
+
+
+@pytest.mark.parametrize("n_rep,n_slots,n_it,n_cls", [
+    (8, 8192, 1000, 16),  # the headline's slots
+    (5, 100, 40, 3),  # windows padded at both ends
+    (3, 16, 40, 2),  # one window
+    (2, 40000, 7, 1),  # three levels of the tree
+])
+def test_replica_finish_matches_plain(card, n_rep, n_slots, n_it, n_cls):
+    rng = np.random.default_rng(n_slots)
+
+    def t(a):
+        return torch.as_tensor(a).to(card)
+
+    price = (rng.integers(1, 5000, (n_it, 3, 2)) * 1.7e-3).astype(np.float32)
+    price[rng.random(price.shape) < 0.3] = np.inf
+    args = (
+        t(rng.integers(-3, 2**20, (n_rep, n_cls, n_slots)).astype(np.int32)),
+        t(rng.integers(0, 2**30, (n_rep, n_cls)).astype(np.int32)),  # sums wrap
+        t(rng.random((n_rep, n_slots, n_it)) < 0.3), t(rng.random((n_rep, n_slots, 3)) < 0.6),
+        t(rng.random((n_rep, n_slots, 2)) < 0.7), t(rng.random((n_rep, n_slots)) < 0.9),
+        t(rng.integers(0, 3, (n_rep, n_slots)).astype(np.int32)), t(price),
+    )
+    _equal(montecarlo.replica_finish(*args), montecarlo.replica_finish_plain(*args))
