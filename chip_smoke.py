@@ -2,12 +2,12 @@
 into an empty cluster and into a live 5,000-node cluster, multi-node
 consolidation of that cluster, the warm repair under steady churn, the
 policy objective, the relax solver family, the coalesced multi-tenant
-solve and the what-if studies.
+solve, the what-if studies and the pipelined churn tick.
 
     python3 chip_smoke.py
 
-Builds the twenty hand-written CUDA kernels from ``karpenter_core_tpu_torch/
-csrc`` (one nvcc per source, all at once), then:
+Builds the twenty-two hand-written CUDA kernels from the twenty sources in
+``karpenter_core_tpu_torch/csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
      (the reference benchmark's makeDiversePods mix) through
@@ -53,7 +53,8 @@ csrc`` (one nvcc per source, all at once), then:
      leaf whose f32 sum the reference lets vary with reduction order).
      Then K8 and K9 against their twins at this path's shapes.
   5. churn path — the incremental session's serial delta tick
-     (``IncrementalSolveSession.solve``), with FallbackPolicy(enabled=True,
+     (``IncrementalSolveSession.solve`` under KC_PIPELINE=0, so repairs
+     write fresh planes: K10 and K12), with FallbackPolicy(enabled=True,
      audit_interval=0, max_delta_fraction=0.5):
      (a) the 50,000-pod backlog of phase 1, seeded with a full solve, then
          5 ticks of ``testing.workloads.churn_tick`` (2 % of the pods
@@ -153,6 +154,24 @@ csrc`` (one nvcc per source, all at once), then:
      0.3: the same pins, with ``best_replica`` and ``expected_cost``
      printed.  Each study prints its wall, chunk size, each chunk's host
      reads and launches, and its peak memory.
+ 10. pipelined tick — the incremental session's deferred ticks
+     (``solve(deferred=True)``: tick k's results consumed after tick k+1's
+     dispatch, the fetch on a copy stream, the barrier under the watchdog)
+     on phase 1's backlog: (a) ``bench.py pipeline_line``'s anchor regime
+     (FallbackPolicy(materialized=True), 6 ticks of 2 % churn after a
+     warm-up tick) serial (KC_PIPELINE=0) and deferred: every tick's record
+     equal, tick 0 at 7,162 nodes; per-tick means and the median
+     hidden / (hidden + exposed) printed; (b) phase 5's steady repair
+     (CHURN_POLICY, 5 ticks of ``churn_tick``) serial and deferred with
+     carry donation: records, evictions, holes and windows equal (the last
+     three pinned in HEADLINE_CHURN), 5 donated dispatches, no realloc, no
+     open ticket, no staging realloc, K21 and K22 launched and K10 / K12
+     not, peak memory per tick printed for both legs; (c) K21 and K22
+     against their twins and against K10 / K12 on a clone, on (b)'s last
+     tick's inputs; (d) a deferred tick whose barrier a ~2 s
+     ``torch.cuda._sleep`` on the compute stream holds past a 0.2 s
+     watchdog floor: it re-anchors with reason ``watchdog-timeout`` to a
+     serial full solve's records, its donation canceled, no ticket open.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
 integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
@@ -180,6 +199,7 @@ run without one.
 """
 
 import functools
+import gc
 import json
 import os
 import statistics
@@ -312,6 +332,12 @@ CROSSED_KERNELS = WHATIF_KERNELS + ("sweep_lanes",)
 # of add, rotate and xor, 5 key injections, the float and the threshold)
 THREEFRY_OPS = 120
 
+# phase 10: the pipelined tick (bench.py pipeline_line's anchor regime,
+# ticks after the warm-up tick), and the compute-stream stall that holds the
+# barrier past the watchdog floor
+ANCHOR_TICKS = 6
+STALL_S = 2.0
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate
 
@@ -382,7 +408,10 @@ def launch_counts() -> dict:
         "existing_phase": existing.phase_launches, "spread_quota": spread.launches,
         "sweep_lanes": consolidate.lanes_launches, "lane_finish": consolidate.finish_launches,
         "repair_free": repair.free_launches, "repair_gather": repair.gather_launches,
-        "repair_scatter": repair.scatter_launches, "select_offerings": objective.launches,
+        "repair_scatter": repair.scatter_launches,
+        "repair_free_inplace": repair.free_inplace_launches,
+        "repair_scatter_inplace": repair.scatter_inplace_launches,
+        "select_offerings": objective.launches,
         "class_finish": classfinish.launches, "relax_cost": relax.cost_launches,
         "simplex_pgd": relax.pgd_launches, "relax_round": relax.round_launches,
         "relax_materialize": relax.materialize_launches, "perturb_avail": perturb.launches,
@@ -401,6 +430,7 @@ def reset_launches() -> None:
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
     repair.free_launches = repair.gather_launches = repair.scatter_launches = 0
+    repair.free_inplace_launches = repair.scatter_inplace_launches = 0
     relax.cost_launches = relax.pgd_launches = relax.round_launches = 0
     relax.materialize_launches = 0
 
@@ -2285,6 +2315,356 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     path_launches["whatif"] = launches
 
 
+def tick_record(results) -> tuple:
+    """A tick's placements by pod name (``tests/test_pipeline.py``'s
+    ``_tick_record``, by name: two legs built from one pod list share their
+    names, and ``churn_tick`` names its replacements by tick)."""
+    new = tuple(sorted(tuple(sorted(p.metadata.name for p in d.pods)) for d in results.new_nodes))
+    existing = tuple(sorted((name, tuple(sorted(p.metadata.name for p in pods)))
+                            for name, pods in results.existing_assignments.items()))
+    return new, existing, tuple(sorted(p.metadata.name for p in results.failed_pods))
+
+
+def consume(results) -> int:
+    """The launch path's reads of a tick's decisions (``bench.py
+    pipeline_line``): offering lists and request vectors."""
+    touched = 0
+    for d in results.new_nodes:
+        touched += len(d.instance_type_names[:4]) + len(d.zones) + len(d.requests)
+    return touched
+
+
+def clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(x) for x in tree)
+    return tree
+
+
+def set_pipeline(on: bool) -> None:
+    os.environ["KC_PIPELINE"] = "1" if on else "0"
+
+
+def pipeline_path(records, path_launches) -> dict:
+    """Phase 10: the pipelined tick of the warm-repair session at the
+    headline's full width.  (a) ``bench.py pipeline_line``'s anchor regime
+    (FallbackPolicy(materialized=True): every tick re-anchors) over
+    ``ANCHOR_TICKS`` ticks of 2 % churn, serial (KC_PIPELINE=0) and deferred
+    (tick k consumed after tick k+1's dispatch): every tick's record equal.
+    (b) Phase 5's steady repair (``CHURN_POLICY``, 2 % churn), serial and
+    deferred with carry donation: records, evictions and windows equal, the
+    donation and staging ledgers, K21 and K22 launched and K10 and K12 not.
+    (c) K21 and K22 against their twins and against K10 / K12 on a clone,
+    on (b)'s last tick's inputs.  (d) A barrier held up past the watchdog
+    floor by a sleep on the compute stream: the tick re-anchors with reason
+    ``watchdog-timeout`` to a serial full solve's records."""
+    import statistics
+
+    from karpenter_core_tpu_torch.kernels import repair
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+    from karpenter_core_tpu_torch.solver.incremental import (
+        FallbackPolicy,
+        IncrementalSolveSession,
+    )
+    from karpenter_core_tpu_torch.testing.workloads import build_inputs, churn_tick
+    from karpenter_core_tpu_torch.utils import pipeline as pipeline_mod
+    from karpenter_core_tpu_torch.utils import watchdog
+
+    solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+
+    def fresh_ingest():
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        return ingest
+
+    # -- (a) the anchor regime ------------------------------------------------
+    def anchor_leg(pipelined: bool) -> dict:
+        set_pipeline(pipelined)
+        ingest = fresh_ingest()
+        session = IncrementalSolveSession(solver, FallbackPolicy(
+            enabled=True, audit_interval=0, max_delta_fraction=0.5, materialized=True))
+        handle = session.solve(ingest, deferred=pipelined)
+        first = handle.result() if pipelined else handle
+        consume(first)
+        recs, walls, overlaps, reps, pending = [tick_record(first)], [], [], {}, None
+        for tick in range(ANCHOR_TICKS + 1):  # tick 0 warms; excluded from the means
+            t0 = time.perf_counter()
+            churn_tick(ingest, tick, reps)
+            if pipelined:
+                h = session.solve(ingest, deferred=True)
+                if pending is not None:
+                    res = pending.result()
+                    consume(res)
+                    recs.append(tick_record(res))
+                    o = pipeline_mod.last_overlap()
+                    if o["hidden_s"] + o["exposed_s"] > 0:
+                        overlaps.append(o["hidden_s"] / (o["hidden_s"] + o["exposed_s"]))
+                pending = h
+            else:
+                res = session.solve(ingest)
+                consume(res)
+                recs.append(tick_record(res))
+            torch.cuda.synchronize()
+            if tick > 0:
+                walls.append(time.perf_counter() - t0)
+        if pending is not None:
+            res = pending.result()
+            consume(res)
+            recs.append(tick_record(res))
+        return {"records": recs, "tick_s": statistics.mean(walls), "walls": walls,
+                "overlap": statistics.median(overlaps) if overlaps else None,
+                "modes": dict(session.mode_counts), "aggregates": session.aggregates(),
+                "first": (len(first.new_nodes), len(first.failed_pods))}
+
+    t0 = time.perf_counter()
+    serial_a = anchor_leg(False)
+    deferred_a = anchor_leg(True)
+    print(json.dumps({"pipeline_anchor": {
+        "ticks": ANCHOR_TICKS, "serial_tick_s": serial_a["tick_s"],
+        "deferred_tick_s": deferred_a["tick_s"], "serial_walls": serial_a["walls"],
+        "deferred_walls": deferred_a["walls"], "overlap_median": deferred_a["overlap"],
+        "modes": deferred_a["modes"], "wall_s": time.perf_counter() - t0}}), flush=True)
+    if serial_a["first"] != (EXPECTED_NODES, 0) or deferred_a["first"] != (EXPECTED_NODES, 0):
+        fail(f"pipeline anchor: tick 0 gave {serial_a['first']} / {deferred_a['first']} "
+             f"(nodes, failed), expected ({EXPECTED_NODES}, 0)")
+    if serial_a["records"] != deferred_a["records"]:
+        bad = [i for i, (x, y) in enumerate(zip(serial_a["records"], deferred_a["records"]))
+               if x != y]
+        fail(f"pipeline anchor: the deferred records differ from the serial ones at ticks {bad}")
+    if serial_a["modes"] != deferred_a["modes"] or \
+            serial_a["aggregates"] != deferred_a["aggregates"]:
+        fail(f"pipeline anchor: {deferred_a['modes']} {deferred_a['aggregates']}, serial "
+             f"{serial_a['modes']} {serial_a['aggregates']}")
+    print(f"pipeline path (a): {ANCHOR_TICKS + 2} anchor-regime records equal, serial and "
+          "deferred", flush=True)
+
+    # -- (b) the steady repair with donation -----------------------------------
+    recorded = {}
+    originals = {name: getattr(solve_ops, name)
+                 for name in ("repair_free", "scatter_repair_window")}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            if kwargs.get("inplace"):
+                recorded[name] = clone_tree(args)
+            return originals[name](*args, **kwargs)
+        return call
+
+    def steady_leg(pipelined: bool) -> dict:
+        set_pipeline(pipelined)
+        gc.collect()  # an earlier leg's session cycles hold device memory
+        ingest = fresh_ingest()
+        session = IncrementalSolveSession(solver, FallbackPolicy(**CHURN_POLICY))
+        handle = session.solve(ingest, deferred=pipelined)
+        if pipelined:
+            handle.result()
+        torch.cuda.synchronize()
+        pipeline_mod.reset_stats()
+        reset_launches()
+        recs, rows, reps, pending, staging_after_first = [], [], {}, None, None
+        for tick in range(len(HEADLINE_CHURN["evicted"])):
+            evicted, _ = churn_tick(ingest, tick, reps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if pipelined:
+                h = session.solve(ingest, deferred=True)
+                window = session.last_window
+                if pending is not None:
+                    recs.append(tick_record(pending.result()))
+                pending = h
+            else:
+                recs.append(tick_record(session.solve(ingest)))
+                window = session.last_window
+            torch.cuda.synchronize()
+            rows.append({"tick": tick, "wall_s": time.perf_counter() - t0, **session.stages,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "peak_above_start_bytes": torch.cuda.max_memory_allocated() - before,
+                         "evicted": len(evicted), "hole_slots": session.last_evicted["hole_slots"],
+                         "window": None if window is None else len(window[0])})
+            if tick == 0:
+                staging_after_first = pipeline_mod.stats()["staging_reallocs"]
+        if pending is not None:
+            recs.append(tick_record(pending.result()))
+        torch.cuda.synchronize()
+        return {"records": recs, "rows": rows, "launches": launch_counts(),
+                "stats": pipeline_mod.stats(), "staging_after_first": staging_after_first,
+                "modes": dict(session.mode_counts), "aggregates": session.aggregates(),
+                "signature": session.node_signature()}
+
+    serial_b = steady_leg(False)
+    deferred_b = steady_leg(True)
+    # the same ticks once more, recording the in-place kernels' inputs for
+    # (c): the copies would count in the measured legs' peak memory
+    for name in originals:
+        setattr(solve_ops, name, recording(name))
+    try:
+        if steady_leg(True)["records"] != deferred_b["records"]:
+            fail("pipeline steady: a second deferred leg gave other records")
+    finally:
+        for name, value in originals.items():
+            setattr(solve_ops, name, value)
+    for label, leg in (("serial", serial_b), ("deferred", deferred_b)):
+        print(json.dumps({"pipeline_steady": label, "ticks": leg["rows"],
+                          "stats": leg["stats"], "modes": leg["modes"],
+                          "launches": {k: v for k, v in leg["launches"].items() if v}}),
+              flush=True)
+    n_ticks = len(HEADLINE_CHURN["evicted"])
+    for tick, row in enumerate(deferred_b["rows"]):
+        want = {k: HEADLINE_CHURN[k][tick] for k in ("evicted", "hole_slots", "window")}
+        if {k: row[k] for k in want} != want:
+            fail(f"pipeline steady tick {tick}: {row}, the JAX package's answer is {want}")
+    if serial_b["records"] != deferred_b["records"]:
+        fail("pipeline steady: the deferred records differ from phase 5's serial session's")
+    if (deferred_b["modes"] != {"full": 1, "delta": n_ticks} or serial_b["modes"] !=
+            deferred_b["modes"] or deferred_b["signature"] != serial_b["signature"]):
+        fail(f"pipeline steady: modes {deferred_b['modes']} / {serial_b['modes']}, or the "
+             "lineages differ")
+    if deferred_b["aggregates"] != HEADLINE_CHURN["aggregates"]:
+        fail(f"pipeline steady: {deferred_b['aggregates']}, expected "
+             f"{HEADLINE_CHURN['aggregates']}")
+    st = deferred_b["stats"]
+    if (st["donated"], st["donation_reallocs"], st["tickets_open"], st["donation_canceled"]) != \
+            (n_ticks, 0, 0, 0):
+        fail(f"pipeline steady: ledger {st}, expected {n_ticks} donated, 0 reallocs, 0 open")
+    if st["staging_reallocs"] != deferred_b["staging_after_first"] or st["staging_reallocs"]:
+        fail(f"pipeline steady: the staging ring reallocated ({st})")
+    launches = deferred_b["launches"]
+    check_launched(launches, ("repair_free_inplace", "repair_scatter_inplace", "repair_gather"),
+                   "pipelined churn path")
+    if launches["repair_free"] or launches["repair_scatter"]:
+        fail(f"pipeline steady: K10 / K12 launched on the donating leg ({launches})")
+    if serial_b["launches"]["repair_free_inplace"] or serial_b["launches"][
+            "repair_scatter_inplace"]:
+        fail("pipeline steady: K21 / K22 launched with KC_PIPELINE=0")
+    print(f"pipeline path (b): {n_ticks} deferred donating ticks equal to the serial "
+          "session's, ledgers balanced, K21/K22 only", flush=True)
+
+    # -- (c) K21 and K22 on the last tick's inputs -------------------------------
+    carry, free_new, free_ex, requests, member, own_inv = recorded["repair_free"]
+    st_, ex, topo = carry.state, carry.ex_state, carry.topo
+    k21 = (st_.used, st_.pod_count, topo.fwd_new, topo.inv_new, ex.used, ex.pod_count,
+           topo.fwd_ex, topo.inv_ex)
+    rest = (free_new, free_ex, requests, member, own_inv)
+    k10_out = repair.repair_free(*clone_tree(k21), *rest)
+    k21_out = repair.repair_free(*clone_tree(k21), *rest, inplace=True)
+    if max_abs_err(k21_out, k10_out) != 0.0:
+        fail("repair_free_inplace differs from K10 on a clone")
+    work_k, work_p = clone_tree(k21), clone_tree(k21)
+    n_cls, n_slots = free_new.shape
+    n_res, g1 = requests.shape[1], member.shape[1]
+    columns = n_slots + free_ex.shape[1]
+    free_t = free_new.t().float().contiguous()
+    record_kernel(
+        records, "repair_free_inplace", "karpenter_core_tpu_torch/csrc/repair_free.cu",
+        "karpenter_core_tpu/ops/solve.py:2012", launches["repair_free_inplace"],
+        lambda: repair.repair_free(*work_k, *rest, inplace=True),
+        lambda: repair.repair_free_inplace_plain(*work_p, *rest),
+        nbytes(*k21, *rest) + nbytes(*k21), 2 * n_cls * columns * (n_res + 2 * g1 + 1),
+        library_fn=lambda: torch.matmul(free_t, requests),
+    )
+    full, window, idx, n_open = recorded["scatter_repair_window"]
+    w_rows = tuple(getattr(window.state, f) for f in repair.ROW_PLANES)
+    win = (w_rows, window.topo.fwd_new, window.topo.inv_new, window.state.n_next, idx, n_open)
+
+    def full_planes():
+        c = clone_tree(full)
+        return (tuple(getattr(c.state, f) for f in repair.ROW_PLANES), c.topo.fwd_new,
+                c.topo.inv_new, c.state.n_next)
+
+    k12_out = repair.scatter_window(*full_planes(), *win)
+    k22_out = repair.scatter_window(*full_planes(), *win, inplace=True)
+    if max_abs_err(k22_out, k12_out) != 0.0:
+        fail("repair_scatter_inplace differs from K12 on a clone")
+    work_k, work_p = full_planes(), full_planes()
+    n_win = idx.shape[0]
+    row_bytes = sum(nbytes(p) // p.shape[0] for p in w_rows)
+    record_kernel(
+        records, "repair_scatter_inplace", "karpenter_core_tpu_torch/csrc/repair_scatter.cu",
+        "karpenter_core_tpu/ops/solve.py:2115", launches["repair_scatter_inplace"],
+        lambda: repair.scatter_window(*work_k, *win, inplace=True),
+        lambda: repair.scatter_window_inplace_plain(*work_p, *win),
+        2 * n_win * row_bytes + 2 * (2 * g1 * n_win * 4) + nbytes(idx) + 12,
+        n_win * 2,
+    )
+    print(f"pipeline path kernels exact: K21 (C={n_cls}, N={n_slots}, E={free_ex.shape[1]}) "
+          f"and K22 (S={n_win} of N={n_slots}), each equal to its twin and to K10 / K12 on a "
+          "clone", flush=True)
+
+    # -- (d) a barrier past the watchdog deadline ------------------------------
+    set_pipeline(True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(100_000_000 * STALL_S * 1e3 / start.elapsed_time(end))
+    saved = {k: os.environ.get(k) for k in ("KC_WATCHDOG_FLOOR_S", "KC_WATCHDOG_COLD_MULT")}
+    os.environ["KC_WATCHDOG_FLOOR_S"], os.environ["KC_WATCHDOG_COLD_MULT"] = "0.2", "1"
+    try:
+        ingest = fresh_ingest()
+        session = IncrementalSolveSession(solver, FallbackPolicy(**CHURN_POLICY))
+        session.solve(ingest, deferred=True).result()
+        churn_tick(ingest, 0, {})
+        watchdog.reset_stats()
+        pipeline_mod.reset_stats()
+        stall = {"left": 1}
+        real_fetch = solver.begin_fetch
+
+        def stalled_fetch(outputs, ring=None):
+            if stall["left"]:
+                stall["left"] -= 1
+                torch.cuda._sleep(cycles)  # queued on the compute stream before the ticket
+            return real_fetch(outputs, ring=ring)
+
+        solver.begin_fetch = stalled_fetch
+        t0 = time.perf_counter()
+        try:
+            handle = session.solve(ingest, deferred=True)
+            res = handle.result()
+        finally:
+            del solver.begin_fetch
+        torch.cuda.synchronize()
+        settle_s = time.perf_counter() - t0
+        st = pipeline_mod.stats()
+        reference = IncrementalSolveSession(solver, FallbackPolicy(enabled=False))
+        want = tick_record(reference.solve(ingest))
+        row = {"reason": session.last_reason, "mode": session.last_mode, "stats": st,
+               "watchdog": watchdog.stats(), "stall_cycles": cycles, "wall_s": settle_s}
+        print(json.dumps({"pipeline_timeout": row}), flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (session.last_mode, session.last_reason) != ("full", "watchdog-timeout"):
+        fail(f"pipeline timeout: {session.last_mode} ({session.last_reason}), expected a full "
+             "re-anchor for watchdog-timeout")
+    if tick_record(res) != want or session.node_signature() != reference.node_signature():
+        fail("pipeline timeout: the re-anchor differs from a serial full solve")
+    if st["donated"] != 1 or st["donation_canceled"] != st["donated"] or st["tickets_open"]:
+        fail(f"pipeline timeout: ledger {st}")
+    if watchdog.stats()["timeouts"] != {pipeline_mod.FETCH_SITE: 1}:
+        fail(f"pipeline timeout: watchdog {watchdog.stats()}")
+    print("pipeline path (d): the stalled barrier timed out at the floor and re-anchored to a "
+          "serial full solve; ledgers balanced", flush=True)
+    for rec in records:
+        per_path = rec.setdefault("launches_per_path", {})
+        for path, counts in path_launches.items():
+            per_path.setdefault(path, counts.get(rec["name"], 0))
+        per_path.setdefault("crossed", 0)
+        per_path.setdefault("tenants", 0)
+        rec.setdefault("tenants", 0)
+        per_path["pipeline"] = launches[rec["name"]]
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2524,21 +2904,26 @@ def main() -> None:
     del crossed_inputs
     path_launches = {"cold": launches, "existing": existing_launches,
                      "consolidation": consolidation_launches}
+    set_pipeline(False)  # phase 5 is the serial tick: K10 and K12
     churn_launches = churn_path(records, mid_cluster, path_launches)
+    set_pipeline(True)
     path_launches["churn"] = churn_launches
     path_launches["policy"] = policy_path(records, mid_cluster, path_launches)
     path_launches["relax"] = relax_path(records, path_launches)
     tenant_path(records, path_launches)
     whatif_path(records, path_launches, solver, pods, kernel_out, crossed_launches)
+    del solver, kernel_out
+    pipeline_path(records, path_launches)
     print("library_ms: K8's is one torch.matmul of the f32 lane-subset mask with the f32 "
-          "count plane; K10's one torch.matmul of the f32 eviction plane with the class "
-          "requests; null for the others — no single PyTorch call computes them (K13: a "
+          "count plane; K10's and K21's one torch.matmul of the f32 eviction plane with the "
+          "class requests; null for the others — no single PyTorch call computes them (K13: a "
           "masked argmin with the spot tie rule and ordered sums; K15: sixteen padded planes "
           "with a group remap; K14: a masked min over capacity types and templates with its "
           "argmin; K16: a sort, a blocked scan, a count and a threshold, iterated under a "
           "global stop; K17: an argmin, floors and a seeded stable sort with an audit; K18: "
           "a prefix over cells and a gather of slot rows; K19: a counter-based threefry draw "
-          "and a threshold; K20: masked minima over offerings and sums in XLA's order)",
+          "and a threshold; K20: masked minima over offerings and sums in XLA's order; K22: "
+          "row copies into thirteen planes, two column copies and an add)",
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,16 @@
 // multiply-add a class, classes ascending (`__fmaf_rn`), then `__fsub_rn`
 // from the usage.  int32 sums wrap as the reference's do (unsigned
 // arithmetic), in any order.
+//
+// K21, `kc_repair_free_inplace`, replaces `repair_free_donated` (ops/solve.py:
+// 2012, the same body with the carry donated): the same kernel with each
+// output pointer equal to its input pointer, so the carry's used, pod_count,
+// fwd_* and inv_* planes are freed where they lie and no full-width plane is
+// allocated.  That aliasing is legal because each element is read and then
+// written by one thread only, and because no pointer of `Side` carries
+// `__restrict__`: keep it so.  `req`, `member` and `own_inv` are restrict
+// and are never carry planes.  Same bytes, same bound, same order of the
+// f32 sum as K10.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// No member is `__restrict__`: K21 passes each output equal to its input.
 struct Side {
   int cols;
   const int32_t* free_;       // [C, cols]
@@ -126,4 +137,15 @@ extern "C" int kc_repair_free(
       n_cls, n_res, g1, static_cast<const float*>(req), static_cast<const int32_t*>(member),
       static_cast<const int32_t*>(own_inv), new_side, ex_side);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kc_repair_free_inplace(
+    int n_new, int n_ex, int n_cls, int n_res, int g1, const void* req, const void* member,
+    const void* own_inv, const void* free_new, void* used_new, void* pod_count_new,
+    void* fwd_new, void* inv_new, const void* free_ex, void* used_ex, void* pod_count_ex,
+    void* fwd_ex, void* inv_ex, void* stream) {
+  return kc_repair_free(n_new, n_ex, n_cls, n_res, g1, req, member, own_inv, free_new,
+                        used_new, pod_count_new, fwd_new, inv_new, free_ex, used_ex,
+                        pod_count_ex, fwd_ex, inv_ex, used_new, pod_count_new, fwd_new,
+                        inv_new, used_ex, pod_count_ex, fwd_ex, inv_ex, stream);
 }

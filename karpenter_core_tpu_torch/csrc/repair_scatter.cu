@@ -23,6 +23,20 @@
 // then streams each plane's contiguous tile (16 rows) from the window or
 // the full plane row by row, 4-byte words where the row's bytes and the
 // addresses allow, else bytes; then the topology columns of its slots.
+//
+// K22, `kc_repair_scatter_inplace`, replaces `scatter_repair_window_donated`
+// (ops/solve.py:2115, the same body with the full-width carry donated): the
+// window's rows go into the full-width carry's own storage and nothing else
+// is touched, so its grid covers the window's S slots, not N.  One block a
+// window row s writes the 13 planes' row idx[s] (4-byte words where the row
+// and the addresses allow, else bytes), then the fwd_new / inv_new columns
+// idx[s]; block 0 advances n_next where it lies.  The existing-node state
+// and the budget are the window carry's, swapped in by the caller.  Bound:
+// bytes, S rows of the 13 planes read from the window and written into the
+// carry, 2 G1 S int32 each way, idx and n_next: at S = 512 about 1.2 MB,
+// 0.36 us at 3.35 TB/s.  The full-width pointers are written where they
+// lie and carry no `__restrict__`.  `idx` must hold unique slots (the
+// reference relies on it too): two window rows on one slot would race.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +46,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 16;
 constexpr int kMaxPlanes = 16;
+constexpr int kInplaceThreads = 128;
 
 struct Planes {
   const uint8_t* full[kMaxPlanes];
@@ -102,6 +117,34 @@ __global__ void __launch_bounds__(kThreads) repair_scatter_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kInplaceThreads) repair_scatter_inplace_kernel(
+    Planes planes, int n_slots, int n_window, int g1, int n_open_w, const int32_t* idx,
+    int32_t* fwd, int32_t* inv, int32_t* n_next, const int32_t* w_fwd,
+    const int32_t* w_inv, const int32_t* w_n_next) {
+  const int s = blockIdx.x;
+  const int n = idx[s];
+  for (int p = 0; p < planes.n; ++p) {
+    const int rb = planes.row_bytes[p];
+    const uint8_t* src = planes.win[p] + (size_t)s * rb;
+    uint8_t* dst = planes.dst[p] + (size_t)n * rb;
+    if (rb % 4 == 0 && word_aligned(src) && word_aligned(dst)) {
+      for (int k = threadIdx.x; k < rb / 4; k += blockDim.x) {
+        reinterpret_cast<uint32_t*>(dst)[k] = reinterpret_cast<const uint32_t*>(src)[k];
+      }
+    } else {
+      for (int k = threadIdx.x; k < rb; k += blockDim.x) dst[k] = src[k];
+    }
+  }
+  for (int g = threadIdx.x; g < g1; g += blockDim.x) {
+    fwd[(size_t)g * n_slots + n] = w_fwd[(size_t)g * n_window + s];
+    inv[(size_t)g * n_slots + n] = w_inv[(size_t)g * n_window + s];
+  }
+  if (s == 0 && threadIdx.x == 0) {
+    const uint32_t opened = static_cast<uint32_t>(*w_n_next) - static_cast<uint32_t>(n_open_w);
+    *n_next = static_cast<int32_t>(static_cast<uint32_t>(*n_next) + opened);
+  }
+}
+
 }  // namespace
 
 extern "C" int kc_repair_scatter(
@@ -128,5 +171,28 @@ extern "C" int kc_repair_scatter(
       static_cast<const int32_t*>(w_inv), static_cast<const int32_t*>(w_n_next),
       static_cast<int32_t*>(fwd_out), static_cast<int32_t*>(inv_out),
       static_cast<int32_t*>(n_next_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kc_repair_scatter_inplace(
+    int n_planes, void* const* fulls, const void* const* wins, const int* row_bytes,
+    int n_slots, int n_window, int g1, int n_open_w, const void* idx, void* fwd, void* inv,
+    void* n_next, const void* w_fwd, const void* w_inv, const void* w_n_next, void* stream) {
+  if (n_planes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  Planes planes;
+  planes.n = n_planes;
+  for (int p = 0; p < n_planes; ++p) {
+    planes.full[p] = static_cast<const uint8_t*>(fulls[p]);
+    planes.win[p] = static_cast<const uint8_t*>(wins[p]);
+    planes.dst[p] = static_cast<uint8_t*>(fulls[p]);
+    planes.row_bytes[p] = row_bytes[p];
+  }
+  if (n_window <= 0) return 0;
+  repair_scatter_inplace_kernel<<<n_window, kInplaceThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      planes, n_slots, n_window, g1, n_open_w, static_cast<const int32_t*>(idx),
+      static_cast<int32_t*>(fwd), static_cast<int32_t*>(inv), static_cast<int32_t*>(n_next),
+      static_cast<const int32_t*>(w_fwd), static_cast<const int32_t*>(w_inv),
+      static_cast<const int32_t*>(w_n_next));
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,9 +36,19 @@ fused multiply-add a class, classes ascending (``fma_f32`` in the twin,
 ``__fmaf_rn`` in the kernel), so the three agree bit for bit; every int32
 sum wraps as the reference's does.
 
+``repair_free(..., inplace=True)`` (K21, ``kc_repair_free_inplace``) and
+``scatter_window(..., inplace=True)`` (K22, ``kc_repair_scatter_inplace``)
+are the reference's donated twins, ``repair_free_donated`` (:2012) and
+``scatter_repair_window_donated`` (:2115): the same functions written into
+the carry's own tensors, which they return.  K21 is K10 with each output
+its input; K22 writes only the window's S rows and columns (and
+``n_next``) into the full-width planes, where K12 copies all N.  The
+planes they write must not share storage with one another (checked); the
+caller must not read the carry as it was.
+
 Each wrapper runs its plain torch twin for CPU tensors and launches its
 kernel for CUDA tensors; the twins are the CPU path and the kernels' oracle.
-None of them writes into a tensor it was given.
+The out-of-place wrappers write into no tensor they were given.
 """
 
 from __future__ import annotations
@@ -62,6 +72,8 @@ MAX_BITMAP_SLOTS = 32 * 1024 * 8  # K11's window bitmap lives in 32 KB of shared
 free_launches = 0  # K10 launches (CUDA path only)
 gather_launches = 0  # K11 launches (CUDA path only)
 scatter_launches = 0  # K12 launches (CUDA path only)
+free_inplace_launches = 0  # K21 launches (CUDA path only)
+scatter_inplace_launches = 0  # K22 launches (CUDA path only)
 
 
 def _stream(dev) -> int:
@@ -70,6 +82,20 @@ def _stream(dev) -> int:
 
 def _row_bytes(t: torch.Tensor) -> int:
     return (t.numel() // t.shape[0]) * t.element_size() if t.shape[0] else 0
+
+
+def _check_distinct(label: str, tensors) -> None:
+    """Raise when two of the planes an in-place kernel writes share storage:
+    each would then be written twice."""
+    seen = {}
+    for name, t in tensors:
+        if t.numel() == 0:
+            continue
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen:
+            raise ValueError(f"{label}: {name} shares storage with {seen[ptr]}; an in-place "
+                             "update needs planes of their own")
+        seen[ptr] = name
 
 
 # -- K10 ------------------------------------------------------------------------
@@ -102,16 +128,54 @@ def repair_free_plain(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_co
     )
 
 
-def repair_free(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex,
-                inv_ex, free_new, free_ex, requests, member, own_inv):
-    """K10 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (no fallback between them)."""
-    global free_launches
-    dev = used_new.device
-    if dev.type != "cuda":
-        return repair_free_plain(used_new, pod_count_new, fwd_new, inv_new, used_ex,
-                                 pod_count_ex, fwd_ex, inv_ex, free_new, free_ex, requests,
+def _free_side_inplace_plain(used, pod_count, fwd, inv, free, requests, member, own_inv):
+    s = torch.zeros_like(used)
+    freed = torch.zeros_like(pod_count)
+    fwd_sub = torch.zeros_like(fwd)
+    inv_sub = torch.zeros_like(inv)
+    for c in range(free.shape[0]):
+        f = free[c]
+        s = fma_f32(f.to(F32)[:, None], requests[c][None, :], s)
+        freed += f
+        fwd_sub += member[c][:, None] * f[None, :]
+        inv_sub += own_inv[c][:, None] * f[None, :]
+    used.sub_(s)
+    pod_count.sub_(freed).clamp_min_(0)
+    fwd.sub_(fwd_sub).clamp_min_(0)
+    inv.sub_(inv_sub).clamp_min_(0)
+    return used, pod_count, fwd, inv
+
+
+def repair_free_inplace_plain(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex,
+                              fwd_ex, inv_ex, free_new, free_ex, requests, member, own_inv):
+    """The plain torch version of K21: K10's free written into the eight
+    carry planes it was given (in-place ops), which it returns."""
+    return (
+        _free_side_inplace_plain(used_new, pod_count_new, fwd_new, inv_new, free_new, requests,
                                  member, own_inv)
+        + _free_side_inplace_plain(used_ex, pod_count_ex, fwd_ex, inv_ex, free_ex, requests,
+                                   member, own_inv)
+    )
+
+
+_FREE_PLANES = ("used_new", "pod_count_new", "fwd_new", "inv_new", "used_ex", "pod_count_ex",
+                "fwd_ex", "inv_ex")
+
+
+def repair_free(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex,
+                inv_ex, free_new, free_ex, requests, member, own_inv, inplace: bool = False):
+    """K10 wrapper (K21 with ``inplace=True``: the eight carry planes are
+    freed where they lie and returned): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (no fallback between them)."""
+    global free_launches, free_inplace_launches
+    dev = used_new.device
+    carry_planes = (used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex,
+                    inv_ex)
+    if inplace:
+        _check_distinct("repair_free", zip(_FREE_PLANES, carry_planes))
+    if dev.type != "cuda":
+        twin = repair_free_inplace_plain if inplace else repair_free_plain
+        return twin(*carry_planes, free_new, free_ex, requests, member, own_inv)
     n_new, n_res = used_new.shape
     n_ex = used_ex.shape[0]
     n_cls, g1 = member.shape
@@ -125,8 +189,19 @@ def repair_free(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex
         ("own_inv", own_inv, I32, (n_cls, g1)),
     ):
         build.check_input(name, t, dt, shape, dev)
-    outs = [torch.empty_like(t) for t in (used_new, pod_count_new, fwd_new, inv_new, used_ex,
-                                          pod_count_ex, fwd_ex, inv_ex)]
+    if inplace:
+        fn = build.load("repair_free").kc_repair_free_inplace
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
+        fn.restype = ctypes.c_int
+        ptrs = [t.data_ptr() for t in (
+            requests, member, own_inv, free_new, used_new, pod_count_new, fwd_new, inv_new,
+            free_ex, used_ex, pod_count_ex, fwd_ex, inv_ex,
+        )]
+        rc = fn(n_new, n_ex, n_cls, n_res, g1, *ptrs, _stream(dev))
+        build.check(rc, "repair_free_inplace")
+        free_inplace_launches += 1
+        return carry_planes
+    outs = [torch.empty_like(t) for t in carry_planes]
     fn = build.load("repair_free").kc_repair_free
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22
     fn.restype = ctypes.c_int
@@ -231,15 +306,34 @@ def scatter_window_plain(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w
             n_next + (w_n_next - n_open_w))
 
 
+def scatter_window_inplace_plain(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv,
+                                 w_n_next, idx, n_open_w: int):
+    """The plain torch version of K22: the window written into the
+    full-width planes it was given (``index_copy_`` on dim 0 and dim 1,
+    ``n_next`` advanced in place), which it returns."""
+    at = idx.long()
+    for p, w in zip(rows, w_rows):
+        p.index_copy_(0, at, w)
+    fwd_new.index_copy_(1, at, w_fwd)
+    inv_new.index_copy_(1, at, w_inv)
+    n_next.add_(w_n_next - n_open_w)
+    return tuple(rows), fwd_new, inv_new, n_next
+
+
 def scatter_window(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w_n_next, idx,
-                   n_open_w: int):
-    """K12 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (no fallback between them)."""
-    global scatter_launches
+                   n_open_w: int, inplace: bool = False):
+    """K12 wrapper (K22 with ``inplace=True``: the window goes into the
+    full-width planes given, which are returned): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (no fallback between them)."""
+    global scatter_launches, scatter_inplace_launches
     dev = idx.device
+    if inplace:
+        _check_distinct("scatter_window", list(zip(ROW_PLANES, rows))
+                        + [("fwd_new", fwd_new), ("inv_new", inv_new), ("n_next", n_next)])
     if dev.type != "cuda":
-        return scatter_window_plain(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv,
-                                    w_n_next, idx, n_open_w)
+        twin = scatter_window_inplace_plain if inplace else scatter_window_plain
+        return twin(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w_n_next, idx,
+                    n_open_w)
     n_slots = rows[_POD_COUNT].shape[0]
     n_window = idx.shape[0]
     g1 = fwd_new.shape[0]
@@ -255,19 +349,31 @@ def scatter_window(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w_n_nex
         ("idx", idx, I32, (n_window,)),
     ):
         build.check_input(name, t, dt, shape, dev)
+    n_planes = len(rows)
+    row_bytes = (ctypes.c_int * n_planes)(*[_row_bytes(p) for p in rows])
+    wins = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in w_rows])
+    if inplace:
+        fn = build.load("repair_scatter").kc_repair_scatter_inplace
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 8)
+        fn.restype = ctypes.c_int
+        fulls = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in rows])
+        rc = fn(n_planes, fulls, wins, row_bytes, n_slots, n_window, g1, int(n_open_w),
+                idx.data_ptr(), fwd_new.data_ptr(), inv_new.data_ptr(), n_next.data_ptr(),
+                w_fwd.data_ptr(), w_inv.data_ptr(), w_n_next.data_ptr(), _stream(dev))
+        build.check(rc, "repair_scatter_inplace")
+        scatter_inplace_launches += 1
+        return tuple(rows), fwd_new, inv_new, n_next
     out_rows = tuple(torch.empty_like(p) for p in rows)
     fwd_out = torch.empty_like(fwd_new)
     inv_out = torch.empty_like(inv_new)
     n_next_out = torch.empty_like(n_next)
-    n_planes = len(rows)
     fn = build.load("repair_scatter").kc_repair_scatter
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 11)
     fn.restype = ctypes.c_int
     fulls = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in rows])
-    wins = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in w_rows])
     dsts = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in out_rows])
-    row_bytes = (ctypes.c_int * n_planes)(*[_row_bytes(p) for p in rows])
     rc = fn(n_planes, fulls, wins, dsts, row_bytes, n_slots, n_window, g1, int(n_open_w),
             idx.data_ptr(), fwd_new.data_ptr(), inv_new.data_ptr(), n_next.data_ptr(),
             w_fwd.data_ptr(), w_inv.data_ptr(), w_n_next.data_ptr(), fwd_out.data_ptr(),

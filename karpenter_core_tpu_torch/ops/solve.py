@@ -1403,20 +1403,25 @@ def _rows(state: NodeState) -> tuple:
 
 
 def repair_free(warm_carry: WarmCarry, free_new, free_ex, cls_requests, member, own_inv,
-                use_kernels: bool = True) -> WarmCarry:
+                use_kernels: bool = True, inplace: bool = False) -> WarmCarry:
     """Return evicted pods' capacity and topology counts to a warm carry
     (K10; the reference's ``_repair_free_impl`` :1960).  ``free_new``
     i32[C, N] / ``free_ex`` i32[C, E] count the pods of class c evicted from
     each slot since the carry was produced; ``cls_requests`` f32[C, R] is the
     per-pod request vector, ``member`` / ``own_inv`` i32[C, G1] the class's
     topology membership and inverse-ownership rows.  One-way: requirement
-    masks, zone/ct commitments, ports and volume counters stay."""
+    masks, zone/ct commitments, ports and volume counters stay.
+    ``inplace=True`` is ``repair_free_donated``."""
     wc = WarmCarry(*warm_carry)
     st, ex, topo = NodeState(*wc.state), wc.ex_state, TopoCounts(*wc.topo)
-    (used, pod_count, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex,
-     inv_ex) = _kernels(use_kernels).repair_free(
-        st.used, st.pod_count, topo.fwd_new, topo.inv_new, ex.used, ex.pod_count, topo.fwd_ex,
-        topo.inv_ex, free_new, free_ex, cls_requests, member, own_inv)
+    args = (st.used, st.pod_count, topo.fwd_new, topo.inv_new, ex.used, ex.pod_count,
+            topo.fwd_ex, topo.inv_ex, free_new, free_ex, cls_requests, member, own_inv)
+    if inplace:
+        out = (k1012.repair_free(*args, inplace=True) if use_kernels
+               else k1012.repair_free_inplace_plain(*args))
+    else:
+        out = _kernels(use_kernels).repair_free(*args)
+    used, pod_count, fwd_new, inv_new, used_ex, pod_count_ex, fwd_ex, inv_ex = out
     return WarmCarry(
         state=st._replace(used=used, pod_count=pod_count),
         ex_state=ex._replace(used=used_ex, pod_count=pod_count_ex),
@@ -1445,22 +1450,54 @@ def gather_repair_window(warm_carry: WarmCarry, idx: torch.Tensor, n_open_w: int
 
 
 def scatter_repair_window(warm_carry: WarmCarry, window_carry: WarmCarry, idx: torch.Tensor,
-                          n_open_w: int, use_kernels: bool = True) -> WarmCarry:
+                          n_open_w: int, use_kernels: bool = True,
+                          inplace: bool = False) -> WarmCarry:
     """A windowed repair's final carry written back over a copy of the
     full-width carry (K12; the reference's :2070): per-slot planes to their
     global slots, the existing-node state and the budget replaced whole, and
-    ``n_next`` advanced by the fresh slots the repair opened."""
+    ``n_next`` advanced by the fresh slots the repair opened.
+    ``inplace=True`` is ``scatter_repair_window_donated`` (K22): the window
+    is written into the full-width carry's own planes, and the existing-node
+    state and budget are the window carry's tensors, swapped in, not
+    copied."""
     wc, ww = WarmCarry(*warm_carry), WarmCarry(*window_carry)
     gs, ws = NodeState(*wc.state), NodeState(*ww.state)
     gt, wt = TopoCounts(*wc.topo), TopoCounts(*ww.topo)
-    rows, fwd_new, inv_new, n_next = _kernels(use_kernels).scatter_window(
-        _rows(gs), gt.fwd_new, gt.inv_new, gs.n_next, _rows(ws), wt.fwd_new, wt.inv_new,
-        ws.n_next, idx, int(n_open_w))
+    args = (_rows(gs), gt.fwd_new, gt.inv_new, gs.n_next, _rows(ws), wt.fwd_new, wt.inv_new,
+            ws.n_next, idx, int(n_open_w))
+    if inplace:
+        rows, fwd_new, inv_new, n_next = (
+            k1012.scatter_window(*args, inplace=True) if use_kernels
+            else k1012.scatter_window_inplace_plain(*args))
+    else:
+        rows, fwd_new, inv_new, n_next = _kernels(use_kernels).scatter_window(*args)
     return WarmCarry(
         state=NodeState(*rows, n_next=n_next), ex_state=ww.ex_state,
         topo=TopoCounts(fwd_ex=wt.fwd_ex, inv_ex=wt.inv_ex, fwd_new=fwd_new, inv_new=inv_new),
         remaining=ww.remaining,
     )
+
+
+def repair_free_donated(warm_carry: WarmCarry, free_new, free_ex, cls_requests, member,
+                        own_inv, use_kernels: bool = True) -> WarmCarry:
+    """``repair_free`` in place on the carry (K21; the reference's :2012):
+    the carry's used, pod-count and topology planes are freed where they lie
+    and the returned carry holds the same tensors.  The caller must not read
+    the carry as it was."""
+    return repair_free(warm_carry, free_new, free_ex, cls_requests, member, own_inv,
+                       use_kernels=use_kernels, inplace=True)
+
+
+def scatter_repair_window_donated(warm_carry: WarmCarry, window_carry: WarmCarry,
+                                  idx: torch.Tensor, n_open_w: int,
+                                  use_kernels: bool = True) -> WarmCarry:
+    """``scatter_repair_window`` into the full-width carry's own planes (K22;
+    the reference's :2115): only the window's rows, columns and ``n_next``
+    are written.  The full-width carry (the first argument) is consumed; the
+    window carry is not (its planes are the repair's outputs a pending decode
+    reads)."""
+    return scatter_repair_window(warm_carry, window_carry, idx, n_open_w,
+                                 use_kernels=use_kernels, inplace=True)
 
 
 # -- host-side helpers (numpy; copies of the reference's) ---------------------

@@ -235,9 +235,8 @@ def run_relax(solver, prep, cls=None, n_slots: int = 0) -> solve_ops.SolveOutput
             carry, idx, n_used, use_kernels=solver.use_kernels)
         plan = _zero_repair_plan(n_classes, window_w, g1, n_zones, dev, base=base)
         rep = solver.run_prepared(prep, count=leftover, warm_carry=win_carry,
-                                  repair_plan=plan, n_slots=window_w)
-        fetched = solver.begin_fetch(rep)
-        if solver.fetch_exhausted(fetched.small, window_w):
+                                  repair_plan=plan, n_slots=window_w, donate_carry=False)
+        if solver.fetch_exhausted(solver.begin_fetch(rep).wait(), window_w):
             log.debug("relax repair window %d exhausted; retrying full-width", window_w)
         else:
             merged = solve_ops.scatter_repair_window(
@@ -249,7 +248,7 @@ def run_relax(solver, prep, cls=None, n_slots: int = 0) -> solve_ops.SolveOutput
     if repaired is None:
         plan = _zero_repair_plan(n_classes, n_slots, g1, n_zones, dev)
         rep = solver.run_prepared(prep, count=leftover, warm_carry=carry, repair_plan=plan,
-                                  n_slots=n_slots)
+                                  n_slots=n_slots, donate_carry=False)
         merged = solve_ops.warm_carry_of(rep)
         repaired = (rep, merged, res.assign + rep.assign)
     rep, merged, assign = repaired

@@ -61,35 +61,40 @@ from karpenter_core_tpu_torch.scheduling import Requirement, Requirements, Taint
 from karpenter_core_tpu_torch.solver import modes as modes_mod
 from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
 from karpenter_core_tpu_torch.solver.scheduler import _daemon_overhead
+from karpenter_core_tpu_torch.utils import pipeline as pipeline_mod
 from karpenter_core_tpu_torch.utils import resources as resources_util
 
 
 class _LazyPlanes:
-    """Per-solve node planes (viable/zone/ct/used), fetched device→host once
-    on first access.  The bool planes are bit-packed on the device (K4) at
-    construction, so the copy moves 8x fewer bytes."""
+    """Per-solve node planes (viable/zone/ct/used).  The bool planes are
+    bit-packed on the device (K4) at construction, and their copies to the
+    host follow the fetch ticket's small planes on the copy stream
+    (``FetchTicket.follow``, the reference's ``prefetch``); first access
+    waits on the ticket's barrier, which has usually run already, and
+    unpacks.  Nothing here reads the device after the barrier."""
 
-    __slots__ = ("_viable_p", "_zone_p", "_ct_p", "_used_d", "_n_it",
-                 "_n_zones", "_n_ct", "_viable", "_zone", "_ct", "_used")
+    __slots__ = ("_ticket", "_bufs", "_n_it", "_n_zones", "_n_ct", "_viable", "_zone", "_ct",
+                 "_used")
 
-    def __init__(self, state, pack_bool) -> None:
+    def __init__(self, state, pack_bool, ticket) -> None:
         self._n_it = state.viable.shape[-1]
         self._n_zones = state.zone.shape[-1]
         self._n_ct = state.ct.shape[-1]
-        self._viable_p = pack_bool(state.viable)
-        self._zone_p = pack_bool(state.zone)
-        self._ct_p = pack_bool(state.ct)
-        self._used_d = state.used
+        self._ticket = ticket
+        self._bufs = ticket.follow((pack_bool(state.viable), pack_bool(state.zone),
+                                    pack_bool(state.ct), state.used))
         self._viable = self._zone = self._ct = self._used = None
 
     def _fetch(self) -> None:
         if self._viable is None:
-            self._viable = solve_ops.unpack_bool(self._viable_p.cpu().numpy(), self._n_it)
-            self._zone = solve_ops.unpack_bool(self._zone_p.cpu().numpy(), self._n_zones)
-            self._ct = solve_ops.unpack_bool(self._ct_p.cpu().numpy(), self._n_ct)
-            self._used = self._used_d.cpu().numpy()
-            # release the device buffers: decisions can outlive the solve
-            self._viable_p = self._zone_p = self._ct_p = self._used_d = None
+            self._ticket.wait()
+            viable_p, zone_p, ct_p, used = (b.numpy() for b in self._bufs)
+            self._viable = solve_ops.unpack_bool(viable_p, self._n_it)
+            self._zone = solve_ops.unpack_bool(zone_p, self._n_zones)
+            self._ct = solve_ops.unpack_bool(ct_p, self._n_ct)
+            self._used = used.copy()
+            # release the pinned buffers: decisions can outlive the solve
+            self._ticket = self._bufs = None
 
     @property
     def viable(self) -> np.ndarray:
@@ -252,21 +257,6 @@ class LaunchableNode:
         return self.template.requirements
 
 
-class _Fetch:
-    """The decode fetch of one solve: the small planes copied to the host at
-    once — (assign, assign_existing, failed, spread_suspect, ex_state.zone,
-    pod_count, tmpl_id, open_, n_next) — and the big ones lazily
-    (``planes``)."""
-
-    def __init__(self, outputs: solve_ops.SolveOutputs, pack_bool) -> None:
-        state = outputs.state
-        self.small = tuple(t.cpu().numpy() for t in (
-            outputs.assign, outputs.assign_existing, outputs.failed, outputs.spread_suspect,
-            outputs.ex_state.zone, state.pod_count, state.tmpl_id, state.open_, state.n_next,
-        ))
-        self.planes = _LazyPlanes(state, pack_bool)
-
-
 class CudaSolver:
     """Solves pending pods against the provisioners' catalogs on one device
     (``device=None``: the CUDA card; raises when there is none).
@@ -274,8 +264,8 @@ class CudaSolver:
     oracle a card run holds the kernels against.  ``policy`` is a
     ``policy.PolicyConfig``: None or disabled decodes feasibility only."""
 
-    # positions in _Fetch.small read by the slot-exhaustion check and the
-    # incremental session's bookkeeping
+    # positions in the fetch ticket's small planes (``begin_fetch``) read by
+    # the slot-exhaustion check and the incremental session's bookkeeping
     FETCH_ASSIGN = 0
     FETCH_ASSIGN_EX = 1
     FETCH_FAILED = 2
@@ -703,7 +693,7 @@ class CudaSolver:
                          features=features, pol=_attach_pol(snapshot, sa_t, self.device))
 
     def run_prepared(self, prep: SolvePrep, count=None, warm_carry=None, repair_plan=None,
-                     n_slots: int = 0) -> solve_ops.SolveOutputs:
+                     n_slots: int = 0, donate_carry=None) -> solve_ops.SolveOutputs:
         """Run the solve on a SolvePrep; returns device-resident outputs.
         ``count`` overrides the class-count vector (a repair passes only the
         delta pods; uploaded as int32 on the prep's device); ``warm_carry``
@@ -718,8 +708,23 @@ class CudaSolver:
         then as if relax never existed.  A repair never routes, which also
         keeps the relax family's own repair from re-entering it.  ``n_slots``
         overrides the prep's slot count of a cold call; a repair takes the
-        carry's (its window width), whatever ``n_slots`` says."""
+        carry's (its window width), whatever ``n_slots`` says.
+
+        A warm dispatch donates its carry when ``donate_carry`` says so (None:
+        ``utils.pipeline.donation_enabled()``); an enabled policy forces
+        donation off, since its decode reads the final state planes on the
+        card after the dispatch.  The caller of a donating dispatch must not
+        read ``warm_carry`` again.  The scan itself writes into no tensor it
+        is given; the carry is consumed in place around it, by K21 before
+        the dispatch and K22 after it (``solver.incremental``), so here
+        donation is the caller's contract and the ledger
+        (``pipeline.record_donation``)."""
         cls = prep_classes(prep, count)
+        if warm_carry is not None:
+            donate = pipeline_mod.donation_enabled() if donate_carry is None else donate_carry
+            if self.policy is not None and getattr(self.policy, "enabled", False):
+                donate = False
+            pipeline_mod.record_donation(bool(donate))
         if warm_carry is None and repair_plan is None:
             self.stages.pop("relax_s", None)
             self.stages.pop("relax_repair_s", None)
@@ -755,10 +760,23 @@ class CudaSolver:
     def _pack_bool(self):
         return solve_ops.KERNELS.pack_bool if self.use_kernels else solve_ops.PLAIN.pack_bool
 
-    def begin_fetch(self, outputs: solve_ops.SolveOutputs) -> _Fetch:
-        """Copy the small planes decode consumes to the host; the big planes
-        are packed on the device and fetched on first use."""
-        return _Fetch(outputs, self._pack_bool())
+    def begin_fetch(self, outputs: solve_ops.SolveOutputs,
+                    ring: Optional[pipeline_mod.HostStagingRing] = None
+                    ) -> pipeline_mod.FetchTicket:
+        """Split decode's fetch from its dispatch: a ``utils.pipeline.
+        FetchTicket`` over the small planes decode consumes — (assign,
+        assign_existing, failed, spread_suspect, ex_state.zone, pod_count,
+        tmpl_id, open_, n_next), staged through ``ring`` when given — with
+        the K4-packed big planes following on the copy stream
+        (``ticket.planes``).  ``ticket.wait()`` is the barrier;
+        ``decode(..., fetched=ticket)`` then reads the host only."""
+        state = outputs.state
+        small = (outputs.assign, outputs.assign_existing, outputs.failed, outputs.spread_suspect,
+                 outputs.ex_state.zone, state.pod_count, state.tmpl_id, state.open_,
+                 state.n_next)
+        ticket = pipeline_mod.FetchTicket(small, ring=ring, label="decode")
+        ticket.planes = _LazyPlanes(state, self._pack_bool(), ticket)
+        return ticket
 
     def solve(self, pods, state_nodes: Optional[list] = None,
               bound_pods: Optional[List[Pod]] = None, n_slots: int = 0) -> CudaSolveResults:
@@ -779,9 +797,9 @@ class CudaSolver:
         t1 = time.perf_counter() if t_start is None else t_start
         prep = self.prepare_encoded(snapshot, state_nodes, bound_pods, n_slots)
         outputs = self.run_prepared(prep)
-        fetched = self.begin_fetch(outputs)  # the solve's one barrier
+        fetched = self.begin_fetch(outputs)
         slots = outputs.assign.shape[1]
-        if self.fetch_exhausted(fetched.small, slots):
+        if self.fetch_exhausted(fetched.wait(), slots):  # the solve's one barrier
             # slot exhaustion: retry once with double capacity
             outputs = self.run_prepared(prep, n_slots=slots * 2)
             fetched = self.begin_fetch(outputs)
@@ -794,12 +812,15 @@ class CudaSolver:
 
     def decode(self, snapshot: EncodedSnapshot, outputs: solve_ops.SolveOutputs,
                state_nodes: Optional[list] = None,
-               fetched: Optional[_Fetch] = None) -> CudaSolveResults:
+               fetched: Optional[pipeline_mod.FetchTicket] = None) -> CudaSolveResults:
+        """The solve's results from its fetch ticket (``begin_fetch``; one is
+        started when none is given): after the ticket's barrier nothing is
+        read from the card, the policy objective's selection apart."""
         fetched = fetched if fetched is not None else self.begin_fetch(outputs)
-        planes = fetched.planes
         # per-pod failure comes from the leftover walk below, not the counts
         (assign, assign_ex, _, suspect, ex_zone, pod_count, tmpl_id, open_,
-         n_next) = fetched.small
+         n_next) = fetched.wait()
+        planes = fetched.planes
         results = CudaSolveResults(n_slots_used=int(n_next))
         nodes: Dict[int, CudaNodeDecision] = {}
         provisioner_names = [t.provisioner_name for t in self.templates]

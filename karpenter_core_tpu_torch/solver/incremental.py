@@ -1,10 +1,13 @@
-"""Incremental warm-start solving: the serial delta tick of the warm repair.
+"""Incremental warm-start solving: the warm repair's delta tick, serial or
+pipelined.
 
 A trimmed copy of ``karpenter_core_tpu/solver/incremental.py``.  An
 ``IncrementalSolveSession`` keeps the previous full solve's padded tensors
-(``solver.cuda.SolvePrep``), its final scan carry (``ops.solve.WarmCarry``,
-on the card) and host-side placement bookkeeping; each reconcile a
-``FallbackPolicy`` decides **full** vs **delta**:
+(``solver.cuda.SolvePrep``, uploaded once by ``prepare_encoded``; a repair
+uploads only its count vector, free planes and window, so the reference's
+``upload_prep`` has nothing left to do here), its final scan carry
+(``ops.solve.WarmCarry``, on the card) and host-side placement bookkeeping;
+each reconcile a ``FallbackPolicy`` decides **full** vs **delta**:
 
   full    encode → commit to the SnapshotStore → solve from scratch → adopt
           the carry.  On the first solve, on any supply-side change (nodes,
@@ -20,11 +23,27 @@ on the card) and host-side placement bookkeeping; each reconcile a
     session = IncrementalSolveSession(solver, FallbackPolicy(...))
     results = session.solve(ingest)                  # a models.columnar.PodIngest
     results = session.solve(ingest, state_nodes, bound_pods)
+    handle = session.solve(ingest, deferred=True)    # PendingResults; .result()
 
 A delta tick returns only that tick's placements.  ``window_min`` is the
 repair window's smallest size (the reference's ``KC_DELTA_WINDOW``): None
-means ``min(256, n_slots // 4)``, 0 turns windowing off.  Nothing the
-session holds is written in place: every kernel returns fresh tensors.
+means ``min(256, n_slots // 4)``, 0 turns windowing off.
+
+``deferred=True`` runs the tick through the double-buffered pipeline
+(``utils/pipeline.py``): the repair dispatches, its fetch ticket starts the
+copies home on the copy stream, and the call returns a ``PendingResults``;
+the barrier (bounded by the watchdog), the bookkeeping and the decode settle
+at the NEXT solve's entry or at ``result()``, so the next tick's planning
+overlaps this tick's copies.  A barrier that times out re-anchors the
+lineage from the population captured at dispatch (reason
+``watchdog-timeout``); a window that ran out re-anchors the same way
+(``slots-exhausted``).  With the pipeline on (``KC_PIPELINE``, default on),
+repairs also donate the carry: K21 frees the evictions in the carry's own
+planes and K22 writes the window back into them, where K10 and K12 write
+fresh full-width planes.  The anchor's carry is copied once at adoption so
+that it owns its planes.  Hooked dispatches and an enabled policy never
+donate.  ``KC_PIPELINE=0`` settles every handle inline, K10 and K12: the
+serial loop.
 
 A full solve routes by solver family like any cold solve
 (``CudaSolver.run_prepared``); the anchor records the family it was
@@ -35,19 +54,14 @@ always run the scan.
 ``run_prepared=`` is the dispatch hook a host (the tenant plane,
 ``service/tenant.py``) routes the device work through: every full solve,
 its slot-exhaustion retry and every repair dispatch call
-``run_prepared(prep, **kw)`` in place of ``solver.run_prepared``.  The port
-never donates a carry, so the reference's "hooked repairs never donate"
-needs no code here.
+``run_prepared(prep, **kw)`` in place of ``solver.run_prepared``.
 
-Left out, each for a later slice: the pipelined tick on CUDA streams
-(``deferred=``, ``PendingResults``, ``_PendingTick``, ``settle``,
-``_delta_dispatch_deferred``, ``_cancel_tick``, the staging ring) and carry
-donation; prebuilt PodClass lists as the population (the port takes a
-PodIngest); the fleet
-checkpoint's ``lineage_state``, ``export_lineage`` and ``adopt_restored``;
-``decide``'s ``mesh_changed`` (the mesh); the ``SOLVE_MODE`` counter, the
-tracing span, the ``SOLVER_DISPATCH`` chaos hook and ``from_env`` /
-``incremental_enabled``.
+Left out, each for a later slice: prebuilt PodClass lists as the caller's
+population (the port takes a PodIngest; a deferred tick's re-anchor encodes
+the class list it captured); the fleet checkpoint's ``lineage_state``,
+``export_lineage`` and ``adopt_restored``; ``decide``'s ``mesh_changed``
+(the mesh); the ``SOLVE_MODE`` counter, the tracing span, the
+``SOLVER_DISPATCH`` chaos hook and ``from_env`` / ``incremental_enabled``.
 """
 
 from __future__ import annotations
@@ -66,6 +80,8 @@ from karpenter_core_tpu_torch.models.store import SnapshotStore, VersionedSnapsh
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 from karpenter_core_tpu_torch.policy import planes as policy_planes
 from karpenter_core_tpu_torch.solver import modes as modes_mod
+from karpenter_core_tpu_torch.utils import pipeline as pipeline_mod
+from karpenter_core_tpu_torch.utils.watchdog import SolveTimeout
 
 MODE_FULL = "full"
 MODE_DELTA = "delta"
@@ -154,13 +170,70 @@ class _WarmState:
     materialized: set = field(default_factory=set)
 
 
+@dataclass
+class _PendingTick:
+    """One dispatched-but-unsettled deferred tick (the pipeline's in-flight
+    slot).  ``kind`` is "delta" (``data`` holds the dispatch record, the
+    post-tick membership and the population captured at dispatch, which a
+    settle-time exhaustion or timeout re-anchors from) or "full" (``data``
+    holds the committed snapshot, the prep, the outputs and the fetch ticket
+    whose copies are in flight)."""
+
+    kind: str  # "delta" | "full"
+    box: "PendingResults"
+    data: dict
+
+
+class PendingResults:
+    """A deferred tick's results (``solve(deferred=True)``).  ``result()``
+    settles the session's pending tick if it still is pending (the
+    barrier), then decodes; by the time the double-buffered loop calls it,
+    the barrier ran at the next solve's entry and only the host decode is
+    left.  Safe to call any number of times; raises whatever the tick's
+    settle or decode raised."""
+
+    __slots__ = ("_session", "_results", "_error", "_decode", "_settled")
+
+    def __init__(self, session, results=None, error=None) -> None:
+        self._session = session
+        self._results = results
+        self._error = error
+        self._decode = None  # set at settle
+        self._settled = results is not None or error is not None
+
+    def _settle_with(self, results=None, error=None, decode=None) -> None:
+        self._results = results
+        self._error = error
+        self._decode = decode
+        self._settled = True
+
+    def done(self) -> bool:
+        return self._settled
+
+    def result(self):
+        if not self._settled:
+            self._session.settle()
+        if self._error is not None:
+            raise self._error
+        if self._results is None and self._decode is not None:
+            decode, self._decode = self._decode, None
+            try:
+                self._results = decode()
+            except BaseException as e:  # noqa: BLE001 - cached, then raised
+                self._error = e
+                raise
+        return self._results
+
+
 class IncrementalSolveSession:
     """One warm-start solve lineage: full solves adopt state, delta solves
     repair it (module docstring).  ``stages`` holds the wall seconds of the
     last solve by stage: a delta tick's ``plan_s`` (diff, decision, eviction
-    planes), ``dispatch_s`` (uploads, K10, K11), ``repair_s`` (the resumed
-    scan and its fetch, which waits for the card) and ``decode_s`` (decode
-    and bookkeeping, K12 included); a full solve's ``full_s``."""
+    planes), ``dispatch_s`` (uploads, K10 or K21, K11), ``repair_s`` (the
+    resumed scan, the fetch ticket and, on a serial tick, its barrier) and
+    ``decode_s`` (decode and bookkeeping, K12 or K22 included); a full
+    solve's ``full_s``; ``settle_s``, the previous deferred tick's settle
+    run at this solve's entry."""
 
     def __init__(self, solver, policy: Optional[FallbackPolicy] = None,
                  window_min: Optional[int] = None, run_prepared=None) -> None:
@@ -179,6 +252,12 @@ class IncrementalSolveSession:
         self._forced_reason: Optional[str] = None
         # the dispatch hook (module docstring); None runs solver.run_prepared
         self._run_prepared = run_prepared
+        # the pipelined loop's state: the in-flight deferred tick, the ring of
+        # host staging buffers its fetches land in, and the last settled but
+        # undecoded handle (decoded before its staging slot is rewritten)
+        self._pending: Optional[_PendingTick] = None
+        self._staging: Optional[pipeline_mod.HostStagingRing] = None
+        self._undecoded: Optional[PendingResults] = None
 
     def rebind(self, solver) -> None:
         """Bind the solver the next solves run through."""
@@ -187,8 +266,19 @@ class IncrementalSolveSession:
     def _run(self):
         return self._run_prepared or self.solver.run_prepared
 
+    def _donates(self) -> bool:
+        """Whether repairs consume the carry in place: the pipeline is on,
+        the dispatch is not hooked (the tenant plane's coalescer stacks
+        member carries) and the policy is off (its decode reads the final
+        planes on the card)."""
+        policy = self.solver.policy
+        return (pipeline_mod.donation_enabled() and self._run_prepared is None
+                and not (policy is not None and getattr(policy, "enabled", False)))
+
     def reset(self) -> None:
-        """Drop the warm lineage (the next solve is full)."""
+        """Drop the warm lineage (the next solve is full).  A pending
+        deferred tick settles first, so its handle stays consumable."""
+        self.settle()
         self._warm = None
 
     def force_full(self, reason: str) -> None:
@@ -198,14 +288,24 @@ class IncrementalSolveSession:
     # -- the solve entry -------------------------------------------------------
 
     def solve(self, ingest, state_nodes: Optional[list] = None,
-              bound_pods: Optional[list] = None):
+              bound_pods: Optional[list] = None, deferred: bool = False):
         """``solver.cuda.CudaSolveResults`` for the current population of
         ``ingest`` (a ``models.columnar.PodIngest``): a full solve's every
         decision, or a delta tick's own placements (new pods onto new or
         existing capacity).  Raises models.snapshot.KernelUnsupported as
-        ``CudaSolver.solve`` does."""
-        t0 = time.perf_counter()
+        ``CudaSolver.solve`` does.
+
+        ``deferred=True`` returns a ``PendingResults`` instead: a delta tick
+        dispatches and settles at the NEXT solve's entry (or at
+        ``result()``); a full solve's device work is in flight and settles
+        the same way.  With KC_PIPELINE=0 the handle is settled inline: the
+        serial loop."""
         self.stages = {}
+        # settle the in-flight deferred tick first: this tick's membership
+        # diff and eviction plan read the bookkeeping that tick rewrites
+        self.settle()
+        t0 = time.perf_counter()
+        pipelined = deferred and pipeline_mod.pipeline_enabled()
         self.last_window = None
         self.last_evicted = {}
         members, by_uid = ingest.class_members(), ingest.get
@@ -248,22 +348,35 @@ class IncrementalSolveSession:
             mode, reason = MODE_FULL, forced
             self._forced_reason = None
         try:
-            if mode == MODE_DELTA:
+            if mode == MODE_DELTA and pipelined:
+                handle = self._delta_dispatch_deferred(
+                    delta, by_uid, ingest, members, state_nodes, bound_pods, supply_anchor, t0)
+                if handle is not None:
+                    return handle  # mode accounting waits for the settle
+                mode, reason = MODE_FULL, "slots-exhausted"
+            elif mode == MODE_DELTA:
                 results = self._delta_solve(delta, by_uid, t0)
                 if results is None:  # the repair ran out of room: escalate
                     mode, reason = MODE_FULL, "slots-exhausted"
             if mode == MODE_FULL:
                 t1 = time.perf_counter()
                 results = self._full_solve(ingest, members, state_nodes, bound_pods,
-                                           supply_anchor, reason)
+                                           supply_anchor, reason, deferred=pipelined)
                 self.stages["full_s"] = time.perf_counter() - t1
+                if isinstance(results, PendingResults):
+                    return results  # mode accounting waits for the settle
         except Exception:
             if forced is not None:
                 self._forced_reason = forced  # the re-anchor is still owed
             raise
+        self._count_mode(mode, reason)
+        if deferred:
+            return PendingResults(self, results=results)
+        return results
+
+    def _count_mode(self, mode: str, reason: str) -> None:
         self.last_mode, self.last_reason = mode, reason
         self.mode_counts[mode] = self.mode_counts.get(mode, 0) + 1
-        return results
 
     def _absorb_bound(self, bound_uids) -> None:
         """Lineage-placed pods that have since BOUND leave the pending
@@ -291,18 +404,37 @@ class IncrementalSolveSession:
 
     # -- full path -------------------------------------------------------------
 
-    def _full_solve(self, ingest, members, state_nodes, bound_pods, supply, reason):
+    def _full_solve(self, population, members, state_nodes, bound_pods, supply, reason,
+                    deferred: bool = False):
+        """A full solve of ``population`` (a PodIngest, or the class list a
+        deferred tick captured).  Deferred, the device work stays in flight
+        and ``_settle_full`` retires it."""
         solver = self.solver
         prev_nodes = self.node_count() if self._warm is not None else None
         try:
-            snapshot = solver.encode(ingest, state_nodes, bound_pods)
+            if isinstance(population, list):
+                snapshot = solver.encode_classes(population, state_nodes, bound_pods)
+            else:
+                snapshot = solver.encode(population, state_nodes, bound_pods)
             versioned = self.store.commit(snapshot, supply=supply)
             prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
             run = self._run()
             outputs = run(prep)
+            if deferred:
+                if self._staging is None:
+                    self._staging = pipeline_mod.HostStagingRing()
+                ticket = solver.begin_fetch(outputs, ring=self._staging)
+                box = PendingResults(self)
+                self._pending = _PendingTick(kind="full", box=box, data=dict(
+                    snapshot=snapshot, versioned=versioned, prep=prep, run=run,
+                    outputs=outputs, ticket=ticket, members=dict(members), supply=supply,
+                    state_nodes=list(state_nodes or ()), prev_nodes=prev_nodes, reason=reason,
+                    solver=solver,
+                ))
+                return box
             fetched = solver.begin_fetch(outputs)
             slots = outputs.assign.shape[1]
-            if solver.fetch_exhausted(fetched.small, slots):
+            if solver.fetch_exhausted(fetched.wait(), slots):
                 # slot exhaustion: retry once with double capacity
                 outputs = run(prep, n_slots=slots * 2)
                 fetched = solver.begin_fetch(outputs)
@@ -314,13 +446,37 @@ class IncrementalSolveSession:
                     prev_nodes, reason)
         return results
 
+    def _settle_full(self, pending: _PendingTick) -> None:
+        """Retire a deferred full solve: barrier, the slot-exhaustion retry
+        (synchronous, rare), adoption; the decode waits for the handle."""
+        f = pending.data
+        solver = f["solver"]
+        slots = f["outputs"].assign.shape[1]
+        if solver.fetch_exhausted(f["ticket"].wait(), slots):
+            outputs = f["run"](f["prep"], n_slots=slots * 2)
+            ticket = solver.begin_fetch(outputs, ring=self._staging)
+            # adopt the retry's ticket before its barrier, so a failed wait
+            # leaves it reachable for the settle's invalidate
+            f["outputs"], f["ticket"] = outputs, ticket
+            ticket.wait()
+        self._adopt(f["versioned"], f["prep"], f["outputs"], f["ticket"], f["members"],
+                    f["supply"], f["state_nodes"], f["prev_nodes"], f["reason"])
+        pending.box._settle_with(decode=lambda: solver.decode(
+            f["snapshot"], f["outputs"], f["state_nodes"], fetched=f["ticket"]))
+        self._undecoded = pending.box
+
     def _adopt(self, versioned, prep, outputs, fetched, members, supply, state_nodes,
                prev_nodes, reason):
         solver = self.solver
         carry = solve_ops.warm_carry_of(outputs)
-        assign = np.asarray(fetched.small[solver.FETCH_ASSIGN], dtype=np.int32).copy()
-        assign_ex = np.asarray(fetched.small[solver.FETCH_ASSIGN_EX], dtype=np.int32).copy()
-        n_next = int(fetched.small[solver.FETCH_N_NEXT])
+        if carry is not None and self._donates():
+            # a solve may pass planes of its inputs (the prep's) through
+            # untouched; a carry that repairs write in place owns its planes
+            carry = _cloned(carry)
+        small = fetched.wait()
+        assign = np.asarray(small[solver.FETCH_ASSIGN], dtype=np.int32).copy()
+        assign_ex = np.asarray(small[solver.FETCH_ASSIGN_EX], dtype=np.int32).copy()
+        n_next = int(small[solver.FETCH_N_NEXT])
         snapshot = versioned.snapshot
         pod_loc, unplaced = _locate_pods(snapshot, assign, assign_ex)
         all_pods = {p.uid: p for cls in snapshot.classes for p in cls.pods}
@@ -352,9 +508,12 @@ class IncrementalSolveSession:
 
     # -- delta path ------------------------------------------------------------
     #
-    # One delta tick is four stages run back to back: plan (host), dispatch
-    # (K10, K11 and the resumed scan), the exhaustion check on the fetched
-    # planes, decode and adopt (K12).
+    # One delta tick is four stages: plan (host), dispatch (K10 or K21, K11,
+    # the resumed scan, the fetch ticket), settle (the barrier, the
+    # exhaustion check, bookkeeping with K12 or K22) and decode.  The serial
+    # tick (_delta_solve) runs them back to back; the deferred tick
+    # (_delta_dispatch_deferred) stops after the dispatch and settles at the
+    # next solve's entry.
 
     def _delta_plan(self, delta, by_uid):
         """The host-side tick plan: eviction free planes, the delta count
@@ -404,6 +563,13 @@ class IncrementalSolveSession:
         for key, uids in delta.added.items():
             members.setdefault(key, []).extend(uids)
         members_after = {k: tuple(v) for k, v in members.items() if v}
+        locs = [loc for _, loc in evicted_locs]
+        self.last_evicted = {
+            "evicted": delta.evicted_count,
+            "new": sum(1 for loc in locs if loc[1] == "new"),
+            "existing": sum(1 for loc in locs if loc[1] == "ex"),
+            "hole_slots": len({loc[2] for loc in locs if loc[1] == "new"}),
+        }
         return {
             "delta": delta, "free_new": free_new, "free_ex": free_ex,
             "evicted_locs": evicted_locs, "pods_by_root": pods_by_root,
@@ -414,103 +580,122 @@ class IncrementalSolveSession:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=self.solver.device)
 
     def _delta_dispatch(self, plan):
-        """The repair on the card: K10 frees the evictions, K11 gathers the
-        bounded window (freed holes plus a fresh tail, whose hole planes are
-        also the fills' preference), the scan resumes from the carry, and the
-        small planes come back to the host (the tick's barrier)."""
+        """The repair on the card, up to its fetch ticket: K10 (K21 when
+        donating) frees the evictions, K11 gathers the bounded window (freed
+        holes plus a fresh tail, whose hole planes are also the fills'
+        preference), the scan resumes from the carry, and the ticket starts
+        the copies home.
+
+        Unhooked dispatches donate the carry while the pipeline is on and
+        the policy off: K21 frees it in place, and the settle's K22 writes
+        the window back into it, so the carry as it was is dead after this
+        call.  Hooked dispatches (the tenant plane's coalescer stacks member
+        carries) and an enabled policy (its decode reads the final planes on
+        the card) never donate.  Any exception here drops the lineage."""
         w = self._warm
         solver = self.solver
         use_kernels = solver.use_kernels
         free_new, free_ex = plan["free_new"], plan["free_ex"]
         evicted_locs, counts = plan["evicted_locs"], plan["counts"]
         n_slots = w.assign.shape[1]
+        donate = self._donates()
         t0 = time.perf_counter()
         g1 = w.member_rows.shape[1]
         n_zones = w.prep.statics_arrays.tmpl_zone.shape[1]
         hole_slots = sorted({loc[2] for _, loc in evicted_locs if loc[1] == "new"})
         window = _window_indices(hole_slots, w.n_next, n_slots, self.window_min)
         self.last_window = window
-        carry = w.carry
-        free_ex_t = self._upload(free_ex)
-        if evicted_locs:
-            carry = solve_ops.repair_free(
-                carry, self._upload(free_new), free_ex_t, w.prep.cls.requests, w.member_rows,
-                w.own_inv_rows, use_kernels=use_kernels,
-            )
-        idx_t = None
-        if window is not None:
-            idx, n_open_w = window
-            idx_t = self._upload(idx)
-            run_carry, base = solve_ops.gather_repair_window(carry, idx_t, n_open_w,
-                                                             use_kernels=use_kernels)
-            repair_plan = solve_ops.RepairPlan(
-                pref_new=self._upload(free_new[:, idx]), pref_ex=free_ex_t,
-                base_fwd_sing=base[0], base_fwd_full=base[1], base_inv_full=base[2],
-            )
-            keep_carry = carry
-        else:
-            zeros_gz = torch.zeros((g1, n_zones), dtype=torch.int32, device=solver.device)
-            repair_plan = solve_ops.RepairPlan(
-                pref_new=self._upload(free_new), pref_ex=free_ex_t, base_fwd_sing=zeros_gz,
-                base_fwd_full=zeros_gz, base_inv_full=zeros_gz,
-            )
-            run_carry, keep_carry = carry, None
-        t1 = time.perf_counter()
-        # a windowed repair names its window width, which is the repair's
-        # bucket identity when a host coalesces repairs (service/tenant.py)
-        width = {} if window is None else {"n_slots": len(window[0])}
-        outputs = self._run()(w.prep, count=counts, warm_carry=run_carry,
-                              repair_plan=repair_plan, **width)
-        fetched = solver.begin_fetch(outputs)
+        try:
+            carry = w.carry
+            free_ex_t = self._upload(free_ex)
+            if evicted_locs:
+                carry = solve_ops.repair_free(
+                    carry, self._upload(free_new), free_ex_t, w.prep.cls.requests,
+                    w.member_rows, w.own_inv_rows, use_kernels=use_kernels, inplace=donate,
+                )
+            idx_t = None
+            if window is not None:
+                idx, n_open_w = window
+                idx_t = self._upload(idx)
+                run_carry, base = solve_ops.gather_repair_window(carry, idx_t, n_open_w,
+                                                                 use_kernels=use_kernels)
+                repair_plan = solve_ops.RepairPlan(
+                    pref_new=self._upload(free_new[:, idx]), pref_ex=free_ex_t,
+                    base_fwd_sing=base[0], base_fwd_full=base[1], base_inv_full=base[2],
+                )
+                keep_carry = carry
+            else:
+                zeros_gz = torch.zeros((g1, n_zones), dtype=torch.int32, device=solver.device)
+                repair_plan = solve_ops.RepairPlan(
+                    pref_new=self._upload(free_new), pref_ex=free_ex_t,
+                    base_fwd_sing=zeros_gz, base_fwd_full=zeros_gz, base_inv_full=zeros_gz,
+                )
+                run_carry, keep_carry = carry, None
+            t1 = time.perf_counter()
+            # a windowed repair names its window width, which is the repair's
+            # bucket identity when a host coalesces repairs (service/tenant.py)
+            width = {} if window is None else {"n_slots": len(window[0])}
+            outputs = self._run()(w.prep, count=counts, warm_carry=run_carry,
+                                  repair_plan=repair_plan, donate_carry=donate, **width)
+            if self._staging is None and pipeline_mod.pipeline_enabled():
+                self._staging = pipeline_mod.HostStagingRing()
+            ticket = solver.begin_fetch(outputs, ring=self._staging)
+        except BaseException:
+            self._warm = None  # the next solve re-anchors from scratch
+            raise
         self.stages["dispatch_s"] = t1 - t0
         self.stages["repair_s"] = time.perf_counter() - t1
         # decode consumes a delta VIEW of the snapshot: same planes, classes
-        # carry only this tick's pods
+        # carry only this tick's pods (built while the card works)
         delta_view = _delta_view(w.versioned.snapshot, plan["pods_by_root"])
         return {
-            "plan": plan, "outputs": outputs, "fetched": fetched, "window": window,
-            "idx": idx_t, "keep_carry": keep_carry, "delta_view": delta_view,
-            "state_nodes": w.state_nodes,
+            "plan": plan, "outputs": outputs, "ticket": ticket, "window": window,
+            "idx": idx_t, "keep_carry": keep_carry, "donated": donate,
+            "delta_view": delta_view, "state_nodes": w.state_nodes, "solver": solver,
         }
 
-    def _delta_exhausted(self, disp) -> bool:
+    @staticmethod
+    def _delta_exhausted(disp, fetched) -> bool:
         """Out of slots or window: the repair could not place everything it
         was given room for; the tick escalates to a full solve."""
         w_slots = (
             len(disp["window"][0]) if disp["window"] is not None
             else disp["outputs"].assign.shape[1]
         )
-        return self.solver.fetch_exhausted(disp["fetched"].small, w_slots)
+        return disp["solver"].fetch_exhausted(fetched, w_slots)
 
-    def _delta_results(self, disp):
-        """Decode over the delta view, dropping node decisions the repair
-        placed nothing on (previously-decided nodes are not re-launched)."""
-        results = self.solver.decode(disp["delta_view"], disp["outputs"], disp["state_nodes"],
-                                     fetched=disp["fetched"])
+    @staticmethod
+    def _delta_results(disp):
+        """Decode over the delta view from the ticket's host arrays, dropping
+        node decisions the repair placed nothing on (previously-decided
+        nodes are not re-launched)."""
+        results = disp["solver"].decode(disp["delta_view"], disp["outputs"],
+                                        disp["state_nodes"], fetched=disp["ticket"])
         results.new_nodes = [d for d in results.new_nodes if d.pods]
         return results
 
-    def _delta_adopt(self, disp) -> None:
-        """Fold the repair's placements into the lineage."""
+    def _delta_adopt(self, disp, fetched) -> None:
+        """Fold the repair's placements into the lineage (after the
+        barrier)."""
         w = self._warm
-        solver = self.solver
+        solver = disp["solver"]
         plan = disp["plan"]
         window = disp["window"]
         outputs = disp["outputs"]
-        small = disp["fetched"].small
         c_pad = w.prep.cls.count.shape[0]
         n_slots = w.assign.shape[1]
-        assign_d = np.asarray(small[solver.FETCH_ASSIGN], dtype=np.int32)
-        assign_ex_d = np.asarray(small[solver.FETCH_ASSIGN_EX], dtype=np.int32)
-        n_next_h = int(small[solver.FETCH_N_NEXT])
+        assign_d = np.asarray(fetched[solver.FETCH_ASSIGN], dtype=np.int32)
+        assign_ex_d = np.asarray(fetched[solver.FETCH_ASSIGN_EX], dtype=np.int32)
+        n_next_h = int(fetched[solver.FETCH_N_NEXT])
         loc_d, unplaced = _locate_pods(disp["delta_view"], assign_d, assign_ex_d)
         if window is not None:
             # scatter the windowed repair back to the full-width lineage:
-            # assignment columns, pod locations and the carry (K12)
+            # assignment columns, pod locations and the carry (K12; K22 into
+            # the full-width carry's own planes when the tick donated)
             idx, n_open_w = window
             new_carry = solve_ops.scatter_repair_window(
                 disp["keep_carry"], solve_ops.warm_carry_of(outputs), disp["idx"], n_open_w,
-                use_kernels=solver.use_kernels,
+                use_kernels=solver.use_kernels, inplace=disp["donated"],
             )
             assign_g = np.zeros((c_pad, n_slots), dtype=np.int32)
             assign_g[:, idx] = assign_d
@@ -539,35 +724,159 @@ class IncrementalSolveSession:
         w.delta_ticks += 1
 
     def _delta_solve(self, delta, by_uid, t_start: float):
-        """The serial delta tick: plan → dispatch (and barrier) → exhaustion
+        """The serial delta tick: plan → dispatch → barrier → exhaustion
         check → decode → adopt.  None escalates to a full solve."""
         plan = self._delta_plan(delta, by_uid)
         if plan is None:
             return None
-        locs = [loc for _, loc in plan["evicted_locs"]]
-        self.last_evicted = {
-            "evicted": delta.evicted_count,
-            "new": sum(1 for loc in locs if loc[1] == "new"),
-            "existing": sum(1 for loc in locs if loc[1] == "ex"),
-            "hole_slots": len({loc[2] for loc in locs if loc[1] == "new"}),
-        }
         self.stages["plan_s"] = time.perf_counter() - t_start
-        try:
-            disp = self._delta_dispatch(plan)
-        except BaseException:
-            self._warm = None  # the next solve re-anchors from scratch
-            raise
-        if self._delta_exhausted(disp):
-            return None
+        disp = self._delta_dispatch(plan)
         t0 = time.perf_counter()
-        results = self._delta_results(disp)
-        self._delta_adopt(disp)
+        try:
+            fetched = disp["ticket"].wait()
+        except BaseException:
+            # any failed barrier (SolveTimeout or a fault) cancels the tick:
+            # nothing is half-applied, the next solve re-anchors
+            self._cancel_tick(disp)
+            raise
+        self.stages["repair_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            if self._delta_exhausted(disp, fetched):
+                return None
+            results = self._delta_results(disp)
+            self._delta_adopt(disp, fetched)
+        except BaseException:
+            if disp["donated"]:
+                # the carry was consumed in place: a kept lineage would
+                # repair from a half-written carry
+                self._warm = None
+            raise
         self.stages["decode_s"] = time.perf_counter() - t0
         return results
 
+    def _cancel_tick(self, disp) -> None:
+        """Invalidate a failed tick's in-flight state: the ticket retires
+        from the open ledger, a donated dispatch's ledger entry is balanced,
+        and the warm lineage drops (its carry is consumed or aliased by the
+        abandoned copy)."""
+        disp["ticket"].invalidate()
+        if disp["donated"]:
+            pipeline_mod.record_donation_canceled()
+        self._warm = None
+
+    def _delta_dispatch_deferred(self, delta, by_uid, ingest, members, state_nodes,
+                                 bound_pods, supply_anchor, t_start: float):
+        """The pipelined tick: plan and dispatch now, settle at the next
+        solve's entry.  None when the plan cannot be expressed (the caller
+        escalates inline).  The population's classes are captured after the
+        dispatch (the snapshot build overlaps the card's work), so a
+        settle-time exhaustion or timeout re-anchors from THIS tick's
+        population though the caller's ingest has moved on."""
+        plan = self._delta_plan(delta, by_uid)
+        if plan is None:
+            return None
+        self.stages["plan_s"] = time.perf_counter() - t_start
+        disp = self._delta_dispatch(plan)
+        try:
+            captured = ingest.classes()
+        except BaseException:
+            if disp["donated"]:
+                self._warm = None
+            raise
+        box = PendingResults(self)
+        self._pending = _PendingTick(kind="delta", box=box, data=dict(
+            disp=disp, captured_classes=captured, members_at=dict(members),
+            state_nodes=list(state_nodes or ()), bound_pods=list(bound_pods or ()),
+            supply_anchor=supply_anchor,
+        ))
+        return box
+
+    def _reanchor(self, data, reason: str):
+        """A deferred delta tick's full re-anchor from its captured
+        population (serial)."""
+        return self._full_solve(data["captured_classes"], data["members_at"],
+                                data["state_nodes"], data["bound_pods"], data["supply_anchor"],
+                                reason)
+
+    def settle(self) -> None:
+        """Retire the in-flight deferred tick: the barrier, the window
+        exhaustion check (a delta escalates to a full re-anchor of the
+        captured population; a full solve retries with doubled slots), the
+        bookkeeping, and the mode accounting.  A barrier that times out
+        (``SolveTimeout``) cancels the tick and re-anchors with reason
+        ``watchdog-timeout``.  The decode waits for the handle's
+        ``result()``; a handle still undecoded at the NEXT settle decodes
+        here first (its staging slot is about to be rewritten).  Never
+        raises: a failure lands in the handle, with its ticket invalidated,
+        and drops the lineage."""
+        # flush the last settled-but-undecoded handle first, even with nothing
+        # pending: its staged arrays live in the shared ring, which any later
+        # tick (a serial one too) rewrites.  Failures are cached in the box
+        if self._undecoded is not None:
+            try:
+                self._undecoded.result()
+            except Exception:  # noqa: BLE001 - recorded in the box
+                pass
+            self._undecoded = None
+        pending = self._pending
+        if pending is None:
+            return
+        self._pending = None
+        t0 = time.perf_counter()
+        if pending.kind == "full":
+            mode, reason = MODE_FULL, pending.data["reason"]
+        else:
+            mode, reason = MODE_DELTA, "delta"
+        try:
+            if pending.kind == "full":
+                self._settle_full(pending)
+            else:
+                disp = pending.data["disp"]
+                try:
+                    fetched = disp["ticket"].wait()
+                except SolveTimeout:
+                    # the barrier was abandoned: cancel the tick and rebuild
+                    # the lineage from the dispatch-time population.  The
+                    # re-anchor's own barrier is bounded too; its timeout
+                    # lands in the handle
+                    self._cancel_tick(disp)
+                    mode, reason = MODE_FULL, "watchdog-timeout"
+                    pending.box._settle_with(results=self._reanchor(pending.data, reason))
+                except BaseException:
+                    # another barrier fault: the same cancellation, no
+                    # re-anchor; the error goes to the handle
+                    self._cancel_tick(disp)
+                    raise
+                else:
+                    if self._delta_exhausted(disp, fetched):
+                        mode, reason = MODE_FULL, "slots-exhausted"
+                        pending.box._settle_with(
+                            results=self._reanchor(pending.data, reason))
+                    else:
+                        self._delta_adopt(disp, fetched)
+                        pending.box._settle_with(decode=lambda: self._delta_results(disp))
+                        self._undecoded = pending.box
+        except BaseException as e:  # noqa: BLE001 - routed to the handle
+            if pending.kind == "full" or pending.data["disp"]["donated"]:
+                self._warm = None  # a failed anchor, or a consumed carry
+            ticket = (pending.data.get("ticket") if pending.kind == "full"
+                      else pending.data["disp"]["ticket"])
+            if ticket is not None and not ticket.done():
+                ticket.invalidate()
+            pending.box._settle_with(error=e)
+            self._count_mode(mode, f"{reason}:failed")
+            return
+        finally:
+            self.stages["settle_s"] = time.perf_counter() - t0
+        self._count_mode(mode, reason)
+
     # -- aggregate views -------------------------------------------------------
+    # Each settles the in-flight deferred tick first: the view reflects every
+    # dispatched solve.
 
     def node_count(self) -> int:
+        self.settle()
         w = self._warm
         if w is None:
             return 0
@@ -575,6 +884,7 @@ class IncrementalSolveSession:
 
     def aggregates(self) -> Dict[str, int]:
         """The session lineage's current placement totals."""
+        self.settle()
         w = self._warm
         if w is None:
             return {"scheduled": 0, "failed": 0, "nodes": 0}
@@ -587,6 +897,7 @@ class IncrementalSolveSession:
     def node_signature(self):
         """Canonical multiset of per-node class loads, labeled by stable
         class identity (order- and row-index-independent)."""
+        self.settle()
         w = self._warm
         if w is None:
             return ()
@@ -707,6 +1018,16 @@ def _topology_rows(prep) -> Tuple[np.ndarray, np.ndarray]:
         if g_han < g_dummy and not bool(anti_soft[c, 1]):
             own_inv[c, g_han] += 1
     return member, own_inv
+
+
+def _cloned(tree):
+    """A copy of a tuple tree of tensors, every tensor with storage of its
+    own."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if tree is None:
+        return None
+    return type(tree)(*(_cloned(x) for x in tree))
 
 
 def _delta_view(snapshot, pods_by_root: Dict[int, List[object]]):

@@ -1,7 +1,7 @@
 """Where the time of one warm 50k-pod solve goes, on one CUDA card.
 
-    python3 profile_solve.py [--existing | --consolidation | --churn | --policy | --relax |
-                              --tenants | --montecarlo] [--trace PATH]
+    python3 profile_solve.py [--existing | --consolidation | --churn | --pipeline |
+                              --policy | --relax | --tenants | --montecarlo] [--trace PATH]
 
 Builds the inputs of the main path (50,000 pods x 1,000 instance types x 5
 provisioners, ``testing/workloads.py``) — with ``--existing``, also the live
@@ -29,13 +29,18 @@ compute_command``, every node a candidate, no pending pods: phase 4 of
 device's busy share is over the wall time of the call.
 
 With ``--churn`` the profiled call is one warm delta tick of the
-incremental session on that backlog (phase 5 (a) of ``chip_smoke.py``):
+incremental session on that backlog (phase 5 (a) of ``chip_smoke.py``,
+``KC_PIPELINE=0``):
 the session is seeded with a full solve and runs four ticks of
 ``testing.workloads.churn_tick`` unprofiled, then the fifth (a 512-slot
 window) under the profiler.  It reports the tick's stage split (plan,
 dispatch, repair, decode), its host reads (device-to-host copies and the
 scan's skip decisions), the device's busy share of the tick and each
-kernel's device time, K10-K12 included.
+kernel's device time, K10-K12 included.  ``--pipeline`` profiles the same
+fifth tick deferred, with carry donation (phase 10 (b)): its dispatch, the
+settle and the decode, K21 and K22 in place of K10 and K12 (K21 is K10's
+device function with its outputs on its inputs, so it reports as
+``repair_free``).
 
 With ``--policy`` the profiled solve is the main path under
 ``PolicyConfig(enabled=True)`` after the policy benchmark's price move
@@ -92,6 +97,7 @@ PORT_KERNELS = {
     "repair_free_kernel": "repair_free",
     "repair_gather_kernel": "repair_gather",
     "repair_scatter_kernel": "repair_scatter",
+    "repair_scatter_inplace_kernel": "repair_scatter_inplace",
     "cell_scores_kernel": "select_offerings (scores)",
     "select_kernel": "select_offerings (select)",
     "fleet_sum_kernel": "select_offerings (sums)",
@@ -186,9 +192,11 @@ def profile_consolidation(prof_factory, smi: str) -> tuple:
     }
 
 
-def profile_churn(prof_factory, smi: str) -> tuple:
+def profile_churn(prof_factory, smi: str, pipelined: bool = False) -> tuple:
     """(profiler, report) of one warm delta tick of the headline backlog
-    under 2 % churn."""
+    under 2 % churn: serial (KC_PIPELINE=0, K10 and K12), or deferred with
+    carry donation (K21 and K22), its dispatch, settle and decode."""
+    os.environ["KC_PIPELINE"] = "1" if pipelined else "0"
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import solve as solve_ops
     from karpenter_core_tpu_torch.solver.incremental import (
@@ -212,7 +220,10 @@ def profile_churn(prof_factory, smi: str) -> tuple:
     solve_ops.host_syncs = 0
     with prof_factory() as prof:
         t0 = time.perf_counter()
-        session.solve(ingest)
+        if pipelined:
+            session.solve(ingest, deferred=True).result()
+        else:
+            session.solve(ingest)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if session.last_mode != "delta":
@@ -222,7 +233,8 @@ def profile_churn(prof_factory, smi: str) -> tuple:
     summary = device_summary(prof)
     d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
     return prof, {
-        "card": smi, "path": "churn", "wall_s": wall, **session.stages,
+        "card": smi, "path": "pipeline" if pipelined else "churn", "wall_s": wall,
+        **session.stages,
         **session.last_evicted, "window": len(session.last_window[0]),
         "host_syncs": solve_ops.host_syncs, "device_to_host_copies": d2h,
         "device_busy_share_of_tick": summary["device_busy_us"] / 1e6 / wall,
@@ -334,6 +346,8 @@ def main() -> None:
                       help="consolidate that cluster, as chip_smoke.py phase 4 does")
     mode.add_argument("--churn", action="store_true",
                       help="one warm delta tick under steady churn, as chip_smoke.py phase 5")
+    mode.add_argument("--pipeline", action="store_true",
+                      help="one deferred, donating delta tick, as chip_smoke.py phase 10 (b)")
     mode.add_argument("--policy", action="store_true",
                       help="the solve under the policy objective, as chip_smoke.py phase 6 (a), "
                            "with the class planes finished on the card")
@@ -366,7 +380,7 @@ def main() -> None:
     )
     print(smi.stdout.strip(), flush=True)
     build.build_all()
-    if args.consolidation or args.churn or args.tenants or args.montecarlo:
+    if args.consolidation or args.churn or args.pipeline or args.tenants or args.montecarlo:
         if args.consolidation:
             prof, report = profile_consolidation(
                 lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
@@ -381,7 +395,7 @@ def main() -> None:
         else:
             prof, report = profile_churn(
                 lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
-                smi.stdout.strip())
+                smi.stdout.strip(), pipelined=args.pipeline)
         print(json.dumps(report), flush=True)
         if args.trace:
             prof.export_chrome_trace(args.trace)

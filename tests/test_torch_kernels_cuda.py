@@ -377,6 +377,59 @@ def test_repair_window_gather_and_scatter_match_plain(card, n_slots, holes, n_ne
     _equal(rows + (fwd, inv), before)  # the full-width carry stays as it was
 
 
+# -- K21, K22: K10 and K12 in place on the carry --------------------------------
+
+
+@pytest.mark.parametrize("n_new,n_ex", [(8192, 1), (8192, 1536), (77, 6144)])
+def test_repair_free_inplace_matches_plain(card, n_new, n_ex):
+    """K21 against its in-place twin, and against K10 on a clone: the
+    carry's eight planes freed where they lie, f32 bit for bit."""
+    args = _free_args(np.random.default_rng(21 + n_new + n_ex), card, n_new, n_ex)
+    carry = args[:8]
+    twin = [a.clone() for a in carry]
+    out_of_place = repair.repair_free(*args)
+    got = repair.repair_free(*args, inplace=True)
+    assert all(g is c for g, c in zip(got, carry))
+    want = repair.repair_free_inplace_plain(*twin, *args[8:])
+    _equal(got, want)
+    _equal(got, out_of_place)
+
+
+@pytest.mark.parametrize("n_slots,holes,n_next,window_min", [
+    (8192, list(range(3, 7000, 16)), 7162, 256),
+    (8192, [17, 4001, 6000], 7162, 256),
+    (1000, [0, 998], 999, 16),
+])
+def test_repair_scatter_inplace_matches_plain(card, n_slots, holes, n_next, window_min):
+    """K22 against its in-place twin, and against K12 on a clone: only the
+    window's rows, columns and n_next written, into the full carry's own
+    planes."""
+    rng = np.random.default_rng(22 + n_slots + len(holes))
+    rows = _rows(rng, card, n_slots, n_it=1000 if n_slots > 1000 else 77, z=3)
+    g1 = 8
+    fwd = torch.as_tensor(rng.integers(0, 5, (g1, n_slots)).astype(np.int32)).to(card)
+    inv = torch.as_tensor(rng.integers(0, 3, (g1, n_slots)).astype(np.int32)).to(card)
+    n_next_t = torch.tensor(n_next, dtype=torch.int32, device=card)
+    idx_np, n_open = _window(n_slots, holes, n_next, window_min)
+    idx = torch.as_tensor(idx_np).to(card)
+    w_rows = _rows(np.random.default_rng(2), card, len(idx_np), n_it=rows[8].shape[1])
+    w_fwd = torch.as_tensor(rng.integers(0, 9, (g1, len(idx_np))).astype(np.int32)).to(card)
+    w_inv = torch.as_tensor(rng.integers(0, 9, (g1, len(idx_np))).astype(np.int32)).to(card)
+    w_next = torch.tensor(n_open + 5, dtype=torch.int32, device=card)
+    window = (w_rows, w_fwd, w_inv, w_next, idx, n_open)
+    full = rows + (fwd, inv, n_next_t)
+    twin = [t.clone() for t in full]
+    out_of_place = repair.scatter_window(rows, fwd, inv, n_next_t, *window)
+    got = repair.scatter_window(rows, fwd, inv, n_next_t, *window, inplace=True)
+    assert all(g is f for g, f in zip(got[0] + got[1:], full))
+    want = repair.scatter_window_inplace_plain(tuple(twin[:13]), *twin[13:], *window)
+    _equal(got[0], want[0])
+    _equal(got[1:], want[1:])
+    _equal(got[0], out_of_place[0])
+    _equal(got[1:], out_of_place[1:])
+    assert int(got[3]) == n_next + 5
+
+
 # -- K13: the policy objective's offering selection -----------------------------
 
 
