@@ -32,7 +32,8 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      ``testing.workloads.build_cluster(5000, 1000, 5, fill=0.6)`` (5,000
      initialized nodes at 60 % cpu requested, every tenth tainted), through
      ``CudaSolver.solve(ingest, state_nodes, bound_pods)``, cold and warm.
-     Every leaf must equal the plain-twin solve; every existing node's final
+     Every leaf must equal the plain twins' scan on the warm solve's
+     prepared planes (kept, not encoded again); every existing node's final
      usage must stay within its allocatable; no tainted node may take a pod;
      scheduled + failed + residual must be 50,000; every kernel K1-K7 must
      have launched in the cold run.  The warm outputs are decoded again
@@ -44,14 +45,22 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      ``CudaConsolidationSearch.compute_command``: first the mid-size
      cluster of phase 3, whose command must equal the JAX package's answer
      on the same inputs, measured on the CPU (``MID_CONSOLIDATION``); then
-     phase 3's 5,000-node cluster.  The removed nodes must be a prefix of
-     the candidate list, and the chosen prefix's lane must show no failed
-     pod, no uninitialized node and at most one new node; every kernel of
-     the path (K1-K3, K5-K9) must have launched in that run.  The coarse
-     pass runs again with ``use_kernels=False``: every ``SweepOutputs``
-     leaf must equal the kernel run (``new_cost`` to rtol 1e-6, the one
-     leaf whose f32 sum the reference lets vary with reduction order).
-     Then K8 and K9 against their twins at this path's shapes.
+     phase 3's 5,000-node cluster, whose command must stay DELETE 505
+     (``FULL_CONSOLIDATION``).  Each pass runs its lanes as the batch axis
+     of the scan, in chunks sized to the free memory; per pass the script
+     prints the chunks, lanes, launches, host reads, ``sweep_s`` and peak
+     memory.  The removed nodes must be a prefix of the candidate list, and
+     the chosen prefix's lane must show no failed pod, no uninitialized node
+     and at most one new node; every kernel of the path (K1-K3, K5-K9) must
+     have launched in that run.  Every pass runs again with
+     ``use_kernels=False``: every ``SweepOutputs`` leaf of every lane must
+     equal the kernel run (``new_cost`` to rtol 1e-6, the one leaf whose f32
+     sum the reference lets vary with reduction order), and three lanes of
+     the coarse pass their solo ``solve_core``.  Then K8 and K9 against
+     their twins at this path's shapes.  Each run pinned to a fresh JAX
+     process's answer starts from an empty slot-count and feature-set
+     history (``utils.compilecache.reset_memo``) and prints the slot counts
+     it used.
   5. churn path — the incremental session's serial delta tick
      (``IncrementalSolveSession.solve`` under KC_PIPELINE=0, so repairs
      write fresh planes: K10 and K12), with FallbackPolicy(enabled=True,
@@ -101,9 +110,10 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      repair after it).  It must equal the
      JAX package's answer (``RELAX_HEADLINE``: mode, the relax verdict,
      nodes, scheduled, failed, ``fleet_cost``, ``n_next``) and, leaf for
-     leaf, a ``use_kernels=False`` run; K14, K16-K18, K1 and K3 must have
-     launched inside ``relax_core``, K1-K7 in the repair after it and K13 in
-     the policy decode.  (b) Phase 1's backlog with no policy under
+     leaf, a ``use_kernels=False`` run; K14, K16-K18 must have launched
+     inside ``relax_core``, and K1 and K3 once each there (the class
+     planes, the class their batch axis), K1-K7 in the repair after it and
+     K13 in the policy decode.  (b) Phase 1's backlog with no policy under
      ``KC_SOLVER_MODE=relax`` (weights 1, 0, 0), pinned the same way
      (``RELAX_OFF``).  (c) ``bench.py relax_line``'s fleet, both legs
      (``RELAX_LINE``), and a 2,500-pod fleet of the headline's four sizes
@@ -111,8 +121,9 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      must launch).  (d) K14 and K16-K18 against their twins at (a)'s
      shapes, K16 stopped at ``max_iters=1``, ``relax_core`` on a class of
      3,000,000 pods with seeds 0, 1 and 7 (kernels against twins, and the
-     JAX package's 112 / 112 / 106 placed), and K18 given half the slots it
-     filled (so it spills).
+     JAX package's 112 / 112 / 106 placed), K18 given half the slots it
+     filled (so it spills), and K3 and K1 over the class axis against their
+     twins (``class_axis`` in their kernel records).
   8. tenant path — the coalesced multi-tenant solve.  (a) Eight tenants of
      50,000 … 43,000 headline pods, each on its own provider, prepared
      once: their ``service.tenant.bucket_key``s must be equal.  Eight solo
@@ -223,6 +234,9 @@ MID_PODS, MID_NODES, MID_TYPES = 10_000, 1000, 100
 MID_EXPECTED = {"on_existing_nodes": 8609, "existing_nodes_used": 277, "on_new_nodes": 1391,
                 "new_nodes": 1391, "failed": 0, "residual": 0}
 
+# the full-size command of phase 4 (the port's own, unchanged since its
+# first card run; the 5,000-node cluster is past the JAX package's CPU runs)
+FULL_CONSOLIDATION = {"action": "delete", "nodes_removed": 505, "replacements": []}
 # the JAX package's multi-node consolidation command for build_cluster(
 # MID_NODES, MID_TYPES, 5, FILL, CLUSTER_SEED) with every node a candidate
 # and no pending pods, measured on the CPU; tests/test_torch_consolidation.py
@@ -435,6 +449,24 @@ def reset_launches() -> None:
     relax.materialize_launches = 0
 
 
+def fresh_history() -> None:
+    """The port's slot-count and feature-set history emptied, as in a fresh
+    process: the run that follows is pinned to a fresh JAX process's
+    answer, and both packages snap their slot estimates to counts the
+    process used before (``utils.compilecache``)."""
+    from karpenter_core_tpu_torch.utils import compilecache
+
+    compilecache.reset_memo()
+
+
+def slots_used(label: str) -> None:
+    """Print the slot counts the run since ``fresh_history`` estimated."""
+    from karpenter_core_tpu_torch.utils import compilecache
+
+    print(json.dumps({"history": label, "slots_used": sorted(compilecache._slots_seen)}),
+          flush=True)
+
+
 def check_launched(launches: dict, names, path: str) -> None:
     for name in names:
         if launches[name] <= 0:
@@ -461,6 +493,19 @@ def leaves(outputs) -> dict:
     return out
 
 
+def bound(moved, ops) -> dict:
+    """The least time the card could take for ``moved`` bytes and ``ops``
+    scalar operations, and which of the two sets it."""
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+# (bytes, bytes a batch axis shares, operations) of K1's solo call: its
+# replica-axis bound reads them
+K1_WORK = {}
+
+
 def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops,
                   library_fn=None, plain_reps=20):
     """Hold one kernel against its plain twin (exactly), time both (and the
@@ -475,9 +520,7 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches_n, "max_abs_err": err,
         "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, plain_reps),
-        "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
-        else "operations",
+        **bound(moved, ops),
         "library_ms": time_ms(library_fn) if library_fn is not None else None,
     }
     records.append(rec)
@@ -517,9 +560,11 @@ def existing_path(records, cold_launches):
     mid_nodes, mid_bound = build_cluster(MID_NODES, MID_TYPES, N_PROVISIONERS, FILL,
                                          CLUSTER_SEED)
     mid_solver, mid_pods = build_inputs(MID_PODS, MID_TYPES, N_PROVISIONERS)
+    fresh_history()
     mid = path_counts(mid_solver.solve(mid_pods, mid_nodes, mid_bound))
     print(json.dumps({"run": "existing mid-size", "bound_pods": len(mid_bound), **mid}),
           flush=True)
+    slots_used("existing mid-size")
     if mid != MID_EXPECTED:
         fail(f"existing mid-size: {mid}, the JAX package's answer is {MID_EXPECTED}")
     del mid_solver, mid_pods
@@ -535,6 +580,16 @@ def existing_path(records, cold_launches):
     }}), flush=True)
 
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+    # the warm solve's snapshot and prepared planes, kept for the checks
+    # below (encoding 2.77M bound pods again would take a minute of host time)
+    kept = {}
+    prepare = solver.prepare_encoded
+
+    def keep_prepared(snapshot_, *args, **kwargs):
+        kept["snapshot"], kept["prep"] = snapshot_, prepare(snapshot_, *args, **kwargs)
+        return kept["prep"]
+
+    solver.prepare_encoded = keep_prepared
     reset_launches()
     solve_ops.host_syncs = 0
     runs = []
@@ -549,6 +604,7 @@ def existing_path(records, cold_launches):
         if label == "cold":
             launches = launch_counts()
             syncs = solve_ops.host_syncs
+    del solver.prepare_encoded
     out = solver.last_outputs
     for label, ingest_s, stages, total_s, results in runs:
         counts = path_counts(results)
@@ -567,8 +623,7 @@ def existing_path(records, cold_launches):
     print(json.dumps({"existing_cold_run_launches": launches,
                       "existing_cold_run_host_syncs": syncs}), flush=True)
     check_launched(launches, PROVISIONING_KERNELS, "existing-node path")
-    snapshot = solver.encode(ingest, state_nodes, bound_pods)
-    prep = solver.prepare_encoded(snapshot, state_nodes, bound_pods)
+    snapshot, prep = kept["snapshot"], kept["prep"]
     if not bool((out.ex_state.used <= prep.ex_static.alloc + 1e-4).all()):
         fail("an existing node's final usage exceeds its allocatable")
     print("existing path: every existing node's usage within its allocatable", flush=True)
@@ -596,15 +651,15 @@ def existing_path(records, cold_launches):
         fail("existing path: a new node of the policy decode has no selected offering")
     solver.policy = None
 
+    # the twins' scan on the warm solve's prepared planes
     plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
-    ingest = PodIngest()
-    ingest.add_all(pods)
     t0 = time.perf_counter()
-    plain_solver.solve(ingest, state_nodes, bound_pods)
+    plain_out = plain_solver.run_prepared(prep)
     torch.cuda.synchronize()
-    print(json.dumps({"run": "existing plain twins (use_kernels=False)",
-                      "wall_s": time.perf_counter() - t0, **plain_solver.stages}), flush=True)
-    same_leaves(out, plain_solver.last_outputs, "existing path")
+    print(json.dumps({"run": "existing plain twins (use_kernels=False), the warm run's planes",
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    same_leaves(out, plain_out, "existing path")
+    del plain_out
 
     # -- K5-K7 at this path's shapes: the zone-spread class against the
     # cluster as it stood before the solve -----------------------------------
@@ -734,6 +789,7 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
     )
 
     mid_nodes, mid_bound = mid_cluster
+    fresh_history()
     t0 = time.perf_counter()
     mid_search = CudaConsolidationSearch(*build_provider(MID_TYPES, N_PROVISIONERS))
     mid_cmd = mid_search.compute_command(
@@ -752,10 +808,37 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
     candidates = consolidation_candidates(state_nodes, bound_pods, N_TYPES, N_PROVISIONERS)
     candidates_s = time.perf_counter() - t0
     search = CudaConsolidationSearch(*build_provider(N_TYPES, N_PROVISIONERS))
+    fresh_history()
     reset_launches()
     solve_ops.host_syncs = 0
+    passes = []
+    sweep = consolidate_ops.sweep
+
+    def spied_sweep(prep_, sizes_, use_kernels=True):
+        """One pass of the search: its chunks, launches, host reads, wall
+        and peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        l0, s0, t1 = launch_counts(), solve_ops.host_syncs, time.perf_counter()
+        out, chunks, _ = spied_chunks(lambda: sweep(prep_, sizes_, use_kernels=use_kernels))
+        torch.cuda.synchronize()
+        l1 = launch_counts()
+        passes.append({
+            "lanes": len(sizes_), "sweep_s": time.perf_counter() - t1,
+            "pass_host_syncs": solve_ops.host_syncs - s0, **chunk_summary(chunks),
+            "pass_launches": {k: l1[k] - l0[k] for k in l1 if l1[k] != l0[k]},
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before_bytes": mem0,
+        })
+        return out
+
+    consolidate_ops.sweep = spied_sweep
     t0 = time.perf_counter()
-    cmd = search.compute_command(candidates, [], state_nodes, bound_pods)
+    try:
+        cmd = search.compute_command(candidates, [], state_nodes, bound_pods)
+    finally:
+        consolidate_ops.sweep = sweep
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
@@ -765,10 +848,16 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
     print(json.dumps({
         "run": "consolidation full-size", "candidates": len(candidates),
         "candidates_s": candidates_s, "wall_s": wall_s, **search.stages,
-        "passes": [len(sizes) for sizes, _ in search.passes], "host_syncs": syncs, **summary,
+        "passes": [len(sizes) for sizes, _ in search.passes], "host_syncs": syncs,
+        "slots_per_lane": consolidate_ops.SWEEP_SLOTS, **summary,
         "replacement_requests": [r.requests for r in cmd.replacement_nodes],
         "launches": launches,
     }), flush=True)
+    for i, one in enumerate(passes):
+        print(json.dumps({"run": "consolidation full-size pass", "pass": i, **one}), flush=True)
+    slots_used("consolidation full-size")
+    if summary != FULL_CONSOLIDATION:
+        fail(f"consolidation full-size: {summary}, expected {FULL_CONSOLIDATION}")
     check_launched(launches, CONSOLIDATION_KERNELS, "consolidation path")
     if [n.name for n in cmd.nodes_to_remove] != [c.node.name for c in candidates[:k]]:
         fail("consolidation: the removed nodes are not a prefix of the candidate list")
@@ -802,28 +891,57 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
     if k < len(candidates) and k + 1 not in evaluated:
         fail(f"consolidation: k={k} was chosen but k + 1 was never evaluated")
 
-    # the coarse pass again through the plain twins
+    def same_sweep(got_out, want_out, label):
+        for name in consolidate_ops.SweepOutputs._fields:
+            got, want = getattr(got_out, name), getattr(want_out, name)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                fail(f"consolidation: SweepOutputs.{name} differs in dtype or shape ({label})")
+            if name == "new_cost":
+                if not np.allclose(got, want, rtol=1e-6, atol=0):
+                    fail(f"consolidation: new_cost differs beyond rtol 1e-6 ({label})")
+            elif not np.array_equal(got, want):
+                fail(f"consolidation: SweepOutputs.{name} differs ({label})")
+        return bool(np.array_equal(got_out.new_cost, want_out.new_cost))
+
+    # every pass again through the plain twins (the batched scan's twins
+    # run lane by lane)
+    for i, (sizes, out) in enumerate(search.passes):
+        t0 = time.perf_counter()
+        plain_stack = consolidate_ops.run_lanes(prep, sizes, use_kernels=False)
+        plain_out = consolidate_ops.SweepOutputs(*fetch_planes(
+            consolidate_ops.finish_lanes(prep, plain_stack, use_kernels=False)))
+        exact = same_sweep(out, plain_out, f"pass {i} against the plain twins")
+        print(json.dumps({"run": "consolidation pass, plain twins (use_kernels=False)",
+                          "pass": i, "lanes": len(sizes), "wall_s": time.perf_counter() - t0,
+                          "every_lane_equal": True, "new_cost_bit_exact": exact}), flush=True)
+        if i == 0:
+            stack = plain_stack
+        del plain_stack
     coarse_sizes, coarse_out = search.passes[0]
-    t0 = time.perf_counter()
-    stack = consolidate_ops.run_lanes(prep, coarse_sizes, use_kernels=False)
-    plain_out = consolidate_ops.SweepOutputs(*fetch_planes(
-        consolidate_ops.finish_lanes(prep, stack, use_kernels=False)))
-    print(json.dumps({"run": "consolidation coarse pass, plain twins (use_kernels=False)",
-                      "lanes": len(coarse_sizes), "wall_s": time.perf_counter() - t0}),
-          flush=True)
-    for name in consolidate_ops.SweepOutputs._fields:
-        got, want = getattr(coarse_out, name), getattr(plain_out, name)
-        if got.dtype != want.dtype or got.shape != want.shape:
-            fail(f"consolidation: SweepOutputs.{name} differs in dtype or shape")
-        if name == "new_cost":
-            if not np.allclose(got, want, rtol=1e-6, atol=0):
-                fail("consolidation: new_cost differs beyond rtol 1e-6")
-        elif not np.array_equal(got, want):
-            fail(f"consolidation: SweepOutputs.{name} differs between the kernels and their "
-                 "plain twins")
-    print("consolidation path: every SweepOutputs leaf of the coarse pass equals the "
-          "plain-twin pass (new_cost bit-exact: "
-          f"{np.array_equal(coarse_out.new_cost, plain_out.new_cost)})", flush=True)
+
+    # three lanes of the coarse pass alone: K8 for the one lane, its solo
+    # solve_core through the kernels, K9 on its one-lane stack
+    for lane in sorted({0, len(coarse_sizes) // 2, len(coarse_sizes) - 1}):
+        size = torch.as_tensor(coarse_sizes[lane:lane + 1], dtype=torch.int32, device="cuda")
+        lane_open, lane_count = k89.sweep_lanes(prep.candidate_rank, prep.ex_state.open_,
+                                                prep.cls.count, prep.ex_cls_count, size)
+        s0 = solve_ops.host_syncs
+        solo = solve_ops.solve_core(
+            prep.cls._replace(count=lane_count[0]), prep.statics_arrays,
+            consolidate_ops.SWEEP_SLOTS, prep.key_has_bounds,
+            prep.ex_state._replace(open_=lane_open[0]), prep.ex_static, n_passes=prep.n_passes,
+            features=prep.features)
+        solo_syncs = solve_ops.host_syncs - s0
+        one = consolidate_ops.LaneStack(*(t[None] for t in consolidate_ops.lane_planes(solo)))
+        solo_out = consolidate_ops.SweepOutputs(*fetch_planes(
+            consolidate_ops.finish_lanes(prep, one)))
+        lane_out = consolidate_ops.SweepOutputs(*(plane[lane:lane + 1] for plane in coarse_out))
+        exact = same_sweep(lane_out, solo_out, f"coarse lane {lane} against its solo solve")
+        print(json.dumps({"run": "consolidation coarse lane, solo solve_core", "lane": lane,
+                          "k": int(coarse_sizes[lane]), "host_syncs": solo_syncs,
+                          "equal": True, "new_cost_bit_exact": exact}), flush=True)
+    print("consolidation path: every SweepOutputs leaf of every pass equals the plain-twin "
+          "pass, and three coarse lanes their solo solve_core", flush=True)
 
     # -- K8 and K9 at this path's shapes: the coarse pass ---------------------
     sizes_t = torch.as_tensor(coarse_sizes, dtype=torch.int32, device="cuda")
@@ -922,6 +1040,7 @@ def churn_path(records, mid_cluster, path_launches) -> dict:
     # -- (a) the headline backlog under 2 % churn -----------------------------
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
     plain_solver, _ = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, use_kernels=False)
+    fresh_history()
     ingest = PodIngest()
     ingest.add_all(pods)
     session = IncrementalSolveSession(solver, FallbackPolicy(**CHURN_POLICY))
@@ -998,6 +1117,8 @@ def churn_path(records, mid_cluster, path_launches) -> dict:
     # -- (b) the mid-size live cluster ----------------------------------------
     mid_nodes, mid_bound = mid_cluster
     mid_solver, mid_pods = build_inputs(MID_PODS, MID_TYPES, N_PROVISIONERS)
+    slots_used("churn headline")
+    fresh_history()
     mid_ingest = PodIngest()
     mid_ingest.add_all(mid_pods)
     mid = IncrementalSolveSession(mid_solver, FallbackPolicy(**CHURN_POLICY))
@@ -1026,6 +1147,7 @@ def churn_path(records, mid_cluster, path_launches) -> dict:
     got = {"ticks": MID_CHURN["ticks"], "evicted_existing": evicted_ex,
            "evicted_new": evicted_new, "aggregates": mid.aggregates()}
     print(json.dumps({"churn_mid": got}), flush=True)
+    slots_used("churn mid-size")
     if got != MID_CHURN:
         fail(f"churn mid-size: {got}, the JAX package's answer is {MID_CHURN}")
     del mid, check, mid_solver
@@ -1126,6 +1248,7 @@ def policy_path(records, mid_cluster, path_launches) -> dict:
     config = PolicyConfig(enabled=True)
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS, policy=config)
     move_spot_market(solver.cloud_provider)
+    fresh_history()
     reset_launches()
     runs = []
     for label in ("cold", "warm"):
@@ -1138,6 +1261,7 @@ def policy_path(records, mid_cluster, path_launches) -> dict:
         runs.append((label, ingest_s, dict(solver.stages), time.perf_counter() - t0, results))
         if label == "cold":
             launches = launch_counts()
+    slots_used("policy headline")
     selection = solver.last_selection
     for label, ingest_s, stages, total_s, results in runs:
         hist = {}
@@ -1214,6 +1338,7 @@ def policy_path(records, mid_cluster, path_launches) -> dict:
 
     # -- (b) the mid-size consolidation under cost-delta scoring -----------------
     mid_nodes, mid_bound = mid_cluster
+    fresh_history()
     t0 = time.perf_counter()
     search = CudaConsolidationSearch(*build_provider(MID_TYPES, N_PROVISIONERS), policy=config)
     cmd = search.compute_command(
@@ -1233,6 +1358,7 @@ def policy_path(records, mid_cluster, path_launches) -> dict:
     mid_ingest = PodIngest()
     mid_ingest.add_all(mid_pods)
     session = IncrementalSolveSession(mid_solver, FallbackPolicy(**CHURN_POLICY))
+    fresh_history()
     modes, reps = [], {}
     for tick in range(4):
         if tick == 2:
@@ -1244,6 +1370,7 @@ def policy_path(records, mid_cluster, path_launches) -> dict:
         modes.append((session.last_mode, session.last_reason))
     print(json.dumps({"run": "churn mid-size, interruption rate moved before tick 2",
                       "ticks": modes}), flush=True)
+    slots_used("policy escalation")
     want = [("full", "first"), ("delta", None), ("full", POLICY_ESCALATION_REASON),
             ("delta", None)]
     if [(m, r if m == "full" else None) for m, r in modes] != want:
@@ -1263,6 +1390,53 @@ def relax_summary(solver, results) -> dict:
             "scheduled": sum(len(n.pods) for n in results.new_nodes),
             "failed": len(results.failed_pods), "fleet_cost": results.fleet_cost,
             "n_next": results.n_slots_used}
+
+
+def class_axis_records(records, cls, statics) -> None:
+    """K3 and K1 over the class axis at the relax path's shapes (the class
+    planes of ``relax.kernel.class_template_planes``), each held against
+    its twin class by class and timed; ``class_axis`` in their records."""
+    from karpenter_core_tpu_torch.kernels import batch, capacity, reqmerge
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+
+    n_c = cls.count.shape[0]
+    n_t, n_z = statics.tmpl_zone.shape
+    n_i, n_ct = statics.it_alloc.shape[0], statics.tmpl_ct.shape[-1]
+    rows = mask_ops.ReqTensor(*(t[:, None] for t in (cls.mask, cls.defined, cls.negative,
+                                                     cls.gt, cls.lt)))
+    tmpl, valid, vocab_ints, is_custom, it, daemon, alloc = batch.repeat(
+        (statics.tmpl, statics.valid, statics.vocab_ints, statics.is_custom, statics.it,
+         statics.tmpl_daemon, statics.it_alloc), n_c)
+    v, khb = statics.mask_v, statics.key_has_bounds
+    k3 = (tmpl, rows, valid, vocab_ints, is_custom, v, khb)
+    merged, _ = reqmerge.merge_compat(*k3)
+    ones = dict(dtype=torch.bool, device="cuda")
+    k1 = (torch.ones((n_c, n_t, n_i), **ones), torch.ones((n_c, n_i), **ones), merged, it,
+          vocab_ints, v, khb, torch.ones((n_c, n_t, n_z), **ones),
+          torch.ones((n_c, n_t, n_ct), **ones), torch.ones((n_c, n_i, n_z, n_ct), **ones),
+          daemon, cls.requests, alloc)
+    by_name = {rec["name"]: rec for rec in records}
+    # the bytes the class planes need: each shared template and catalog
+    # plane once (not its C copies), each class's row and requests, the
+    # outputs; K1's all-true planes are constants the function does not need
+    shared_k3 = nbytes(statics.tmpl, statics.valid, statics.vocab_ints, statics.is_custom)
+    shared_k1 = nbytes(statics.it, statics.vocab_ints, statics.tmpl_daemon, statics.it_alloc)
+    for name, fn, plain, args, moved, ops in (
+        ("req_merge", reqmerge.merge_compat, reqmerge.merge_compat_twin, k3,
+         shared_k3 + nbytes(rows) + nbytes(tuple(merged)) + n_c * n_t, tmpl.mask.numel() * 8),
+        ("it_capacity", capacity.it_capacity, capacity.it_capacity_twin, k1,
+         shared_k1 + nbytes(tuple(merged), cls.requests) + n_c * n_t * (n_i * 5 + 4),
+         n_c * n_t * n_i * (it.mask.shape[-2] * 6 + 12 + 4 * alloc.shape[-1])),
+    ):
+        err = max_abs_err(fn(*args), plain(*args))
+        if err != 0.0:
+            fail(f"{name} over the class axis differs from its twin: {err}")
+        by_name[name]["class_axis"] = {
+            "B": n_c, "ms": time_ms(lambda: fn(*args)),
+            "plain_ms": time_ms(lambda: plain(*args), 3), **bound(moved, ops),
+            "max_abs_err": err,
+        }
+        print(json.dumps({"class_axis": name, **by_name[name]["class_axis"]}), flush=True)
 
 
 def relax_path(records, path_launches) -> dict:
@@ -1304,6 +1478,7 @@ def relax_path(records, path_launches) -> dict:
 
     def run(solver, pods, label, pin, plain_solver=None):
         runs = []
+        fresh_history()
         for lap in ("cold", "warm"):
             t0 = time.perf_counter()
             ingest = PodIngest()
@@ -1323,6 +1498,7 @@ def relax_path(records, path_launches) -> dict:
                               **runs[-1][2], **got}), flush=True)
             if got != pin:
                 fail(f"{label} {lap}: {got}, the JAX package's answer is {pin}")
+        slots_used(label)
         out = solver.last_outputs
         if plain_solver is not None:
             ingest = PodIngest()
@@ -1343,9 +1519,13 @@ def relax_path(records, path_launches) -> dict:
     for s in (solver, plain):
         move_spot_market(s.cloud_provider)
     launches, relax_only, repair = run(solver, pods, "relax headline", RELAX_HEADLINE, plain)
+    class_planes = {name: relax_only[name] for name in ("req_merge", "it_capacity")}
     print(json.dumps({"relax_cold_run_launches": launches, "in_relax_core": relax_only,
-                      "in_repair_and_decode": repair}), flush=True)
+                      "in_repair_and_decode": repair,
+                      "class_planes_launches": class_planes}), flush=True)
     check_launched(relax_only, RELAX_KERNELS, "relax path's relax_core")
+    if class_planes != {"req_merge": 1, "it_capacity": 1}:
+        fail(f"relax_core's class planes launched {class_planes}, not K3 and K1 once each")
     check_launched(repair, PROVISIONING_KERNELS, "relax path's repair")
     check_launched(launches, ("select_offerings",), "relax path's policy decode")
     del plain
@@ -1363,6 +1543,7 @@ def relax_path(records, path_launches) -> dict:
     # -- (c) relax_line's fleet, both legs, and the window fleet -------------------
     legs = {}
     for mode in ("scan", "relax"):
+        fresh_history()
         s, fleet = relax_fleet(4000, 24, ({"cpu": "500m", "memory": "512Mi"},), mode=mode)
         ingest = PodIngest()
         ingest.add_all(fleet)
@@ -1385,6 +1566,7 @@ def relax_path(records, path_launches) -> dict:
         return gather(carry, idx, n_open_w, *args, **kwargs)
 
     solve_ops.gather_repair_window = spy
+    fresh_history()
     s, fleet = relax_fleet(2500, 24, HEADLINE_SIZES)
     ingest = PodIngest()
     ingest.add_all(fleet)
@@ -1403,12 +1585,10 @@ def relax_path(records, path_launches) -> dict:
     check_launched(window_launches, ("repair_gather", "repair_scatter"), "relax window repair")
 
     # -- (d) K14, K16-K18 against their twins at (a)'s shapes ----------------------
-    sa = solve_ops.StaticArrays(*prep.statics_arrays)
-    width = sa.valid.shape[-1]
-    sa = sa._replace(it=mask_ops.pack_req(sa.it), tmpl=mask_ops.pack_req(sa.tmpl),
-                     valid=mask_ops.pack_mask(sa.valid))
-    cls = prep.cls._replace(mask=mask_ops.pack_mask(prep.cls.mask))
-    statics = solve_ops.Statics(*sa, key_has_bounds=tuple(prep.key_has_bounds), mask_v=width)
+    cls, statics = relax_kernel.packed_statics(prep.cls, prep.statics_arrays,
+                                               prep.key_has_bounds)
+    width = statics.mask_v
+    class_axis_records(records, cls, statics)
     eligible = torch.as_tensor(relax_solve.eligible_classes(prep), device="cuda")
     counts = torch.where(eligible, cls.count, 0).to(torch.int32)
     merged, key_ok, it_int, per_pod = relax_kernel.class_template_planes(cls, statics)
@@ -1607,10 +1787,7 @@ def tenant_line(records, path_launches, n_b, name, entry, kernel_fn, plain_fn, m
     if err != 0.0:
         fail(f"{entry} at B = {n_b}: kernel differs from its twin (max_abs_err {err})")
     rec = {"B": n_b, "launches": path_launches[name], "max_abs_err": err,
-           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
-           "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3,
-           "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / SCALAR_OPS_PER_S
-           else "operations"}
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), **bound(moved, ops)}
     next(r for r in records if r["name"] == name).setdefault("tenant_axis", {})[entry] = rec
     print(f"{entry} B={n_b}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
           f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) exact", flush=True)
@@ -1627,6 +1804,7 @@ def tenant_path(records, path_launches) -> dict:
     from karpenter_core_tpu_torch.service import tenant as tenant_mod
 
     # -- (a) eight cold tenants at the headline ----------------------------------
+    fresh_history()
     t0 = time.perf_counter()
     worlds = []
     for b, n in enumerate(TENANT_PODS):
@@ -1836,6 +2014,7 @@ def existing_coalescing(records, path_launches) -> None:
         clusters.append(build_cluster(n_nodes, MID_TYPES, N_PROVISIONERS, FILL, seed))
     build_s = time.perf_counter() - t0
     plane = tenant_plane(600.0, len(worlds))
+    fresh_history()
     sinks = [[] for _ in worlds]
     entries = bind_tenants(plane, worlds, sinks)
     t0 = time.perf_counter()
@@ -1856,6 +2035,7 @@ def existing_coalescing(records, path_launches) -> None:
     print(json.dumps({"run": "existing-node coalescing", "fleets": [n for n, _ in EX_TENANT_FLEETS],
                       "pods": EX_TENANT_PODS, "build_s": build_s, "wall_s": wall_s,
                       "counts": counts}), flush=True)
+    slots_used("existing-node coalescing")
     for i, pin in EX_TENANT_PINS.items():
         if counts[i] != pin:
             fail(f"existing-node tenant {i}: {counts[i]}, the JAX package's answer is {pin}")
@@ -2060,6 +2240,7 @@ def crossed_path(inputs) -> dict:
     import numpy as np
 
     from karpenter_core_tpu_torch.kernels import consolidate as k89
+    from karpenter_core_tpu_torch.ops import chunks as chunks_mod
     from karpenter_core_tpu_torch.ops import solve as solve_ops
     from karpenter_core_tpu_torch.parallel import mesh
 
@@ -2101,7 +2282,8 @@ def crossed_path(inputs) -> dict:
     print(json.dumps({
         "run": "crossed grid", "replicas": CROSSED_REPLICAS, "prefix_sizes": len(sizes),
         "stacked_input_bytes_per_cell": nbytes(shared),
-        "estimate_bytes_per_cell": mesh.cell_bytes(mesh.consolidate_ops.SWEEP_SLOTS, shared),
+        "estimate_bytes_per_cell": chunks_mod.cell_bytes(mesh.consolidate_ops.SWEEP_SLOTS,
+                                                         shared),
         "existing_rows": int(prep.ex_state.open_.shape[0]),
         "slots": mesh.consolidate_ops.SWEEP_SLOTS,
         "wall_s": wall_s, **chunk_summary(chunks),
@@ -2146,7 +2328,7 @@ def whatif_study(label, run):
                       "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
                       "allocated_before_bytes": mem0, "launches": launches}), flush=True)
     check_launched(launches, WHATIF_KERNELS, label)
-    return result, launches, last
+    return result, launches, last, [c["cells"] for c in chunks]
 
 
 def sampled_solos(snapshot, avail, study, n_slots, it_price, label):
@@ -2184,6 +2366,7 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
 
     from karpenter_core_tpu_torch.kernels import batch, perturb
     from karpenter_core_tpu_torch.models.columnar import PodIngest
+    from karpenter_core_tpu_torch.ops import chunks as chunks_mod
     from karpenter_core_tpu_torch.ops import solve as solve_ops
     from karpenter_core_tpu_torch.parallel import mesh
     from karpenter_core_tpu_torch.solver.cuda import CudaSolver
@@ -2192,6 +2375,7 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     ingest = PodIngest()
     ingest.add_all(pods)
     snapshot = solver.encode(ingest)
+    fresh_history()
     n_slots = solve_ops.estimate_slots(snapshot)
     it_price = torch.as_tensor(snapshot.it_price, device="cuda")
     if n_slots != solo_out.assign.shape[1]:
@@ -2203,7 +2387,7 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
         fail(f"what-if: phase 1's solve sums to {solo}")
 
     # -- (a) rate 0: every replica is the unperturbed solve --------------------
-    calm, _, _ = whatif_study("monte-carlo, rate 0", lambda: mesh.monte_carlo_solve(
+    calm, _, _, _ = whatif_study("monte-carlo, rate 0", lambda: mesh.monte_carlo_solve(
         snapshot, WHATIF_REPLICAS, seed=0, interruption_rate=0.0))
     for key, want in zip(("scheduled", "failed", "nodes", "cost"), solo):
         if not np.all(calm[key] == want):
@@ -2212,13 +2396,21 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
           flush=True)
 
     # -- (b) rate 0.3: sampled replicas, and a chunk against the twins ---------
-    study, launches, last = whatif_study(
+    study, launches, last, cells = whatif_study(
         "monte-carlo, rate 0.3", lambda: mesh.monte_carlo_solve(
             snapshot, WHATIF_REPLICAS, seed=0, interruption_rate=WHATIF_RATE))
     print(json.dumps({"monte_carlo": {k: (v.tolist()[:8] if isinstance(v, np.ndarray) else v)
                                       for k, v in study.items()}}), flush=True)
     if not np.all(study["scheduled"] + study["failed"] == N_PODS):
         fail("monte-carlo rate 0.3: a replica lost pods")
+    # K1's bound at the study's largest chunk: each replica has its own
+    # slots and availability, the catalog and class planes are shared, and
+    # the operations are B times the solo call's
+    k1 = next(rec for rec in records if rec["name"] == "it_capacity")
+    moved, shared, ops = K1_WORK["solo"]
+    n_b = max(cells)
+    k1["replica_axis"] = {"B": n_b, **bound(shared + n_b * (moved - shared), n_b * ops)}
+    print(json.dumps({"it_capacity_replica_axis": k1["replica_axis"]}), flush=True)
     avail = mesh.perturb_spot_availability(snapshot, WHATIF_REPLICAS, 0, WHATIF_RATE)
     sampled_solos(snapshot, avail, study, n_slots, it_price, "monte-carlo rate 0.3")
     cls, sa, khb = mesh.prepared(snapshot, "cuda")
@@ -2226,9 +2418,10 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     # take dense operands; a stride-0 view would cost only the availability)
     print(json.dumps({"stacked_input_bytes_per_replica": nbytes((cls, sa)),
                       "own_availability_bytes_per_replica": int(avail[0].numel()),
-                      "estimate_bytes_per_replica": mesh.cell_bytes(n_slots, (cls, sa))}),
+                      "estimate_bytes_per_replica": chunks_mod.cell_bytes(n_slots, (cls, sa))}),
           flush=True)
-    cls_b, sa_b = mesh.stacked_replicas(cls, sa, avail[:WHATIF_TWIN_CHUNK])
+    cls_b, sa_b = batch.repeat((cls, sa), WHATIF_TWIN_CHUNK)
+    sa_b = sa_b._replace(it_avail=avail[:WHATIF_TWIN_CHUNK].contiguous())
     ft = solve_ops.snapshot_features(snapshot)
     t0 = time.perf_counter()
     kern = solve_ops.solve_core_batched(cls_b, sa_b, n_slots, khb,
@@ -2296,7 +2489,7 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
         provider.set_interruption_rate(it.name, WHATIF_RATE)
     risky = CudaSolver(provider, provisioners)
     snap_p = risky.encode(ingest)
-    policy, policy_launches, _ = whatif_study(
+    policy, policy_launches, _, _ = whatif_study(
         "policy monte-carlo", lambda: mesh.policy_monte_carlo(snap_p, WHATIF_REPLICAS,
                                                               seed=POLICY_WHATIF_SEED))
     print(json.dumps({"policy_monte_carlo": {
@@ -2375,6 +2568,7 @@ def pipeline_path(records, path_launches) -> dict:
     from karpenter_core_tpu_torch.utils import watchdog
 
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+    fresh_history()
 
     def fresh_ingest():
         ingest = PodIngest()
@@ -2666,6 +2860,7 @@ def pipeline_path(records, path_launches) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from karpenter_core_tpu_torch import carry
@@ -2786,13 +2981,17 @@ def main() -> None:
     k1_args = (state.viable, cls0.it, merged, st.it, st.vocab_ints, v, khb, zone_ok, ct_ok,
                st.it_avail, state.used, cls0.requests, st.it_alloc)
     n_slots, n_types = state.viable.shape
+    K1_WORK["solo"] = (
+        nbytes(*[a for a in k1_args if isinstance(a, (torch.Tensor, tuple))])
+        + n_slots * n_types * 5 + n_slots * 4,
+        nbytes(cls0.it, st.it, st.vocab_ints, cls0.requests, st.it_alloc),
+        n_slots * n_types * (st.it.mask.shape[1] * 6 + 12 + 4 * st.it_alloc.shape[1]),
+    )
     _, cap_ni, cap_n = record(
         "it_capacity", "karpenter_core_tpu_torch/csrc/it_capacity.cu",
         "karpenter_core_tpu/ops/solve.py:334", launches["it_capacity"],
         lambda: capacity.it_capacity(*k1_args), lambda: capacity.it_capacity_plain(*k1_args),
-        nbytes(*[a for a in k1_args if isinstance(a, (torch.Tensor, tuple))])
-        + n_slots * n_types * 5 + n_slots * 4,
-        n_slots * n_types * (st.it.mask.shape[1] * 6 + 12 + 4 * st.it_alloc.shape[1]),
+        K1_WORK["solo"][0], K1_WORK["solo"][2],
     )
     # K2 priority fill of class 0's count over the K1 caps
     priority = state.pod_count * n_slots + torch.arange(n_slots, dtype=torch.int32, device="cuda")
@@ -2925,6 +3124,7 @@ def main() -> None:
           "and a threshold; K20: masked minima over offerings and sums in XLA's order; K22: "
           "row copies into thirteen planes, two column copies and an add)",
           flush=True)
+    print(json.dumps({"chip_smoke_total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

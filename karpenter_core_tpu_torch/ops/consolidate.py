@@ -8,9 +8,14 @@ prefix sizes k in one pass, each a lane:
 
   K8 (``kernels.consolidate.sweep_lanes``)  every lane's open mask (the
       first k candidates closed) and class counts (their pods displaced);
-  ``ops.solve.solve_core``  each lane's simulation through K1-K7, one lane
-      after another — the reference vmaps them, and the lanes are
-      independent, so they share the prepared planes and nothing else;
+  ``ops.solve.solve_core_batched``  the lanes' simulations, the lane the
+      scan's batch axis (the reference's ``jax.vmap(one_prefix)``): every
+      launch of K1-K7 and every host read of a skip covers a chunk of
+      lanes.  The lanes share the prepared planes, repeated over the chunk
+      (the kernels take no stride-0 operand); each has its own class counts
+      and ``ExistingState.open_``.  Chunks are sized to the card's free
+      memory (``ops.chunks``); lanes are independent, so no output depends
+      on the chunk;
   K9 (``kernels.consolidate.lane_finish``)  every lane's failures,
       uninitialized-node use and replacement price (``node_prices``) over
       the stacked lane outputs.
@@ -19,14 +24,16 @@ prefix sizes k in one pass, each a lane:
     out = sweep(prep, prefix_sizes)             # SweepOutputs, leading dim S
 
 ``sweep`` is ``run_lanes`` (K8 and the lane solves) then ``finish_lanes``
-(K9).  The reference's ``run_sweep`` prepares and sweeps in one call, once
-per pass; here the search prepares once per command and sweeps each pass.
+(K9).  ``run_sweep`` is the reference's production entry (prepare, snap the
+features, sweep) without its mesh branch (``_lane_sweep_fn``, ROADMAP 1.2);
+the search prepares once per command and sweeps each pass.  The crossed
+what-if grid (``parallel.mesh.crossed_sweep``) runs its cells through the
+same chunk loop (``ops.chunks.solve_cells``).
 
 ``prepare_sweep`` pads E and C (``ops.solve.pad_planes``): the padded rows of
 ``rank`` hold ``1 << 30``, so they never enter a subset, and the padded
 existing nodes are closed and hold no assignment, so they never make a lane
-use an uninitialized node.  The mesh dispatcher's lane sweep
-(``_lane_sweep_fn``) is not ported yet.
+use an uninitialized node.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ import torch
 from karpenter_core_tpu_torch import carry
 from karpenter_core_tpu_torch import device as device_mod
 from karpenter_core_tpu_torch.kernels import consolidate as k89
+from karpenter_core_tpu_torch.ops import chunks
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
+from karpenter_core_tpu_torch.utils import compilecache
 
 NOT_CANDIDATE = 1 << 30  # rank of a node outside the candidate list
 # New-node slots per lane, the reference's run_sweep default: a valid lane
@@ -78,14 +87,20 @@ class SweepPrep(NamedTuple):
     n_passes: int
     features: solve_ops.SnapshotFeatures
 
+    def shared(self) -> tuple:
+        """The planes every lane repeats (``ops.chunks.solve_cells``)."""
+        return self.cls, self.statics_arrays, self.ex_state, self.ex_static
+
 
 def prepare_sweep(snapshot, ex_state, ex_static, candidate_rank: np.ndarray,
                   ex_cls_count: np.ndarray, device=None) -> SweepPrep:
     """The sweep's inputs from an encoded snapshot (its ``cls_count`` the
     base counts) and the numpy existing-node planes of
-    ``CudaSolver.encode_existing`` (``device=None``: CUDA)."""
+    ``CudaSolver.encode_existing`` (``device=None``: CUDA); the features
+    snapped (``utils.compilecache.snap_features``) as the reference's
+    ``run_sweep`` snaps them."""
     dev = device_mod.resolve(device)
-    features = solve_ops.features_with_existing(snapshot, ex_static)
+    features = compilecache.snap_features(solve_ops.features_with_existing(snapshot, ex_static))
     cls, statics_arrays, key_has_bounds = solve_ops.prepare_host(snapshot)
     cls, statics_arrays, key_has_bounds, ex_state, ex_static = solve_ops.pad_planes(
         cls, statics_arrays, key_has_bounds, ex_state, ex_static,
@@ -122,25 +137,28 @@ class LaneStack(NamedTuple):
     assign_existing: torch.Tensor  # i32[S, C, E]
 
 
-def run_lanes(prep: SweepPrep, prefix_sizes, use_kernels: bool = True) -> LaneStack:
-    """K8's set-up of every lane, then each lane's ``solve_core`` over
-    ``SWEEP_SLOTS`` new-node slots."""
+def lane_planes(out) -> tuple:
+    """The ``LaneStack`` fields of a (batched or solo) scan's outputs."""
+    st = out.state
+    return (st.n_next, st.viable, st.zone, st.ct, st.used, st.tmpl_id, st.open_, st.pod_count,
+            out.failed, out.assign_existing)
+
+
+def run_lanes(prep: SweepPrep, prefix_sizes, use_kernels: bool = True,
+              n_slots: int = SWEEP_SLOTS) -> LaneStack:
+    """K8's set-up of every lane, then the lanes' simulations over
+    ``n_slots`` new-node slots through the batched scan, a chunk of lanes at
+    a time (``ops.chunks.solve_cells``).  Each lane's outputs equal its solo
+    ``solve_core``."""
     lanes = k89.sweep_lanes if use_kernels else k89.sweep_lanes_plain
     dev = prep.it_price.device
     sizes = torch.as_tensor(np.asarray(prefix_sizes, dtype=np.int32)).to(dev)
     lane_open, lane_count = lanes(prep.candidate_rank, prep.ex_state.open_, prep.cls.count,
                                   prep.ex_cls_count, sizes)
-    kept = []
-    for s in range(sizes.shape[0]):
-        out = solve_ops.solve_core(
-            prep.cls._replace(count=lane_count[s]), prep.statics_arrays, SWEEP_SLOTS,
-            prep.key_has_bounds, prep.ex_state._replace(open_=lane_open[s]), prep.ex_static,
-            n_passes=prep.n_passes, features=prep.features, use_kernels=use_kernels,
-        )
-        st = out.state
-        kept.append((st.n_next, st.viable, st.zone, st.ct, st.used, st.tmpl_id, st.open_,
-                     st.pod_count, out.failed, out.assign_existing))
-    return LaneStack(*(torch.stack(planes) for planes in zip(*kept)))
+    return LaneStack(*chunks.solve_cells(
+        prep.shared(), prep.key_has_bounds, sizes.shape[0], n_slots, lane_planes,
+        count=lane_count, open_=lane_open, n_passes=prep.n_passes, features=prep.features,
+        use_kernels=use_kernels))
 
 
 def finish_lanes(prep: SweepPrep, stack: LaneStack, use_kernels: bool = True) -> SweepOutputs:
@@ -157,10 +175,21 @@ def finish_lanes(prep: SweepPrep, stack: LaneStack, use_kernels: bool = True) ->
     )
 
 
-def sweep(prep: SweepPrep, prefix_sizes, use_kernels: bool = True) -> SweepOutputs:
+def sweep(prep: SweepPrep, prefix_sizes, use_kernels: bool = True,
+          n_slots: int = SWEEP_SLOTS) -> SweepOutputs:
     """Simulate closing the first k candidates for every k in
     ``prefix_sizes``; device-resident outputs.  ``use_kernels=False`` runs
     every kernel's plain twin (the oracle on the card)."""
-    stack = run_lanes(prep, prefix_sizes, use_kernels=use_kernels)
+    stack = run_lanes(prep, prefix_sizes, use_kernels=use_kernels, n_slots=n_slots)
     return finish_lanes(prep, stack, use_kernels=use_kernels)
 
+
+def run_sweep(snapshot, ex_state, ex_static, candidate_rank: np.ndarray,
+              ex_cls_count: np.ndarray, prefix_sizes, n_slots: int = SWEEP_SLOTS,
+              device=None) -> SweepOutputs:
+    """The production sweep entry (the reference's ``run_sweep`` :156
+    without its mesh branch): prepare the snapshot's planes (features
+    snapped), then sweep ``prefix_sizes`` over ``n_slots`` slots a lane.
+    Device-resident outputs (``device=None``: CUDA)."""
+    prep = prepare_sweep(snapshot, ex_state, ex_static, candidate_rank, ex_cls_count, device)
+    return sweep(prep, prefix_sizes, n_slots=n_slots)

@@ -116,6 +116,11 @@ class SnapshotFeatures(NamedTuple):
             f = f._replace(zone_anti=True, inv_zone_anti=True)
         return f
 
+    def covers(self, other: "SnapshotFeatures") -> bool:
+        """True when a scan planned with ``self`` is sound for a snapshot
+        requesting ``other`` (``self`` is a flag superset)."""
+        return all(a or not b for a, b in zip(self, other))
+
     def union(self, other: "SnapshotFeatures") -> "SnapshotFeatures":
         return SnapshotFeatures(*(a or b for a, b in zip(self, other)))
 
@@ -1576,9 +1581,9 @@ def prepare_host(snapshot: EncodedSnapshot):
 
 def estimate_slots(snapshot: EncodedSnapshot) -> int:
     """Optimistic node-count estimate: per class, best pods-per-node over the
-    catalog, plus slack for zone phases; rounded up to a power of two.  (The
-    reference also snaps it to a previously compiled size; the port compiles
-    nothing per shape, so the estimate stands as it is.)"""
+    catalog, plus slack for zone phases; rounded up to a power of two and
+    snapped to a slot count used before in the process
+    (``utils.compilecache.snap_slots``), as the reference's is."""
     total = 16 + bucket(len(snapshot.classes)) * snapshot.cls_zone.shape[1]
     alloc = snapshot.it_alloc  # [I, R]
     for c, cls in enumerate(snapshot.classes):
@@ -1594,7 +1599,9 @@ def estimate_slots(snapshot: EncodedSnapshot) -> int:
             host_cap = 1.0
         best = max(1.0, min(best, host_cap))
         total += int(np.ceil(float(snapshot.cls_count[c]) / best))
-    return int(2 ** np.ceil(np.log2(max(total, 16))))
+    from karpenter_core_tpu_torch.utils import compilecache
+
+    return compilecache.snap_slots(int(2 ** np.ceil(np.log2(max(total, 16)))))
 
 
 # -- shape-bucket padding (semantically invisible; see the reference) ---------

@@ -20,8 +20,12 @@ Every replica shares the classes and the statics; only ``it_avail`` (and,
 in the crossed grid, ``ExistingState.open_`` and the class counts) differs.
 The kernels take dense operands, so the shared leaves are stacked (repeated
 over the chunk).  Chunks are sized to the card's free memory
-(``chunk_size``); replicas are independent, so no output depends on the
-chunk.  All results come to the host in one copy at the end.
+(``ops.chunks.chunk_size``); replicas are independent, so no output depends
+on the chunk.  The replicas, and the crossed grid's cells (the lane sweep
+with a replica axis), run through the sweep's chunk loop
+(``ops.chunks.solve_cells``).
+The solves' features are snapped (``utils.compilecache.snap_features``) as
+the reference's are.  All results come to the host in one copy at the end.
 
 Entry points take the reference's names, arguments and return dicts, with
 ``device=None`` (the card; the CPU only when asked) in the place of
@@ -29,7 +33,7 @@ Entry points take the reference's names, arguments and return dicts, with
 mesh multiples, which changes nothing it returns.
 Left out, each with its ROADMAP item: the ``watchdog.run`` barrier (1.5);
 ``solve_catalog_sharded``, the mesh topology functions and
-``tenant_solve_callable`` (1.8, the next slice).
+``tenant_solve_callable`` (1.2: they need more than one card).
 """
 
 from __future__ import annotations
@@ -39,64 +43,13 @@ import torch
 
 from karpenter_core_tpu_torch import carry
 from karpenter_core_tpu_torch import device as device_mod
-from karpenter_core_tpu_torch.kernels import batch
 from karpenter_core_tpu_torch.kernels import consolidate as k89
 from karpenter_core_tpu_torch.kernels import montecarlo as k20
 from karpenter_core_tpu_torch.kernels import perturb as k19
+from karpenter_core_tpu_torch.ops import chunks
 from karpenter_core_tpu_torch.ops import consolidate as consolidate_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
-
-# The batched scan's peak device memory per (slot, instance type) of one
-# replica: phase 8 of chip_smoke.py measured 2.08 GB at B = 8 against 0.24 GB
-# solo (N = 8,192, I = 1,000), 32 bytes a (slot, type) for each tenant more.
-SCAN_BYTES_PER_SLOT_TYPE = 32
-# The stacked inputs of one replica, and the working planes the scan derives
-# from them, counted as this many times the inputs' bytes.
-INPUT_COPIES = 4
-MEMORY_SHARE = 0.5  # of the card's free memory one chunk may take
-CPU_CHUNK = 16  # replicas a chunk on the CPU (the twins run them one by one)
-
-
-def _nbytes(tree) -> int:
-    total = []
-    batch.tree_map(lambda t: total.append(t.numel() * t.element_size()), tree)
-    return sum(total)
-
-
-def chunk_size(n_cells: int, cell_bytes: int, device) -> int:
-    """Cells a batched scan takes at once: as many as fit in
-    ``MEMORY_SHARE`` of the card's free memory (the caching allocator's idle
-    blocks counted free) at ``cell_bytes`` each, spread evenly over the
-    chunks that takes; ``CPU_CHUNK`` on the CPU."""
-    dev = torch.device(device)
-    if n_cells <= 0:
-        return 1
-    if dev.type != "cuda":
-        fit = CPU_CHUNK
-    else:
-        free, _ = torch.cuda.mem_get_info(dev)
-        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-        fit = int(free * MEMORY_SHARE) // max(int(cell_bytes), 1)
-    fit = max(1, min(fit, n_cells))
-    n_chunks = -(-n_cells // fit)
-    return -(-n_cells // n_chunks)
-
-
-def cell_bytes(n_slots: int, shared) -> int:
-    """The device memory one replica of a chunk takes, by estimate: the
-    scan's planes over (slot, type) and the replica's stacked inputs."""
-    sa = shared[1]
-    n_it = sa.it_alloc.shape[0]
-    return SCAN_BYTES_PER_SLOT_TYPE * n_slots * n_it + INPUT_COPIES * _nbytes(shared)
-
-
-def stacked_replicas(cls, statics_arrays, avail):
-    """One chunk's batched inputs: the shared classes and statics repeated
-    over the replicas of ``avail`` (bool[B, I, Z, CT]), each with its own
-    availability plane."""
-    n_b = avail.shape[0]
-    return (batch.repeat(cls, n_b),
-            batch.repeat(statics_arrays, n_b)._replace(it_avail=avail.contiguous()))
+from karpenter_core_tpu_torch.utils import compilecache
 
 
 def _finish(out, it_price, use_kernels: bool):
@@ -113,19 +66,14 @@ def replica_summaries(cls, statics_arrays, key_has_bounds, avail_r, it_price, n_
     planes' device: ``solve_core_batched`` over chunks of replicas, K20 on
     each chunk's outputs."""
     n_rep = avail_r.shape[0]
-    chunk = chunk_size(n_rep, cell_bytes(n_slots, (cls, statics_arrays)), avail_r.device)
-    parts = []
-    for lo in range(0, n_rep, chunk):
-        cls_b, sa_b = stacked_replicas(cls, statics_arrays, avail_r[lo:lo + chunk])
-        out = solve_ops.solve_core_batched(cls_b, sa_b, n_slots, key_has_bounds,
-                                           n_passes=n_passes, features=features)
-        parts.append(_finish(out, it_price, True))
-        del out, cls_b, sa_b
-    if not parts:
+    if n_rep == 0:
         dev = avail_r.device
         return (*(torch.zeros(0, dtype=torch.int32, device=dev) for _ in range(3)),
                 torch.zeros(0, dtype=torch.float32, device=dev))
-    return tuple(torch.cat(p) for p in zip(*parts))
+    return chunks.solve_cells((cls, statics_arrays, None, None), key_has_bounds, n_rep, n_slots,
+                              lambda out: _finish(out, it_price, True),
+                              it_avail=lambda lo, hi: avail_r[lo:hi], n_passes=n_passes,
+                              features=features)
 
 
 def _is_spot(snapshot, dev) -> torch.Tensor:
@@ -168,7 +116,7 @@ def _replica_run(snapshot, avail_r, it_price, n_slots: int, dev):
     outs = replica_summaries(
         cls, sa, khb, avail_r, carry.to_tensor(np.asarray(it_price, dtype=np.float32), dev),
         n_slots, n_passes=snapshot.scan_passes,
-        features=solve_ops.snapshot_features(snapshot))
+        features=compilecache.snap_features(solve_ops.snapshot_features(snapshot)))
     return [t.cpu().numpy() for t in outs]  # the study's one fetch
 
 
@@ -251,36 +199,26 @@ def crossed_sweep(prep: consolidate_ops.SweepPrep, avail_r, prefix_sizes,
                   n_slots: int = consolidate_ops.SWEEP_SLOTS, use_kernels: bool = True):
     """(failed i32[R, S], n_new i32[R, S]) on the device: cell (r, s)
     closes the first ``prefix_sizes[s]`` candidates of ``prep`` (K8, every
-    cell in one launch) and solves under replica r's availability; K20 sums
+    cell in one launch) and solves under replica r's availability, through
+    the lane sweep's chunk loop (``ops.chunks.solve_cells``); K20 sums
     each cell's failures."""
     dev = prep.it_price.device
     sizes = torch.as_tensor(np.asarray(prefix_sizes, dtype=np.int32)).to(dev)
     n_rep, n_sizes = avail_r.shape[0], sizes.shape[0]
-    n_cells = n_rep * n_sizes
+    if n_rep * n_sizes == 0:
+        empty = torch.zeros((n_rep, n_sizes), dtype=torch.int32, device=dev)
+        return empty, empty.clone()
     lanes = k89.sweep_lanes if use_kernels else k89.sweep_lanes_plain
     # cell r * S + s: the sizes repeat once per replica
     lane_open, lane_count = lanes(prep.candidate_rank, prep.ex_state.open_, prep.cls.count,
                                   prep.ex_cls_count, sizes.repeat(n_rep))
-    chunk = chunk_size(n_cells, cell_bytes(
-        n_slots, (prep.cls, prep.statics_arrays, prep.ex_state, prep.ex_static)), dev)
-    failed, n_new = [], []
-    for lo in range(0, n_cells, chunk):
-        hi = min(lo + chunk, n_cells)
-        rows = torch.arange(lo, hi, device=dev) // n_sizes
-        cls_b, sa_b = stacked_replicas(prep.cls, prep.statics_arrays, avail_r[rows])
-        cls_b = cls_b._replace(count=lane_count[lo:hi])
-        ex_b = batch.repeat(prep.ex_state, hi - lo)._replace(open_=lane_open[lo:hi])
-        out = solve_ops.solve_core_batched(
-            cls_b, sa_b, n_slots, prep.key_has_bounds, ex_b, batch.repeat(prep.ex_static, hi - lo),
-            n_passes=prep.n_passes, features=prep.features, use_kernels=use_kernels)
-        failed.append(_finish(out, prep.it_price, use_kernels)[1])
-        n_new.append(out.state.n_next)
-        del out, cls_b, sa_b, ex_b
-    if not failed:
-        empty = torch.zeros((n_rep, n_sizes), dtype=torch.int32, device=dev)
-        return empty, empty.clone()
-    return (torch.cat(failed).reshape(n_rep, n_sizes),
-            torch.cat(n_new).reshape(n_rep, n_sizes))
+    failed, n_new = chunks.solve_cells(
+        prep.shared(), prep.key_has_bounds, n_rep * n_sizes, n_slots,
+        lambda out: (_finish(out, prep.it_price, use_kernels)[1], out.state.n_next),
+        count=lane_count, open_=lane_open,
+        it_avail=lambda lo, hi: avail_r[torch.arange(lo, hi, device=dev) // n_sizes],
+        n_passes=prep.n_passes, features=prep.features, use_kernels=use_kernels)
+    return failed.reshape(n_rep, n_sizes), n_new.reshape(n_rep, n_sizes)
 
 
 def crossed_consolidation_study(

@@ -12,10 +12,11 @@ largest-fraction rounding, an exact audit and a whole-node materializer.
 
 ``relax_core`` composes the port's kernels:
 
-  K3 ``merge_compat``  the class merged into each template row (one launch a
-                       class: C launches)
+  K3 ``merge_compat``  every class merged into each template row (one
+                       launch, the class its batch axis)
   K1 ``it_capacity``   each template's instance-type intersection and
-                       per-node intake of the class (one launch a class).
+                       per-node intake of every class (one launch, the
+                       class its batch axis).
                        Its zone, capacity-type, offering and viability rows
                        are all true, so ``it_ok`` is the intersection and
                        ``cap_ni`` the intake where it holds (0 elsewhere);
@@ -39,6 +40,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from karpenter_core_tpu_torch.kernels import batch
 from karpenter_core_tpu_torch.kernels import relax as kr
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 from karpenter_core_tpu_torch.ops import solve as solve_ops
@@ -78,40 +80,48 @@ def _perm(seed: int, n: int, device) -> torch.Tensor:
 _simplex_project = kr.simplex_project_plain
 
 
+def packed_statics(class_tensors, statics_arrays, key_has_bounds, use_kernels: bool = True):
+    """(ClassTensors, Statics) with the masks bit-packed, as the scan packs
+    them; the Statics call the kernels, or their twins."""
+    sa = solve_ops.StaticArrays(*statics_arrays)
+    width = sa.valid.shape[-1]  # semantic slot count V+1, pre-packing
+    sa = sa._replace(
+        it=mask_ops.pack_req(sa.it),
+        tmpl=mask_ops.pack_req(sa.tmpl),
+        valid=mask_ops.pack_mask(sa.valid),
+    )
+    cls = class_tensors._replace(mask=mask_ops.pack_mask(class_tensors.mask))
+    return cls, solve_ops.Statics(*sa, key_has_bounds=tuple(key_has_bounds), mask_v=width,
+                                  k=solve_ops.KERNELS if use_kernels else solve_ops.PLAIN)
+
+
 def class_template_planes(cls, statics: solve_ops.Statics):
     """(merged ReqTensor [C,T,...], key_ok bool[C,T], it_int bool[C,T,I],
-    per_pod i32[C,T,I]) of every class against every template (K3 and K1,
-    one launch of each a class)."""
+    per_pod i32[C,T,I]) of every class against every template: one K3 and
+    one K1 launch, the class their batch axis (the reference's
+    ``jax.vmap(tmpl_planes)`` :178), the template and catalog planes
+    repeated over the classes (the kernels take no stride-0 operand)."""
     n_classes = cls.count.shape[0]
     n_tmpl, n_zones = statics.tmpl_zone.shape
     n_it = statics.it_alloc.shape[0]
     n_ct = statics.tmpl_ct.shape[-1]
-    dev = statics.it_alloc.device
-    ones = dict(dtype=torch.bool, device=dev)
-    all_rows = torch.ones((n_tmpl, n_it), **ones)
-    all_it = torch.ones(n_it, **ones)
-    all_zone = torch.ones((n_tmpl, n_zones), **ones)
-    all_ct = torch.ones((n_tmpl, n_ct), **ones)
-    all_avail = torch.ones((n_it, n_zones, n_ct), **ones)
-    merged_rows, compat, it_int, per_pod = [], [], [], []
-    for c in range(n_classes):
-        # the class row with a leading axis of 1 (K3's solo class operand)
-        row = mask_ops.ReqTensor(*(t[c:c + 1] for t in (cls.mask, cls.defined, cls.negative,
-                                                         cls.gt, cls.lt)))
-        merged_c, compat_c = statics.k.merge_compat(
-            statics.tmpl, row, statics.valid, statics.vocab_ints, statics.is_custom,
-            statics.mask_v, statics.key_has_bounds)
-        it_ok, cap_ni, _ = statics.k.it_capacity(
-            all_rows, all_it, merged_c, statics.it, statics.vocab_ints, statics.mask_v,
-            statics.key_has_bounds, all_zone, all_ct, all_avail, statics.tmpl_daemon,
-            cls.requests[c], statics.it_alloc)
-        merged_rows.append(merged_c)
-        compat.append(compat_c)
-        it_int.append(it_ok)
-        per_pod.append(cap_ni)
-    merged = mask_ops.ReqTensor(*(torch.stack(f) for f in zip(*merged_rows)))
-    key_ok = torch.stack(compat) & cls.tol
-    return merged, key_ok, torch.stack(it_int), torch.stack(per_pod)
+    ones = dict(dtype=torch.bool, device=statics.it_alloc.device)
+    # each class row with a leading axis of 1 under the class axis (K3's
+    # class operand)
+    rows = mask_ops.ReqTensor(*(t[:, None] for t in (cls.mask, cls.defined, cls.negative,
+                                                     cls.gt, cls.lt)))
+    tmpl, valid, vocab_ints, is_custom, it, daemon, alloc = batch.repeat(
+        (statics.tmpl, statics.valid, statics.vocab_ints, statics.is_custom, statics.it,
+         statics.tmpl_daemon, statics.it_alloc), n_classes)
+    merged, compat = statics.k.merge_compat(tmpl, rows, valid, vocab_ints, is_custom,
+                                            statics.mask_v, statics.key_has_bounds)
+    it_int, per_pod, _ = statics.k.it_capacity(
+        torch.ones((n_classes, n_tmpl, n_it), **ones), torch.ones((n_classes, n_it), **ones),
+        merged, it, vocab_ints, statics.mask_v, statics.key_has_bounds,
+        torch.ones((n_classes, n_tmpl, n_zones), **ones),
+        torch.ones((n_classes, n_tmpl, n_ct), **ones),
+        torch.ones((n_classes, n_it, n_zones, n_ct), **ones), daemon, cls.requests, alloc)
+    return merged, compat & cls.tol, it_int, per_pod
 
 
 def relax_core(
@@ -137,16 +147,7 @@ def relax_core(
     throughput), ``eligible`` bool[C], ``weights`` f32[3] (cost_weight,
     risk_aversion, throughput_weight), all tensors on one device; and the
     loop knobs ``max_iters``, ``tol`` and the tie-order ``seed``."""
-    sa = solve_ops.StaticArrays(*statics_arrays)
-    width = sa.valid.shape[-1]  # semantic slot count V+1, pre-packing
-    sa = sa._replace(
-        it=mask_ops.pack_req(sa.it),
-        tmpl=mask_ops.pack_req(sa.tmpl),
-        valid=mask_ops.pack_mask(sa.valid),
-    )
-    cls = class_tensors._replace(mask=mask_ops.pack_mask(class_tensors.mask))
-    statics = solve_ops.Statics(*sa, key_has_bounds=tuple(key_has_bounds), mask_v=width,
-                                k=solve_ops.KERNELS if use_kernels else solve_ops.PLAIN)
+    cls, statics = packed_statics(class_tensors, statics_arrays, key_has_bounds, use_kernels)
     k14, k16, k17, k18 = ((kr.relax_cost, kr.simplex_pgd, kr.relax_round,
                            kr.relax_materialize) if use_kernels else
                           (kr.relax_cost_plain, kr.simplex_pgd_plain, kr.relax_round_plain,
@@ -169,7 +170,7 @@ def relax_core(
         x, cost, cost_eff, support, counts, _perm(seed, n_it * n_zones, dev), tstar, planes)
     t_ct = statics.tmpl_ct[None] & cls.ct[:, None]
     out = k18(n_ok, tstar, per_pod, cls.count, merged, t_ct, feas, statics.tmpl_daemon,
-              cls.requests, mask_ops.const_words("full", width, dev), int(n_slots),
+              cls.requests, mask_ops.const_words("full", statics.mask_v, dev), int(n_slots),
               cls.ports.shape[-1])
     return RelaxResult(
         assign=out.assign,

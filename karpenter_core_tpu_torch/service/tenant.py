@@ -32,9 +32,9 @@ singleton dispatch routes by solver family (``CudaSolver.run_prepared``).
 
 Left out, each with its ROADMAP item: the ``REGISTRY`` histograms and
 counters and ``SloTracker`` / ``observe_latencies`` (1.5, the metrics);
-``record_batch_occupancy`` (1.2, with ``snap_slots``); ``fleet_scaled``
-(the fleet); ``TenantConfig.max_request_bytes`` and ``rate_pinned``, which
-only the wire's handler and ``fleet_scaled`` read; ``restore_entry``, the replay bypass (``bypass_coalescer``)
+``fleet_scaled`` (the fleet); ``TenantConfig.max_request_bytes`` and
+``rate_pinned``, which only the wire's handler and ``fleet_scaled`` read;
+``restore_entry``, the replay bypass (``bypass_coalescer``)
 and the journal and checkpoint fields of ``TenantEntry`` (the service's
 wire and durability, with ``TenantEntry.supply_digest``, which only the
 wire's handler reads); ``tenant_mesh_axes`` (1.8, always None here); the
@@ -51,9 +51,11 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from karpenter_core_tpu_torch.kernels import batch
 from karpenter_core_tpu_torch.ops import solve as solve_ops
-from karpenter_core_tpu_torch.utils import retry
+from karpenter_core_tpu_torch.utils import compilecache, retry
 from karpenter_core_tpu_torch.utils.clock import Clock
 
 log = logging.getLogger(__name__)
@@ -370,6 +372,15 @@ class BatchCoalescer:
 
         cls = stack(cuda_solver.prep_classes(p, kw_of(i).get("count"))
                     for i, p in enumerate(preps))
+        # one ledger entry for the stacked dispatch, its rows counted on the
+        # host: padded rows never carry pods, and a repair's count holds only
+        # its tick's delta pods
+        real_rows = sum(
+            p.real_rows if kw_of(i).get("count") is None
+            else int(np.count_nonzero(np.asarray(kw_of(i)["count"])))
+            for i, p in enumerate(preps)) / len(preps)
+        compilecache.record_batch_occupancy(real_rows, cls.count.shape[1], n_slots,
+                                            n_passes=p0.n_passes, tenants=len(preps))
         statics = stack(p.statics_arrays for p in preps)
         ex_state = ex_static = warm_carry = repair_plan = None
         if has_warm:
@@ -386,8 +397,8 @@ class BatchCoalescer:
             ex_static = stack(p.ex_static for p in preps)
         outs = solve_ops.solve_core_batched(
             cls, statics, n_slots, p0.key_has_bounds, ex_state, ex_static,
-            n_passes=p0.n_passes, features=p0.features, warm_carry=warm_carry,
-            repair_plan=repair_plan)
+            n_passes=p0.n_passes, features=compilecache.snap_features(p0.features),
+            warm_carry=warm_carry, repair_plan=repair_plan)
         # per-tenant slices of the stacked device outputs (each a contiguous
         # view; decode fetches through K4 tenant by tenant)
         return [batch.tree_map(lambda a, i=i: a[i], outs) for i in range(len(preps))]

@@ -135,19 +135,22 @@ class CudaConsolidationSearch:
         self.passes: List[tuple] = []
         self.prepared: Optional[tuple] = None
 
-    def prepare(self, candidates: List[CandidateNode], pending_pods: List[Pod],
-                state_nodes: list, bound_pods: Optional[List[Pod]] = None):
-        """(snapshot, SweepPrep) of one consolidation problem: every pod of
-        the candidates joins the pending pods; the class counts split into
-        the pending base and the per-node candidate pods.  Raises
-        models.snapshot.KernelUnsupported when the pods need the host path."""
+    def sweep_inputs(self, candidates: List[CandidateNode], pending_pods: List[Pod],
+                     state_nodes: list, bound_pods: Optional[List[Pod]] = None) -> tuple:
+        """(snapshot, ex_state, ex_static, rank, ex_cls_count) of one
+        consolidation problem, on the host: ``ops.consolidate.run_sweep``'s
+        inputs.  Every pod of the candidates joins the pending pods; the
+        class counts split into the pending base (``snapshot.cls_count``)
+        and the per-node candidate pods.  Raises
+        models.snapshot.KernelUnsupported when the pods need the host
+        path."""
         candidate_pods = [p for c in candidates for p in c.pods]
         all_pods = list(pending_pods) + candidate_pods
         t0 = time.perf_counter()
         snapshot = self.solver.encode(all_pods, state_nodes, bound_pods)
         t1 = time.perf_counter()
         ex_state, ex_static = self.solver.encode_existing(snapshot, state_nodes, bound_pods)
-        t2 = time.perf_counter()
+        self.stages.update(encode_s=t1 - t0, encode_existing_s=time.perf_counter() - t1)
 
         node_index = {n.node.name: e for e, n in enumerate(state_nodes)}
         candidate_names = {c.node.name for c in candidates}
@@ -168,11 +171,19 @@ class CudaConsolidationSearch:
         rank = np.full(n_ex, consolidate_ops.NOT_CANDIDATE, dtype=np.int32)
         for i, candidate in enumerate(candidates):
             rank[node_index[candidate.node.name]] = i
-        prep = consolidate_ops.prepare_sweep(snapshot, ex_state, ex_static, rank, ex_cls_count,
-                                             self.solver.device)
-        self.stages.update(encode_s=t1 - t0, encode_existing_s=t2 - t1,
-                           prepare_s=time.perf_counter() - t2)
-        return snapshot, prep
+        return snapshot, ex_state, ex_static, rank, ex_cls_count
+
+    def prepare(self, candidates: List[CandidateNode], pending_pods: List[Pod],
+                state_nodes: list, bound_pods: Optional[List[Pod]] = None):
+        """(snapshot, SweepPrep) of one consolidation problem
+        (``sweep_inputs``, then ``ops.consolidate.prepare_sweep`` on the
+        solver's device)."""
+        t0 = time.perf_counter()
+        inputs = self.sweep_inputs(candidates, pending_pods, state_nodes, bound_pods)
+        prep = consolidate_ops.prepare_sweep(*inputs, self.solver.device)
+        self.stages["prepare_s"] = (time.perf_counter() - t0 - self.stages["encode_s"]
+                                    - self.stages["encode_existing_s"])
+        return inputs[0], prep
 
     def compute_command(
         self,

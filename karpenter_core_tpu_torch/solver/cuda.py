@@ -61,6 +61,7 @@ from karpenter_core_tpu_torch.scheduling import Requirement, Requirements, Taint
 from karpenter_core_tpu_torch.solver import modes as modes_mod
 from karpenter_core_tpu_torch.solver.machinetemplate import MachineTemplate
 from karpenter_core_tpu_torch.solver.scheduler import _daemon_overhead
+from karpenter_core_tpu_torch.utils import compilecache
 from karpenter_core_tpu_torch.utils import pipeline as pipeline_mod
 from karpenter_core_tpu_torch.utils import resources as resources_util
 
@@ -204,6 +205,9 @@ class SolvePrep(NamedTuple):
     # the objective planes (price, risk, throughput) on the device: the
     # relax family's cost
     pol: Optional[policy_planes.ObjectivePlanes] = None
+    # class rows that carry pods (non-zero counts), counted on the host
+    # before the upload: the tenant plane's occupancy ledger reads it
+    real_rows: int = 0
 
 
 def prep_classes(prep: SolvePrep, count=None) -> solve_ops.ClassTensors:
@@ -680,6 +684,7 @@ class CudaSolver:
             n_slots = solve_ops.estimate_slots(snapshot)
         features = solve_ops.features_with_existing(snapshot, ex_static)
         cls, statics_arrays, key_has_bounds = solve_ops.prepare_host(snapshot)
+        real_rows = int(np.count_nonzero(cls.count))
         cls, statics_arrays, key_has_bounds, ex_state, ex_static = solve_ops.pad_planes(
             cls, statics_arrays, key_has_bounds, ex_state, ex_static,
             device_finish=solve_ops.encode_device_finish_enabled(), device=self.device,
@@ -690,7 +695,8 @@ class CudaSolver:
             ex_state, ex_static = carry.existing_from_numpy(ex_state, ex_static, self.device)
         return SolvePrep(cls=cls_t, statics_arrays=sa_t, key_has_bounds=khb, ex_state=ex_state,
                          ex_static=ex_static, n_slots=n_slots, n_passes=snapshot.scan_passes,
-                         features=features, pol=_attach_pol(snapshot, sa_t, self.device))
+                         features=features, pol=_attach_pol(snapshot, sa_t, self.device),
+                         real_rows=real_rows)
 
     def run_prepared(self, prep: SolvePrep, count=None, warm_carry=None, repair_plan=None,
                      n_slots: int = 0, donate_carry=None) -> solve_ops.SolveOutputs:
@@ -745,8 +751,8 @@ class CudaSolver:
         return solve_ops.solve_core(
             cls, prep.statics_arrays, n_slots or prep.n_slots, prep.key_has_bounds,
             None if warm_carry is not None else prep.ex_state, prep.ex_static,
-            n_passes=prep.n_passes, features=prep.features, use_kernels=self.use_kernels,
-            warm_carry=warm_carry, repair_plan=repair_plan,
+            n_passes=prep.n_passes, features=compilecache.snap_features(prep.features),
+            use_kernels=self.use_kernels, warm_carry=warm_carry, repair_plan=repair_plan,
         )
 
     @classmethod

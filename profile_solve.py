@@ -24,9 +24,10 @@ one JSON object with:
 With ``--consolidation`` the profiled call is instead a warm multi-node
 consolidation of that 5,000-node cluster (``CudaConsolidationSearch.
 compute_command``, every node a candidate, no pending pods: phase 4 of
-``chip_smoke.py``), traced with the CUDA activity only (its sweep runs some
-600,000 device operations); its stage split replaces the solve's, and the
-device's busy share is over the wall time of the call.
+``chip_smoke.py``: each pass's 64 lanes the batch axis of one scan),
+traced with the CUDA activity only; its stage split replaces the solve's,
+and the device's busy share is over the wall time of the call and over
+its sweep passes.
 
 With ``--churn`` the profiled call is one warm delta tick of the
 incremental session on that backlog (phase 5 (a) of ``chip_smoke.py``,
@@ -50,7 +51,8 @@ K13's three launches and K15 run in it; ``objective_s`` is its
 
 With ``--relax`` the profiled solve is that backlog after the same price
 move under ``PolicyConfig(enabled=True, solver_mode="relax")`` (phase 7 (a)
-of ``chip_smoke.py``): ``relax_core`` (K3 and K1 a class, K14, K16-K18),
+of ``chip_smoke.py``): ``relax_core`` (K3 and K1 once each, the class
+their batch axis, K14, K16-K18),
 one host read of its verdict (``relax_s`` ends there), the scan's repair of
 the leftover at full width and the policy decode.
 

@@ -13,6 +13,7 @@ whose topology groups do not fill their bucket (the group remap).
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu_torch.cloudprovider import fake as tfake
@@ -21,6 +22,10 @@ from karpenter_core_tpu_torch.models.columnar import PodIngest
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import make_pod, make_provisioner, workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
 
 
 def _flat(x):

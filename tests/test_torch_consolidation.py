@@ -27,6 +27,7 @@ import torch
 from test_torch_existing import _chip_smoke, _reference_inputs
 from test_tpu_consolidation import build_cluster as harness_cluster
 from test_tpu_consolidation import get_candidates
+import torch_history
 
 import karpenter_core_tpu.apis.labels as jlabels
 import karpenter_core_tpu.apis.objects as jobj
@@ -50,6 +51,10 @@ from karpenter_core_tpu_torch.ops import consolidate as tcons
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.solver import consolidation as tconsolidation
 from karpenter_core_tpu_torch.testing import workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -28,15 +28,22 @@ import pytest
 import torch
 from test_torch_consolidation import sweep_inputs, workload_problem
 from test_torch_montecarlo import chunk_spy
+import torch_history
 
 import karpenter_core_tpu.cloudprovider.fake as jfake
 import karpenter_core_tpu.testing as jtesting
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.parallel import mesh as jmesh
 from karpenter_core_tpu.solver.tpu import TPUSolver
+from karpenter_core_tpu_torch.ops import chunks as tchunks
 from karpenter_core_tpu_torch.ops import consolidate as tcons
 from karpenter_core_tpu_torch.parallel import mesh as tmesh
 from karpenter_core_tpu_torch.solver import consolidation as tconsolidation
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 N_REPLICAS = 7
 CLUSTER_SIZES = np.array([5, 10, 20, 30, 40], dtype=np.int32)
@@ -149,7 +156,7 @@ def test_crossed_sweep_on_the_search_prep(fit, chunks, problems, reference, monk
     """``crossed_sweep`` on the port's own ``CudaConsolidationSearch.prepare``
     (the path chip_smoke.py phase 9 takes), in chunks of 4, 12 or all 35
     cells, gives the reference's grid."""
-    monkeypatch.setattr(tmesh, "CPU_CHUNK", fit)
+    monkeypatch.setattr(tchunks, "CPU_CHUNK", fit)
     sizes = chunk_spy(monkeypatch)
     problem = problems["cluster"][1]
     tsearch, nodes, bound, cands = problem.t

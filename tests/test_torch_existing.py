@@ -33,6 +33,7 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
+import torch_history
 
 import karpenter_core_tpu.apis.labels as jlabels
 import karpenter_core_tpu.apis.objects as jobj
@@ -50,6 +51,11 @@ from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 JAX_PKG = dict(obj=jobj, labels=jlabels, fake=jfake, testing=jtesting, cluster=jcluster)
 PORT_PKG = dict(obj=tobj, labels=tlabels, fake=tfake, testing=ttesting, cluster=tcluster)

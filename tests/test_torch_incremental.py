@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_existing import _assert_leaves_equal, _chip_smoke, _np, _reference_inputs, _to_jax
+import torch_history
 
 import karpenter_core_tpu.cloudprovider.fake as jfake
 import karpenter_core_tpu.models.columnar as jcolumnar
@@ -54,6 +55,11 @@ from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.solver import incremental as tinc
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import make_pods, make_provisioner, workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 CPU = torch.device("cpu")
 POLICY = dict(enabled=True, audit_interval=0, max_delta_fraction=0.9)
@@ -473,16 +479,20 @@ class _Pair:
 
     def churn(self, rng, fraction):
         """The reference tests' ``_churn``: replace ``fraction`` of the
-        population with same-shaped fresh pods."""
+        population with same-shaped fresh pods.  Returns the (removed uid,
+        added pod) pairs, in order."""
         members = self.ingest.class_members()
         uids = [(sig, u) for sig, us in members.items() for u in us]
+        ops = []
         for i, (_sig, uid) in enumerate(rng.sample(uids, max(int(len(uids) * fraction), 1))):
             rep = copy.deepcopy(self.ingest.get(uid))
             self.remove(uid)
             rep.metadata.name = f"churn-{rng.randint(0, 1 << 30)}-{i}"
             rep.metadata.uid = new_uid()
             rep.spec.node_name = ""
+            ops.append((uid, copy.deepcopy(rep)))
             self.add(rep)
+        return ops
 
     def solve(self, check_full=True):
         """One tick in both sessions: the same mode, reason, signature and
@@ -517,18 +527,56 @@ def _pair(policy=POLICY, window_min=None):
     return _Pair(*_solvers(), _population(40), policy, window_min=window_min)
 
 
-def test_session_windowed_matches_reference(monkeypatch):
+@pytest.fixture(scope="module")
+def windowed_reference():
+    """The JAX session's half of the windowed session below, run once (its
+    windowed repair programs compile past a test's retrace budget when the
+    file runs alone): the 40 pods, each tick's churn as (removed uid, added
+    pod) pairs, and each tick's (mode, reason), aggregates and signature."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KC_DELTA_WINDOW", "16")
+        rng = random.Random(11)
+        pods = _population(40)
+        pair = _Pair(*_solvers(), copy.deepcopy(pods), POLICY, window_min=16)
+        script, ticks = [[]], []
+        for t in range(4):
+            if t:
+                script.append(pair.churn(rng, 0.08))
+            pair.jsession.solve(pair.jingest)
+            js = pair.jsession
+            ticks.append(((js.last_mode, js.last_reason), js.aggregates(), js.node_signature()))
+    return {"pods": pods, "script": script, "ticks": ticks}
+
+
+def test_session_windowed_matches_reference(windowed_reference, monkeypatch):
+    """Three ticks of 8 % churn under a 16-slot window: every tick's mode,
+    reason, aggregates and signature equal the JAX session's, and the
+    signature the port's own full re-solve."""
     monkeypatch.setenv("KC_DELTA_WINDOW", "16")
-    rng = random.Random(11)
-    pair = _pair(window_min=16)
-    pair.solve()
-    for _ in range(3):
-        pair.churn(rng, 0.08)
-        pair.solve()
-        assert pair.session.last_window is not None
-    assert pair.ticks == [("full", "first")] + [("delta", "delta")] * 3
-    assert pair.session.aggregates() == {"scheduled": 40, "failed": 0,
-                                         "nodes": pair.session.node_count()}
+    solver, _ = _solvers()
+    ingest = PodIngest()
+    ingest.add_all(copy.deepcopy(windowed_reference["pods"]))
+    session = tinc.IncrementalSolveSession(solver, tinc.FallbackPolicy(**POLICY), window_min=16)
+    ticks = []
+    for t, (ops, want) in enumerate(zip(windowed_reference["script"],
+                                        windowed_reference["ticks"])):
+        for uid, pod in ops:
+            ingest.remove(uid)
+            ingest.add(copy.deepcopy(pod))
+        session.solve(ingest)
+        tick = (session.last_mode, session.last_reason)
+        assert tick == want[0]
+        assert session.aggregates() == want[1]
+        sig = session.node_signature()
+        assert sig == want[2], f"tick {t} {tick}"
+        full = tinc.IncrementalSolveSession(solver, tinc.FallbackPolicy(enabled=False))
+        full.solve(ingest)
+        assert sig == full.node_signature(), f"tick {t} {tick} vs full"
+        if t:
+            assert session.last_window is not None
+        ticks.append(tick)
+    assert ticks == [("full", "first")] + [("delta", "delta")] * 3
+    assert session.aggregates() == {"scheduled": 40, "failed": 0, "nodes": session.node_count()}
 
 
 def test_session_with_existing_nodes_matches_reference(monkeypatch):

@@ -32,6 +32,7 @@ from karpenter_core_tpu_torch.kernels import (
     spread,
 )
 from karpenter_core_tpu_torch.ops import masks as mask_ops
+from karpenter_core_tpu_torch.relax import kernel as relax_kernel
 from karpenter_core_tpu_torch.relax import prng as relax_prng
 from karpenter_core_tpu_torch.ops import solve as solve_ops
 from karpenter_core_tpu_torch.testing import workloads
@@ -790,3 +791,26 @@ def test_replica_finish_matches_plain(card, n_rep, n_slots, n_it, n_cls):
         t(rng.integers(0, 3, (n_rep, n_slots)).astype(np.int32)), t(price),
     )
     _equal(montecarlo.replica_finish(*args), montecarlo.replica_finish_plain(*args))
+
+
+@pytest.mark.parametrize("n_pods,n_types", [(700, 50), (50_000, 1000)])
+def test_class_planes_with_the_class_axis_match_plain(card, n_pods, n_types):
+    """K3 and K1 with the class as their batch axis (the relax family's
+    class planes): one launch each, every plane equal to the twins' class
+    by class."""
+    from karpenter_core_tpu_torch.models.columnar import PodIngest
+
+    solver, pods = workloads.build_inputs(n_pods, n_types, 5, device="cpu")
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    prep = solver.prepare_encoded(solver.encode(ingest))
+    on_card = batch.tree_map(lambda t: t.to(card), (prep.cls, prep.statics_arrays))
+    planes = {}
+    for use in (True, False):
+        k1, k3 = capacity.launches, reqmerge.launches
+        packed = relax_kernel.packed_statics(*on_card, prep.key_has_bounds, use_kernels=use)
+        merged, key_ok, it_int, per_pod = relax_kernel.class_template_planes(*packed)
+        planes[use] = (*merged, key_ok, it_int, per_pod)
+        launched = (capacity.launches - k1, reqmerge.launches - k3)
+        assert launched == ((1, 1) if use else (0, 0))
+    _equal(planes[True], planes[False])

@@ -14,11 +14,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 from karpenter_core_tpu.ops import masks as jmasks
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu_torch.kernels import packbits, reqmerge
 from karpenter_core_tpu_torch.ops import masks as tmasks
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 # v = V+1 slots: one word, a word ending on bit 31, just past it, two words
 WIDTHS = (5, 32, 33, 70)

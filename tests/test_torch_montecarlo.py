@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 import karpenter_core_tpu.apis.labels as jlabels
 import karpenter_core_tpu.apis.objects as jobj
@@ -42,10 +43,16 @@ from karpenter_core_tpu.parallel import mesh as jmesh
 from karpenter_core_tpu.solver.tpu import TPUSolver
 from karpenter_core_tpu_torch.kernels import fp32
 from karpenter_core_tpu_torch.kernels import montecarlo as k20
+from karpenter_core_tpu_torch.ops import chunks as tchunks
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.parallel import mesh as tmesh
 from karpenter_core_tpu_torch.relax import prng
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 SEEDS = (0, 7, 2**32 + 3)
 RATES = (0.0, 0.3, 0.9)
@@ -347,7 +354,7 @@ def test_chunk_size_changes_nothing(fit, chunks, snapshots, reference, monkeypat
     """Replicas are independent: a study in chunks of 1, 3, 4 or 16
     replicas gives the reference's answer.  ``chunk_size`` spreads the
     replicas evenly over the chunks that the fit needs."""
-    monkeypatch.setattr(tmesh, "CPU_CHUNK", fit)
+    monkeypatch.setattr(tchunks, "CPU_CHUNK", fit)
     sizes = chunk_spy(monkeypatch)
     snap, n_rep, _, seed, rate, _ = MC_CASES["spot-rate0.3"]
     snapshot = snapshots[snap]

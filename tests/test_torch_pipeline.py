@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_existing import _np, _to_jax
+import torch_history
 
 import karpenter_core_tpu.cloudprovider.fake as jfake
 import karpenter_core_tpu.models.columnar as jcolumnar
@@ -47,6 +48,11 @@ from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import make_pods, make_provisioner
 from karpenter_core_tpu_torch.utils import pipeline as tpipe
 from karpenter_core_tpu_torch.utils import watchdog as twatchdog
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 CPU = torch.device("cpu")
 POLICY = dict(enabled=True, audit_interval=0, max_delta_fraction=0.9)
@@ -292,14 +298,17 @@ def _fuzz_loop(session, ingest, solve_deferred: bool):
 @pytest.fixture(scope="module")
 def reference_runs():
     """The JAX session's deferred churn fuzz and deferred window exhaustion,
-    run once: their compiles would pass a test's retrace budget."""
-    jingest = jcolumnar.PodIngest()
-    jingest.add_all([_to_jax(p) for p in _population(48)])
-    jsession = jinc.IncrementalSolveSession(_jsolver(), jinc.FallbackPolicy(**POLICY))
-    records = _fuzz_loop(jsession, jingest, True)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("KC_DELTA_WINDOW", "4")
-        exhaustion = _exhaustion_leg(True, "jax")
+    run once: their compiles would pass a test's retrace budget.  They run
+    on an empty slot-count and feature-set history, as a fresh process
+    does, and leave the module's as it was."""
+    with torch_history.fresh_history():
+        jingest = jcolumnar.PodIngest()
+        jingest.add_all([_to_jax(p) for p in _population(48)])
+        jsession = jinc.IncrementalSolveSession(_jsolver(), jinc.FallbackPolicy(**POLICY))
+        records = _fuzz_loop(jsession, jingest, True)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("KC_DELTA_WINDOW", "4")
+            exhaustion = _exhaustion_leg(True, "jax")
     return {"records": records, "modes": dict(jsession.mode_counts),
             "aggregates": jsession.aggregates(), "exhaustion": exhaustion}
 

@@ -36,6 +36,7 @@ import pytest
 import torch
 from test_torch_consolidation import workload_problem
 from test_torch_existing import _chip_smoke, _to_jax
+import torch_history
 
 import karpenter_core_tpu.cloudprovider.fake as jfake
 import karpenter_core_tpu.testing as jtesting
@@ -69,6 +70,11 @@ from karpenter_core_tpu_torch.solver import consolidation as tconsolidation
 from karpenter_core_tpu_torch.solver import incremental as tinc
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import make_pod, make_provisioner, workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 CPU = torch.device("cpu")
 ENV_KEYS = ("KC_POLICY", "KC_POLICY_ENABLED", "KC_POLICY_COST_WEIGHT",

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_existing import _to_jax
+import torch_history
 
 import karpenter_core_tpu.testing as jtesting
 from karpenter_core_tpu.cloudprovider import fake as jfake
@@ -44,6 +45,11 @@ from karpenter_core_tpu_torch.kernels.fp32 import cumsum_xla_plain
 from karpenter_core_tpu_torch.relax import kernel as trk
 from karpenter_core_tpu_torch.relax import prng
 from karpenter_core_tpu_torch.testing import make_pod, workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 SEED = 20260807  # tests/test_relax.py's
 KNOBS = {"off": (1.0, 0.0, 0.0), "on": (0.7310001, 0.6170001, 0.3330001)}

@@ -26,6 +26,7 @@ import jax
 import pytest
 import torch
 from test_torch_existing import _assert_leaves_equal, _chip_smoke, _to_jax
+import torch_history
 
 import karpenter_core_tpu.cloudprovider.fake as jfake
 import karpenter_core_tpu.state.cluster as jcluster
@@ -51,6 +52,11 @@ from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.state.cluster import StateNode
 from karpenter_core_tpu_torch.testing import make_node, make_pod, make_provisioner, workloads
 
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
+
 ONE_SIZE = ({"cpu": "500m", "memory": "512Mi"},)
 
 
@@ -75,12 +81,17 @@ def _reference_compiled(_module_environment):
     catalogs its cases use (the skewed 8-type fleet; the 24-type window
     fleet at 256 slots): its first relax solve in a process builds some
     forty programs (the relax program, the resumed scan, the window
-    gather and scatter, the decode's), which no single case should pay."""
-    for n_types, n_pods, sizes, n_slots in ((8, 64, ONE_SIZE, 0),
-                                            (24, 2500, workloads.HEADLINE_SIZES, 256)):
-        _, js = _solvers(n_types)
-        jpods = [_to_jax(make_pod(requests=dict(sizes[i % len(sizes)]))) for i in range(n_pods)]
-        jax.device_get(js.run_prepared(js.prepare_encoded(js.encode(jpods), n_slots=n_slots)))
+    gather and scatter, the decode's), which no single case should pay.
+    The warm-up's slot counts leave no trace in the reference's history:
+    both packages' cases start from the same (empty) one."""
+    with torch_history.fresh_history():
+        for n_types, n_pods, sizes, n_slots in ((8, 64, ONE_SIZE, 0),
+                                                (24, 2500, workloads.HEADLINE_SIZES, 256)):
+            _, js = _solvers(n_types)
+            jpods = [_to_jax(make_pod(requests=dict(sizes[i % len(sizes)])))
+                     for i in range(n_pods)]
+            jax.device_get(js.run_prepared(js.prepare_encoded(js.encode(jpods),
+                                                              n_slots=n_slots)))
 
 
 @pytest.fixture(autouse=True)
@@ -110,17 +121,18 @@ def _nodes(results):
 
 def _solve_both(ts, js, pods, state_nodes=None, jstate_nodes=None, n_slots=0):
     """Encode, prepare, route and decode in both packages; every output held
-    equal.  Returns the port's (results, outputs).  The reference snaps its
-    slot estimate to slot counts its process used before
-    (``compilecache.snap_slots``), which the port does not: the port takes
-    the reference's count, or both take ``n_slots``."""
+    equal.  Returns the port's (results, outputs).  Both packages snap
+    their slot estimates to counts used before (``compilecache.snap_slots``)
+    over the same history, or both take ``n_slots``."""
     jpods = [_to_jax(p) for p in pods]
     jsnap = js.encode(jpods, jstate_nodes)
     jprep = js.prepare_encoded(jsnap, jstate_nodes, n_slots=n_slots)
     jout = jax.device_get(js.run_prepared(jprep))
     jres = js.decode(jsnap, jout, jstate_nodes or [])
     tsnap = ts.encode(pods, state_nodes)
-    tout = ts.run_prepared(ts.prepare_encoded(tsnap, state_nodes, n_slots=jprep.n_slots))
+    tprep = ts.prepare_encoded(tsnap, state_nodes, n_slots=n_slots)
+    assert tprep.n_slots == jprep.n_slots
+    tout = ts.run_prepared(tprep)
     tres = ts.decode(tsnap, tout, state_nodes)
     assert ts.last_solve_mode == js.last_solve_mode
     assert ts.last_relax_stats == getattr(js, "last_relax_stats", None)

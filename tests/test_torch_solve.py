@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 from karpenter_core_tpu.apis import labels as labels_api
 from karpenter_core_tpu.apis.objects import (
@@ -41,6 +42,11 @@ from karpenter_core_tpu_torch.kernels import capacity as k1
 from karpenter_core_tpu_torch.kernels import fill as k2
 from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.ops import solve as tsolve
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 ZONE = labels_api.LABEL_TOPOLOGY_ZONE
 HOSTNAME = labels_api.LABEL_HOSTNAME

@@ -12,6 +12,7 @@ import random
 
 import numpy as np
 import pytest
+import torch_history
 
 import karpenter_core_tpu.apis.labels as jlabels
 import karpenter_core_tpu.apis.objects as jobj
@@ -25,6 +26,11 @@ from karpenter_core_tpu.solver.tpu import TPUSolver
 from karpenter_core_tpu_torch.models.columnar import PodIngest
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import workloads
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 # one namespace per package: the builders below take either
 JAX_PKG = dict(obj=jobj, labels=jlabels, fake=jfake, testing=jtesting)

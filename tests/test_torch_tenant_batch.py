@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.service import tenant as jtenant
@@ -34,6 +35,11 @@ from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.service import tenant as ttenant
 from karpenter_core_tpu_torch.utils import compilecache as tcc
 from test_torch_solve import _assert_same, _encoded_batch, _leaves
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
+
 
 # seeds of _encoded_batch whose padded planes share one bucket (8 classes,
 # 8 keys, bounds on key 0, 64 slots)

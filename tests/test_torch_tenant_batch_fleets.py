@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_history
 
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.service import tenant as jtenant
@@ -21,6 +22,10 @@ from karpenter_core_tpu_torch.service import tenant as ttenant
 from karpenter_core_tpu_torch.utils import compilecache as tcc
 from test_torch_solve import _existing_planes
 from test_torch_tenant_batch import N_SLOTS, _check, _port, _stack, _tenants
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
 
 
 @pytest.mark.parametrize("n_tenants", [2, 3])

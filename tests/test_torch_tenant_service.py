@@ -21,6 +21,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch_history
 
 from karpenter_core_tpu.service import tenant as jtenant
 from karpenter_core_tpu.utils import retry as jretry
@@ -30,6 +31,10 @@ from karpenter_core_tpu_torch.service import tenant as ttenant
 from karpenter_core_tpu_torch.testing.workloads import build_cluster, build_inputs, churn_tick
 from karpenter_core_tpu_torch.utils import retry as tretry
 from karpenter_core_tpu_torch.utils.clock import FakeClock as TFakeClock
+
+# both packages' slot and feature histories start empty for this module and
+# are put back after it (tests/torch_history.py)
+isolated_history = torch_history.isolated_history
 
 
 def _loose(**kw) -> dict:
