@@ -176,7 +176,9 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      (CHURN_POLICY, 5 ticks of ``churn_tick``) serial and deferred with
      carry donation: records, evictions, holes and windows equal (the last
      three pinned in HEADLINE_CHURN), 5 donated dispatches, no realloc, no
-     open ticket, no staging realloc, K21 and K22 launched and K10 / K12
+     open ticket, the staging ring's ``staging_reallocs`` equal to the
+     shape and dtype changes its slots saw (the reference's count) and no
+     staging byte allocated after the first tick, K21 and K22 launched and K10 / K12
      not, peak memory per tick printed for both legs; (c) K21 and K22
      against their twins and against K10 / K12 on a clone, on (b)'s last
      tick's inputs; (d) a deferred tick whose barrier a ~2 s
@@ -185,10 +187,17 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      serial full solve's records, its donation canceled, no ticket open.
 
 Kernel checks are exact (no tolerance: the kernels reproduce the twins'
-integer, boolean and IEEE float arithmetic).  Each kernel is timed (median
-of CUDA-event timings of one call, wrapper included) beside its plain twin
-and its bound: bytes it must move over 3.35 TB/s, or operations over 67 T/s,
-whichever is larger (H100 SXM data-sheet peaks at 700 W).  K8's
+integer, boolean and IEEE float arithmetic).  Each kernel is timed beside
+its plain twin and its bound: bytes it must move over 3.35 TB/s, or
+operations over 67 T/s, whichever is larger (H100 SXM data-sheet peaks at
+700 W).  ``ms`` is the median of CUDA-event timings of one call, wrapper
+included: when the wrapper's host work is longer than the kernel, the
+events time the host.  ``device_ms`` is the device's time alone: the median
+of 20 calls, each between its own events, queued behind a
+``torch.cuda._sleep`` that holds the card until the host has enqueued them
+all (checked; a record whose host could not get ahead carries
+``device_ms_queued: false``).  A library call has both, ``library_ms`` and
+``library_device_ms``.  K8's
 ``library_ms`` times one ``torch.matmul`` of the f32 lane-subset mask with
 the f32 count plane, which computes its displaced counts; K10's one
 ``torch.matmul`` of ``free_new.T.float()`` with the class requests, which
@@ -377,6 +386,51 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles a millisecond on this card, measured once."""
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def device_ms(fn, wall_ms: float, reps: int = 20):
+    """Median device milliseconds of one call, host time excluded: ``reps``
+    calls, each between its own pair of CUDA events, queued behind a
+    ``torch.cuda._sleep`` long enough (twice the calls' wall time) that the
+    host has enqueued them all before the card starts.  That is checked: an
+    event recorded right after the sleep must still be pending once the
+    last call is queued, else the sleep is lengthened fourfold and the calls
+    run again (three tries).  Returns (ms, queued)."""
+    fn()
+    torch.cuda.synchronize()
+    sleep_ms = 2.0 * reps * wall_ms + 1.0
+    for _ in range(3):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps)]
+        gate = torch.cuda.Event()
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        gate.record()
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        queued = not gate.query()
+        torch.cuda.synchronize()
+        if queued:
+            break
+        sleep_ms *= 4
+    return statistics.median(start.elapsed_time(end) for start, end in pairs), queued
+
+
 def nbytes(*tensors) -> int:
     total = 0
     for t in tensors:
@@ -516,16 +570,27 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
     err = max_abs_err(got, want)
     if err != 0.0:
         fail(f"{name}: kernel differs from its plain twin (max_abs_err {err})")
+    wall = time_ms(kernel_fn)
+    dev_ms, queued = device_ms(kernel_fn, wall)
     rec = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches_n, "max_abs_err": err,
-        "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, plain_reps),
-        **bound(moved, ops),
-        "library_ms": time_ms(library_fn) if library_fn is not None else None,
+        "ms": wall, "device_ms": dev_ms, "plain_ms": time_ms(plain_fn, plain_reps),
+        **bound(moved, ops), "library_ms": None, "library_device_ms": None,
     }
+    if library_fn is not None:
+        rec["library_ms"] = time_ms(library_fn)
+        rec["library_device_ms"], lib_queued = device_ms(library_fn, rec["library_ms"])
+        queued = queued and lib_queued
+    if not queued:
+        rec["device_ms_queued"] = False  # the host kept up with the card: an upper bound
     records.append(rec)
-    print(f"{name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-          f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}) exact", flush=True)
+    library = ("" if library_fn is None else
+               f" library_ms {rec['library_ms']:.4f} library_device_ms "
+               f"{rec['library_device_ms']:.4f}")
+    print(f"{name}: ms {rec['ms']:.4f} device_ms {rec['device_ms']:.4f} plain_ms "
+          f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}){library} "
+          "exact", flush=True)
     return got
 
 
@@ -2648,46 +2713,78 @@ def pipeline_path(records, path_launches) -> dict:
             return originals[name](*args, **kwargs)
         return call
 
+    def ring_bytes(session) -> int:
+        ring = session._staging
+        return 0 if ring is None else sum(t.numel() for slot in ring._slots
+                                          for t in slot.store if t is not None)
+
+    def reference_drift(takes) -> int:
+        """The reference ring's count over these takes: every change of
+        shape or dtype at an index its slot held before."""
+        held, drift = {}, 0
+        for slot, layouts in takes:
+            last = held.setdefault(slot, {})
+            for i, layout in enumerate(layouts):
+                if layout is None:
+                    continue
+                drift += i in last and last[i] != layout
+                last[i] = layout
+        return drift
+
     def steady_leg(pipelined: bool) -> dict:
         set_pipeline(pipelined)
         gc.collect()  # an earlier leg's session cycles hold device memory
         ingest = fresh_ingest()
         session = IncrementalSolveSession(solver, FallbackPolicy(**CHURN_POLICY))
-        handle = session.solve(ingest, deferred=pipelined)
-        if pipelined:
-            handle.result()
-        torch.cuda.synchronize()
-        pipeline_mod.reset_stats()
-        reset_launches()
-        recs, rows, reps, pending, staging_after_first = [], [], {}, None, None
-        for tick in range(len(HEADLINE_CHURN["evicted"])):
-            evicted, _ = churn_tick(ingest, tick, reps)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
+        takes = []  # (slot, layouts) of every staging take, for the reference's count
+        real_take = pipeline_mod.HostStagingRing.take
+
+        def spied_take(ring, arrays):
+            takes.append((ring._next, [None if a is None else (tuple(a.shape), a.dtype)
+                                       for a in arrays]))
+            return real_take(ring, arrays)
+
+        pipeline_mod.HostStagingRing.take = spied_take
+        try:
+            handle = session.solve(ingest, deferred=pipelined)
             if pipelined:
-                h = session.solve(ingest, deferred=True)
-                window = session.last_window
-                if pending is not None:
-                    recs.append(tick_record(pending.result()))
-                pending = h
-            else:
-                recs.append(tick_record(session.solve(ingest)))
-                window = session.last_window
+                handle.result()
             torch.cuda.synchronize()
-            rows.append({"tick": tick, "wall_s": time.perf_counter() - t0, **session.stages,
-                         "peak_bytes": torch.cuda.max_memory_allocated(),
-                         "peak_above_start_bytes": torch.cuda.max_memory_allocated() - before,
-                         "evicted": len(evicted), "hole_slots": session.last_evicted["hole_slots"],
-                         "window": None if window is None else len(window[0])})
-            if tick == 0:
-                staging_after_first = pipeline_mod.stats()["staging_reallocs"]
-        if pending is not None:
-            recs.append(tick_record(pending.result()))
+            pipeline_mod.reset_stats()
+            reset_launches()
+            recs, rows, reps, pending, bytes_after_first = [], [], {}, None, None
+            for tick in range(len(HEADLINE_CHURN["evicted"])):
+                evicted, _ = churn_tick(ingest, tick, reps)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                if pipelined:
+                    h = session.solve(ingest, deferred=True)
+                    window = session.last_window
+                    if pending is not None:
+                        recs.append(tick_record(pending.result()))
+                    pending = h
+                else:
+                    recs.append(tick_record(session.solve(ingest)))
+                    window = session.last_window
+                torch.cuda.synchronize()
+                rows.append({"tick": tick, "wall_s": time.perf_counter() - t0, **session.stages,
+                             "peak_bytes": torch.cuda.max_memory_allocated(),
+                             "peak_above_start_bytes": torch.cuda.max_memory_allocated() - before,
+                             "evicted": len(evicted),
+                             "hole_slots": session.last_evicted["hole_slots"],
+                             "window": None if window is None else len(window[0])})
+                if tick == 0:
+                    bytes_after_first = ring_bytes(session)
+            if pending is not None:
+                recs.append(tick_record(pending.result()))
+        finally:
+            pipeline_mod.HostStagingRing.take = real_take
         torch.cuda.synchronize()
         return {"records": recs, "rows": rows, "launches": launch_counts(),
-                "stats": pipeline_mod.stats(), "staging_after_first": staging_after_first,
+                "stats": pipeline_mod.stats(), "reference_drift": reference_drift(takes),
+                "staging_bytes": (bytes_after_first, ring_bytes(session)),
                 "modes": dict(session.mode_counts), "aggregates": session.aggregates(),
                 "signature": session.node_signature()}
 
@@ -2705,7 +2802,8 @@ def pipeline_path(records, path_launches) -> dict:
             setattr(solve_ops, name, value)
     for label, leg in (("serial", serial_b), ("deferred", deferred_b)):
         print(json.dumps({"pipeline_steady": label, "ticks": leg["rows"],
-                          "stats": leg["stats"], "modes": leg["modes"],
+                          "stats": leg["stats"], "reference_drift": leg["reference_drift"],
+                          "staging_bytes": leg["staging_bytes"], "modes": leg["modes"],
                           "launches": {k: v for k, v in leg["launches"].items() if v}}),
               flush=True)
     n_ticks = len(HEADLINE_CHURN["evicted"])
@@ -2726,8 +2824,13 @@ def pipeline_path(records, path_launches) -> dict:
     if (st["donated"], st["donation_reallocs"], st["tickets_open"], st["donation_canceled"]) != \
             (n_ticks, 0, 0, 0):
         fail(f"pipeline steady: ledger {st}, expected {n_ticks} donated, 0 reallocs, 0 open")
-    if st["staging_reallocs"] != deferred_b["staging_after_first"] or st["staging_reallocs"]:
-        fail(f"pipeline steady: the staging ring reallocated ({st})")
+    if st["staging_reallocs"] != deferred_b["reference_drift"]:
+        fail(f"pipeline steady: staging_reallocs {st['staging_reallocs']}, the reference's "
+             f"count over the same takes is {deferred_b['reference_drift']}")
+    first_bytes, last_bytes = deferred_b["staging_bytes"]
+    if last_bytes != first_bytes:
+        fail(f"pipeline steady: the staging ring grew after the first tick ({first_bytes} -> "
+             f"{last_bytes} bytes)")
     launches = deferred_b["launches"]
     check_launched(launches, ("repair_free_inplace", "repair_scatter_inplace", "repair_gather"),
                    "pipelined churn path")

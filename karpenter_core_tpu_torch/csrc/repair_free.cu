@@ -17,10 +17,26 @@
 // Bound on the H100: bytes.  At the headline tick (C = 16, N = 8,192,
 // R = 3, G1 = 8, E = 1) it reads the two free planes (0.5 MB), the carry's
 // used, pod counts and four topology planes and writes the same planes:
-// about 1.3 MB, 0.4 us at 3.35 TB/s, far below a launch's latency.
-// Design: ONE launch, one thread per column of both sides (threads past N
-// take the existing nodes), each looping over the classes; consecutive
-// threads read consecutive columns of every [C, N] and [G1, N] plane.
+// about 1.3 MB, 0.4 us at 3.35 TB/s, far below a launch's latency, which is
+// what bounds it in practice.
+// Design: ONE launch.  A block of 32 x Y threads (Y = min(outputs, 8))
+// takes 32 consecutive columns of one side (the new slots' blocks first,
+// then the existing nodes'), so the headline's 8,193 columns make 257
+// blocks of 256 threads, two an SM.  A column has R + 1 + 2 * G1 outputs
+// (its R used entries, its pod count, its G1 fwd and G1 inv counts); they
+// are split across threadIdx.y, each thread accumulating up to 4 of them in
+// registers, so the column's work no longer runs as one thread's chain of
+// (R + 1 + G1) * C dependent loads.  How each byte is read:
+//  - free_: a chunk of 16 classes x 32 columns is staged in shared memory,
+//    each element loaded once from device memory (coalesced along the
+//    columns), and read there by every thread of its column;
+//  - req, member and own_inv: the chunk's coefficients of the block's
+//    outputs are staged beside it, once a block at the headline (C = 16 is
+//    one chunk and 20 outputs one batch); more classes loop over chunks,
+//    more outputs over batches of 32;
+//  - used, pod_count, fwd, inv: each element is loaded by the one thread
+//    that owns it, before the class loop (so its latency overlaps the
+//    staging), and written by that thread after it.
 //
 // Arithmetic matches the reference and the plain twin bit for bit: the f32
 // sum is XLA's CPU dot behind the reference's einsum, from 0, one fused
@@ -43,7 +59,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCols = 32;   // columns a block (threadIdx.x)
+constexpr int kRows = 8;    // most threads a column (threadIdx.y)
+constexpr int kOwn = 4;     // outputs a thread accumulates at a time
+constexpr int kChunk = 16;  // classes staged at a time
+constexpr int kBatch = kRows * kOwn;  // outputs of a column staged at a time
 
 // No member is `__restrict__`: K21 passes each output equal to its input.
 struct Side {
@@ -64,40 +84,110 @@ __device__ __forceinline__ int32_t sub_floor0(int32_t a, uint32_t b) {
   return d > 0 ? d : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) repair_free_kernel(
-    int n_cls, int n_res, int g1, const float* __restrict__ req,
+// Output o of a column: o < R is used[., o]; o == R the pod count; then the
+// G1 fwd groups and the G1 inv groups.  The coefficient of class c in it.
+__device__ __forceinline__ uint32_t coefficient(int o, int c, int n_res, int g1,
+                                                const float* __restrict__ req,
+                                                const int32_t* __restrict__ member,
+                                                const int32_t* __restrict__ own_inv) {
+  if (o < n_res) return __float_as_uint(req[c * n_res + o]);
+  if (o == n_res) return 1u;
+  const int g = o - n_res - 1;
+  if (g < g1) return static_cast<uint32_t>(member[c * g1 + g]);
+  return static_cast<uint32_t>(own_inv[c * g1 + g - g1]);
+}
+
+__global__ void __launch_bounds__(kCols * kRows) repair_free_kernel(
+    int n_cls, int n_res, int g1, int blocks_new, const float* __restrict__ req,
     const int32_t* __restrict__ member, const int32_t* __restrict__ own_inv,
     Side new_side, Side ex_side) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool is_new = j < new_side.cols;
-  if (!is_new) j -= new_side.cols;
+  __shared__ uint32_t free_s[kChunk][kCols];
+  __shared__ uint32_t coef_s[kChunk][kBatch];
+  const bool is_new = static_cast<int>(blockIdx.x) < blocks_new;
   const Side s = is_new ? new_side : ex_side;
-  if (j >= s.cols) return;
+  const int col0 = (is_new ? blockIdx.x : blockIdx.x - blocks_new) * kCols;
+  const int x = threadIdx.x, y = threadIdx.y, rows = blockDim.y;
+  const int tid = y * kCols + x, n_threads = kCols * rows;
+  const int j = col0 + x;
+  const bool live = j < s.cols;
   const int cols = s.cols;
+  const int n_out = n_res + 1 + 2 * g1;
 
-  for (int r = 0; r < n_res; ++r) {
-    float sum = 0.0f;
-    for (int c = 0; c < n_cls; ++c) {
-      const float f = static_cast<float>(s.free_[(size_t)c * cols + j]);
-      sum = __fmaf_rn(f, req[c * n_res + r], sum);
+  for (int o0 = 0; o0 < n_out; o0 += rows * kOwn) {
+    const int nb = min(rows * kOwn, n_out - o0);
+    // the owned outputs' old values, loaded before the class loop
+    uint32_t old[kOwn];
+    float accf[kOwn];
+    uint32_t acci[kOwn];
+#pragma unroll
+    for (int q = 0; q < kOwn; ++q) {
+      const int o = o0 + q * rows + y;
+      old[q] = 0u;
+      accf[q] = 0.0f;
+      acci[q] = 0u;
+      if (!live || q * rows + y >= nb) continue;
+      if (o < n_res) {
+        old[q] = __float_as_uint(s.used[static_cast<size_t>(j) * n_res + o]);
+      } else if (o == n_res) {
+        old[q] = static_cast<uint32_t>(s.pod_count[j]);
+      } else if (o - n_res - 1 < g1) {
+        old[q] = static_cast<uint32_t>(s.fwd[static_cast<size_t>(o - n_res - 1) * cols + j]);
+      } else {
+        old[q] = static_cast<uint32_t>(
+            s.inv[static_cast<size_t>(o - n_res - 1 - g1) * cols + j]);
+      }
     }
-    s.used_out[(size_t)j * n_res + r] = __fsub_rn(s.used[(size_t)j * n_res + r], sum);
-  }
-  uint32_t freed = 0;
-  for (int c = 0; c < n_cls; ++c) {
-    freed += static_cast<uint32_t>(s.free_[(size_t)c * cols + j]);
-  }
-  s.pod_count_out[j] = sub_floor0(s.pod_count[j], freed);
-  for (int g = 0; g < g1; ++g) {
-    uint32_t fwd_sub = 0, inv_sub = 0;
-    for (int c = 0; c < n_cls; ++c) {
-      const uint32_t f = static_cast<uint32_t>(s.free_[(size_t)c * cols + j]);
-      fwd_sub += static_cast<uint32_t>(member[c * g1 + g]) * f;
-      inv_sub += static_cast<uint32_t>(own_inv[c * g1 + g]) * f;
+    for (int c0 = 0; c0 < n_cls; c0 += kChunk) {
+      const int nc = min(kChunk, n_cls - c0);
+      __syncthreads();  // the previous chunk's readers are done
+      for (int i = tid; i < kChunk * kCols; i += n_threads) {
+        const int cc = i / kCols, xx = i % kCols;
+        const int jj = col0 + xx;
+        free_s[cc][xx] = (cc < nc && jj < cols)
+            ? static_cast<uint32_t>(s.free_[static_cast<size_t>(c0 + cc) * cols + jj]) : 0u;
+      }
+      for (int i = tid; i < nc * nb; i += n_threads) {
+        const int cc = i / nb, ob = i % nb;
+        coef_s[cc][ob] = coefficient(o0 + ob, c0 + cc, n_res, g1, req, member, own_inv);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kOwn; ++q) {
+        const int ob = q * rows + y;  // the same for the whole warp
+        if (ob >= nb) continue;
+        if (o0 + ob < n_res) {
+          // from 0, one fused multiply-add a class, classes ascending
+          float sum = accf[q];
+          for (int cc = 0; cc < nc; ++cc) {
+            const float f = static_cast<float>(static_cast<int32_t>(free_s[cc][x]));
+            sum = __fmaf_rn(f, __uint_as_float(coef_s[cc][ob]), sum);
+          }
+          accf[q] = sum;
+        } else {
+          uint32_t sum = acci[q];
+          for (int cc = 0; cc < nc; ++cc) sum += coef_s[cc][ob] * free_s[cc][x];
+          acci[q] = sum;
+        }
+      }
     }
-    const size_t at = (size_t)g * cols + j;
-    s.fwd_out[at] = sub_floor0(s.fwd[at], fwd_sub);
-    s.inv_out[at] = sub_floor0(s.inv[at], inv_sub);
+    if (!live) continue;
+#pragma unroll
+    for (int q = 0; q < kOwn; ++q) {
+      const int o = o0 + q * rows + y;
+      if (q * rows + y >= nb) continue;
+      if (o < n_res) {
+        s.used_out[static_cast<size_t>(j) * n_res + o] =
+            __fsub_rn(__uint_as_float(old[q]), accf[q]);
+      } else if (o == n_res) {
+        s.pod_count_out[j] = sub_floor0(static_cast<int32_t>(old[q]), acci[q]);
+      } else if (o - n_res - 1 < g1) {
+        s.fwd_out[static_cast<size_t>(o - n_res - 1) * cols + j] =
+            sub_floor0(static_cast<int32_t>(old[q]), acci[q]);
+      } else {
+        s.inv_out[static_cast<size_t>(o - n_res - 1 - g1) * cols + j] =
+            sub_floor0(static_cast<int32_t>(old[q]), acci[q]);
+      }
+    }
   }
 }
 
@@ -132,10 +222,14 @@ extern "C" int kc_repair_free(
                      static_cast<int32_t*>(pod_count_ex_out),
                      static_cast<int32_t*>(fwd_ex_out),
                      static_cast<int32_t*>(inv_ex_out)};
-  const int blocks = (total + kThreads - 1) / kThreads;
-  repair_free_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_cls, n_res, g1, static_cast<const float*>(req), static_cast<const int32_t*>(member),
-      static_cast<const int32_t*>(own_inv), new_side, ex_side);
+  const int blocks_new = (n_new + kCols - 1) / kCols;
+  const int blocks = blocks_new + (n_ex + kCols - 1) / kCols;
+  const int n_out = n_res + 1 + 2 * g1;
+  const dim3 block(kCols, n_out < kRows ? n_out : kRows);
+  repair_free_kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      n_cls, n_res, g1, blocks_new, static_cast<const float*>(req),
+      static_cast<const int32_t*>(member), static_cast<const int32_t*>(own_inv), new_side,
+      ex_side);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,13 @@ source and the headers, so an edited source or header rebuilds and a stale
 library is never loaded.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them.  Nothing here runs at import time.
+
+The launch path is kept lean, because a wrapper's host time shows in a
+call's wall time whenever it is longer than the kernel's: ``function``
+binds each C entry point once, with its argument and result types, and
+caches it; ``stream`` reads the current stream's raw handle; and
+``check_input`` tests the common case with a few attribute reads before it
+spells out what is wrong.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +56,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Any] = {}
 
 
 def nvcc_path() -> str:
@@ -116,6 +124,28 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """The C entry point ``symbol`` of kernel source ``name``, its
+    ``argtypes`` and ``restype`` set once and the binding cached (the
+    library is built and loaded on first use)."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _fns[(name, symbol)] = fn
+    return fn
+
+
+def stream(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current CUDA stream."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
 def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
@@ -125,6 +155,9 @@ def check(rc: int, name: str) -> None:
 def check_input(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous tensor of the given type, shape and
     device (``None`` entries in ``shape`` match any extent)."""
+    if (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+            and t.get_device() == device.index):
+        return  # the common case: a CUDA tensor exactly as asked
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

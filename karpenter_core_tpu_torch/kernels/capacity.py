@@ -179,16 +179,14 @@ def _it_capacity_cuda(viable, cls_it, merged, it, vocab_ints, v, key_has_bounds,
     cap_n = torch.empty((n_b, n), dtype=i32, device=dev)
     vw = mask_ops.const_words("vocab", v, dev)
     flags = _key_flags(key_has_bounds, dev)
-    lib = build.load("it_capacity")
-    fn = lib.kc_it_capacity
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.function("it_capacity", "kc_it_capacity", _ARGTYPES)
     ptrs = [t.data_ptr() for t in (
         viable, cls_it, merged.mask, merged.defined, merged.negative, merged.gt, merged.lt,
         it.mask, it.defined, it.negative, it.gt, it.lt, vw, vocab_ints, flags,
         zone_ok, ct_ok, it_avail, used, size, it_alloc, it_ok, cap_ni, cap_n,
     )]
     rc = fn(n_b, n, n_it, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, n_res,
-            n_zones, n_ct, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
+            n_zones, n_ct, *ptrs, build.stream(dev))
     build.check(rc, "it_capacity")
     launches += 1
     return it_ok, cap_ni, cap_n

@@ -125,18 +125,15 @@ def finish_class_planes(cls, ext: Extents):
                        ext.g1_old - 1, ext.g1_new - 1]
         srcs.append(t.data_ptr())
         outs.append(torch.empty(shape, dtype=t.dtype, device=dev))
-    lib = build.load("class_finish")
-    n = lib.kc_class_finish_planes()
+    n = build.function("class_finish", "kc_class_finish_planes", [])()
     if n != len(specs):
         raise ValueError(f"class_finish takes {n} planes, got {len(specs)}")
-    fn = lib.kc_class_finish
-    fn.argtypes = [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    fn = build.function("class_finish", "kc_class_finish", [ctypes.c_void_p] * 4)
     spec_arr = (ctypes.c_int32 * len(spec_words))(*spec_words)
     src_arr = (ctypes.c_void_p * n)(*srcs)
     dst_arr = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs))
     rc = fn(ctypes.cast(spec_arr, ctypes.c_void_p), ctypes.cast(src_arr, ctypes.c_void_p),
-            ctypes.cast(dst_arr, ctypes.c_void_p), torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.cast(dst_arr, ctypes.c_void_p), build.stream(dev))
     build.check(rc, "class_finish")
     launches += 1
     return tuple(outs)

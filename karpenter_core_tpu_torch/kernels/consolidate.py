@@ -37,9 +37,8 @@ I32 = torch.int32
 lanes_launches = 0  # K8 launches (CUDA path only)
 finish_launches = 0  # K9 launches (CUDA path only)
 
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+_K8_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+_K9_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14
 
 
 # -- K8 -------------------------------------------------------------------------
@@ -67,14 +66,12 @@ def sweep_lanes(rank, open_, base, ex_cls_count, sizes):
         ("sizes", sizes, I32, (n_lanes,)),
     ):
         build.check_input(name, t, dt, shape, dev)
-    lane_open = torch.empty((n_lanes, n_ex), dtype=torch.bool, device=dev)
-    count = torch.empty((n_lanes, n_cls), dtype=I32, device=dev)
-    fn = build.load("sweep_lanes").kc_sweep_lanes
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
+    lane_open = rank.new_empty((n_lanes, n_ex), dtype=torch.bool)
+    count = rank.new_empty((n_lanes, n_cls))
+    fn = build.function("sweep_lanes", "kc_sweep_lanes", _K8_ARGS)
     rc = fn(n_lanes, n_ex, n_cls, rank.data_ptr(), open_.data_ptr(), base.data_ptr(),
             ex_cls_count.data_ptr(), sizes.data_ptr(), lane_open.data_ptr(), count.data_ptr(),
-            _stream(dev))
+            build.stream(dev))
     build.check(rc, "sweep_lanes")
     lanes_launches += 1
     return lane_open, count
@@ -133,14 +130,12 @@ def lane_finish(viable, zone, ct, open_, pod_count, failed, assign_existing, ini
     cost = torch.empty((n_lanes,), dtype=f32, device=dev)
     failed_sum = torch.empty((n_lanes,), dtype=I32, device=dev)
     uninit = torch.empty((n_lanes,), dtype=b, device=dev)
-    fn = build.load("lane_finish").kc_lane_finish
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14
-    fn.restype = ctypes.c_int
+    fn = build.function("lane_finish", "kc_lane_finish", _K9_ARGS)
     ptrs = [t.data_ptr() for t in (
         viable, zone, ct, open_, pod_count, failed, assign_existing, init, it_price,
         price, cost, failed_sum, uninit,
     )]
-    rc = fn(n_lanes, n_slots, n_it, n_zones, n_ct, n_cls, n_ex, *ptrs, _stream(dev))
+    rc = fn(n_lanes, n_slots, n_it, n_zones, n_ct, n_cls, n_ex, *ptrs, build.stream(dev))
     build.check(rc, "lane_finish")
     finish_launches += 1
     return price, cost, failed_sum, uninit

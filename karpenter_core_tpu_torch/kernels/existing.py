@@ -50,10 +50,6 @@ class ExistingState(NamedTuple):
     open_: torch.Tensor  # bool[E]; no phase changes it
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 # -- K5 -------------------------------------------------------------------------
 
 
@@ -141,15 +137,14 @@ def _existing_intake_cuda(alloc, used, open_, key_ok, tol, zone, cls_zone, ct, c
     cap = torch.empty((n_b, n), dtype=i32, device=dev)
     zone_full = torch.empty((n_b, n, n_zones), dtype=b, device=dev)
     ct_ok = torch.empty((n_b, n, n_ct), dtype=b, device=dev)
-    fn = build.load("existing_intake").kc_existing_intake
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 21
-    fn.restype = ctypes.c_int
+    fn = build.function("existing_intake", "kc_existing_intake",
+                        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 21)
     ptrs = [t.data_ptr() for t in (
         alloc, used, open_, key_ok, tol, zone, cls_zone, ct, cls_ct, ports, cls_ports,
         vol_limit, vol_used, vol_add, vol_per_pod, requests, host_cap, cap, zone_full, ct_ok,
     )]
     rc = fn(n_b, n, n_res, n_zones, n_ct, n_ports, n_drivers, int(host_ports),
-            int(volume_limits), *ptrs, _stream(dev))
+            int(volume_limits), *ptrs, build.stream(dev))
     build.check(rc, "existing_intake")
     intake_launches += 1
     return cap, zone_full, ct_ok
@@ -208,13 +203,12 @@ def _existing_mask_cuda(prep_cap, zone, cls_zone, zone_restrict,
     cap = torch.empty((n_b, n), dtype=i32, device=dev)
     priority = torch.empty((n_b, n), dtype=i32, device=dev)
     zone_ok = torch.empty((n_b, n, n_zones), dtype=b, device=dev)
-    fn = build.load("existing_phase").kc_existing_mask
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
+    fn = build.function("existing_phase", "kc_existing_mask",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9)
     rc = fn(n_b, n, n_zones, int(extra_elig is not None), int(single_node), prep_cap.data_ptr(),
             zone.data_ptr(), cls_zone.data_ptr(), zone_restrict.data_ptr(),
             extra_elig.data_ptr() if extra_elig is not None else 0, cap.data_ptr(),
-            priority.data_ptr(), zone_ok.data_ptr(), _stream(dev))
+            priority.data_ptr(), zone_ok.data_ptr(), build.stream(dev))
     build.check(rc, "existing_phase (mask)")
     phase_launches += 1
     return cap, priority, zone_ok
@@ -296,15 +290,14 @@ def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
     ):
         build.check_input(name, t, dt, shape, dev)
     rows = [torch.empty(shape, dtype=dt, device=dev) for dt, shape in shapes.values()]
-    fn = build.load("existing_phase").kc_existing_commit
-    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 35
-    fn.restype = ctypes.c_int
+    fn = build.function("existing_phase", "kc_existing_commit",
+                        [ctypes.c_int] * 11 + [ctypes.c_void_p] * 35)
     ptrs = [t.data_ptr() for t in (
         *ex[:-1], *merged, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
         *rows,
     )]
     rc = fn(n_b, n, n_res, n_keys * n_words, n_keys, n_zones, n_ct, n_ports, n_drivers,
-            int(host_ports), int(volume_limits), *ptrs, _stream(dev))
+            int(host_ports), int(volume_limits), *ptrs, build.stream(dev))
     build.check(rc, "existing_phase (commit)")
     phase_launches += 1
     return ExistingState(*rows, open_=ex.open_)

@@ -21,6 +21,9 @@ from karpenter_core_tpu_torch.kernels import batch, build
 
 launches = 0  # kernel launches (CUDA path only)
 
+_ONE_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+_MULTI_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+
 
 def fill_by_priority_plain(quota: torch.Tensor, cap: torch.Tensor,
                            priority: torch.Tensor) -> torch.Tensor:
@@ -56,23 +59,17 @@ def _fill_cuda(quota, cap, priority):
     for name, t, shape in (("quota", quota, (n_b,)), ("cap", cap, (n_b, n)),
                            ("priority", priority, (n_b, n))):
         build.check_input(name, t, torch.int32, shape, cap.device)
-    lib = build.load("fill_priority")
     out = torch.empty_like(cap)
-    stream = torch.cuda.current_stream(cap.device).cuda_stream
-    if n <= lib.kc_fill_priority_max_n():
-        fn = lib.kc_fill_priority
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
+    stream = build.stream(cap.device)
+    if n <= build.function("fill_priority", "kc_fill_priority_max_n", [])():
+        fn = build.function("fill_priority", "kc_fill_priority", _ONE_ARGS)
         rc = fn(n_b, n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
                 stream)
     else:
-        size = lib.kc_fill_priority_scratch_bytes
-        size.argtypes = [ctypes.c_int, ctypes.c_int]
-        size.restype = ctypes.c_size_t
+        size = build.function("fill_priority", "kc_fill_priority_scratch_bytes",
+                              [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)
         scratch = torch.empty(size(n_b, n), dtype=torch.uint8, device=cap.device)
-        fn = lib.kc_fill_priority_multi
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-        fn.restype = ctypes.c_int
+        fn = build.function("fill_priority", "kc_fill_priority_multi", _MULTI_ARGS)
         rc = fn(n_b, n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), stream)
     build.check(rc, "fill_priority")

@@ -74,13 +74,11 @@ def replica_finish(assign, failed, viable, zone, ct, open_, pod_count, it_price)
     ticket = torch.zeros((n_rep,), dtype=I32, device=dev)
     outs = [torch.empty((n_rep,), dtype=I32, device=dev) for _ in range(3)]
     cost = torch.empty((n_rep,), dtype=f32, device=dev)
-    fn = build.load("replica_finish").kc_replica_finish
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 16
-    fn.restype = ctypes.c_int
+    fn = build.function("replica_finish", "kc_replica_finish",
+                        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 16)
     ptrs = [t.data_ptr() for t in (assign, failed, viable, zone, ct, open_, pod_count, it_price,
                                    part_cost, part_int, ticket, *outs, cost)]
-    rc = fn(n_rep, n_slots, n_it, n_zones, n_ct, n_cls, *ptrs,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(n_rep, n_slots, n_it, n_zones, n_ct, n_cls, *ptrs, build.stream(dev))
     build.check(rc, "replica_finish")
     launches += 1
     return (*outs, cost)

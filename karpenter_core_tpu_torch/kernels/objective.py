@@ -119,18 +119,16 @@ def select_offerings(viable, zone, ct, open_, pod_count, price, risk, throughput
     windows = max(-(-n // WINDOW), 1)
     # the cell planes (expected, masked score) and the sum levels' ping-pong
     scratch = torch.empty(2 * cells + 4 * windows, **f32)
-    lib = build.load("select_offerings")
-    fn = lib.kc_select_offerings
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 18)
-    fn.restype = ctypes.c_int
+    fn = build.function("select_offerings", "kc_select_offerings",
+                        [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 18)
     rc = fn(n, n_it, n_z, n_ct, weights.cost_weight, weights.throughput_weight,
             weights.risk_aversion, int(bool(weights.spot_preference)), viable.data_ptr(),
             zone.data_ptr(), ct.data_ptr(), open_.data_ptr(), pod_count.data_ptr(),
             price.data_ptr(), risk.data_ptr(), throughput.data_ptr(), is_spot.data_ptr(),
             sel_it.data_ptr(), sel_zone.data_ptr(), sel_ct.data_ptr(), sel_price.data_ptr(),
             sel_expected.data_ptr(), active.data_ptr(), sums.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            build.stream(dev))
     build.check(rc, "select_offerings")
     launches += 1
     return sel_it, sel_zone, sel_ct, sel_price, sel_expected, active, sums[0], sums[1]

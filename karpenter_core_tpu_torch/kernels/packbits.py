@@ -43,12 +43,9 @@ def pack_bool(arr: torch.Tensor) -> torch.Tensor:
     m = arr.shape[-1]
     n_rows = arr.numel() // m if m else 0
     out = torch.empty(arr.shape[:-1] + ((m + 7) // 8,), dtype=torch.uint8, device=arr.device)
-    lib = build.load("pack_bool")
-    fn = lib.kc_pack_bool
-    fn.argtypes = [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    rc = fn(n_rows, m, arr.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(arr.device).cuda_stream)
+    fn = build.function("pack_bool", "kc_pack_bool",
+                        [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3)
+    rc = fn(n_rows, m, arr.data_ptr(), out.data_ptr(), build.stream(arr.device))
     build.check(rc, "pack_bool")
     launches += 1
     return out

@@ -68,14 +68,12 @@ def perturb_avail(avail: torch.Tensor, n_replicas: int, seed: int,
         mode, thresh, spot_ptr, risk_ptr = 1, 0.0, None, risk.data_ptr()
     out = torch.empty((int(n_replicas), n_it, n_zones, n_ct), dtype=torch.bool, device=dev)
     k0, k1 = (int(w) for w in prng.prng_key(seed))
-    fn = build.load("perturb_avail").kc_perturb_avail
-    fn.argtypes = ([ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                                               ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
+    fn = build.function("perturb_avail", "kc_perturb_avail",
+                        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                                                   ctypes.c_int, ctypes.c_float]
+                        + [ctypes.c_void_p] * 5)
     rc = fn(int(n_replicas), n_it * n_zones * n_ct, n_ct, k0, k1, mode, thresh,
-            avail.data_ptr(), spot_ptr, risk_ptr, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            avail.data_ptr(), spot_ptr, risk_ptr, out.data_ptr(), build.stream(dev))
     build.check(rc, "perturb_avail")
     launches += 1
     return out

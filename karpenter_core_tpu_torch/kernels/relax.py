@@ -96,10 +96,6 @@ class RelaxPlanes(NamedTuple):
     it_avail: torch.Tensor  # bool[I, Z, CT]
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _check_planes(p: RelaxPlanes, dev):
     c, t, i = p.it_int.shape
     z, ct = p.tmpl_zone.shape[1], p.tmpl_ct.shape[1]
@@ -172,14 +168,13 @@ def relax_cost(planes: RelaxPlanes, price, risk, throughput, weights, counts):
     tstar = torch.empty((n_c, n_s), dtype=I32, device=dev)
     feas = torch.empty((n_c, n_t, n_i, n_z), dtype=torch.bool, device=dev)
     cost_max = torch.zeros(n_c, dtype=F32, device=dev)
-    fn = build.load("relax_cost").kc_relax_cost
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 21
-    fn.restype = ctypes.c_int
+    fn = build.function("relax_cost", "kc_relax_cost",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 21)
     p = planes
     rc = fn(n_c, n_t, n_i, n_z, n_ct, *(x.data_ptr() for x in (
         p.it_int, p.per_pod, p.key_ok, p.tmpl_it, p.cls_it, p.tmpl_zone, p.cls_zone, p.tmpl_ct,
         p.cls_ct, p.it_avail, price, risk, throughput, weights, counts, cost, support, tstar,
-        feas, cost_max)), _stream(dev))
+        feas, cost_max)), build.stream(dev))
     build.check(rc, "relax_cost")
     cost_launches += 1
     return cost, support, tstar, feas, cost_max
@@ -258,12 +253,11 @@ def simplex_pgd(cost, support, cost_max, counts, max_iters: int, tol: float):
     out = torch.zeros(2, dtype=I32, device=dev)  # iters, converged
     # per-block step maxima, one slot per iteration, and the barrier words
     scratch = torch.zeros(n_c * (max(int(max_iters), 0) + 1) + 2, dtype=I32, device=dev)
-    fn = build.load("simplex_pgd").kc_simplex_pgd
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
+    fn = build.function("simplex_pgd", "kc_simplex_pgd",
+                        [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 9)
     rc = fn(n_c, n_s, int(max_iters), float(np.float32(tol)), cost.data_ptr(),
             support.data_ptr(), cost_max.data_ptr(), counts.data_ptr(), x.data_ptr(),
-            cost_eff.data_ptr(), out.data_ptr(), scratch.data_ptr(), _stream(dev))
+            cost_eff.data_ptr(), out.data_ptr(), scratch.data_ptr(), build.stream(dev))
     build.check(rc, "simplex_pgd")
     pgd_launches += 1
     return x, cost_eff, out[0], out[1].to(torch.bool)
@@ -361,14 +355,13 @@ def relax_round(x, cost, cost_eff, support, counts, perm, tstar, planes: RelaxPl
     violations = torch.zeros((), dtype=I32, device=dev)
     relaxed_cost = torch.empty((), dtype=F32, device=dev)
     products = torch.empty((n_c, n_s), dtype=F32, device=dev)  # where(support, cost * x, 0)
-    fn = build.load("relax_round").kc_relax_round
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22
-    fn.restype = ctypes.c_int
+    fn = build.function("relax_round", "kc_relax_round",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22)
     p = planes
     rc = fn(n_c, n_t, n_i, n_z, n_ct, *(t.data_ptr() for t in (
         x, cost, cost_eff, support, counts, perm, tstar, p.it_int, p.per_pod, p.key_ok,
         p.tmpl_it, p.cls_it, p.tmpl_zone, p.cls_zone, p.tmpl_ct, p.cls_ct, p.it_avail, n_ok,
-        violations, relaxed_cost, products)), _stream(dev))
+        violations, relaxed_cost, products)), build.stream(dev))
     build.check(rc, "relax_round")
     round_launches += 1
     return n_ok, violations, relaxed_cost
@@ -500,13 +493,12 @@ def relax_materialize(n_ok, tstar, per_pod, count, merged, t_ct, feas, tmpl_daem
     scalars = torch.empty(4, dtype=I32, device=dev)  # n_next, placed, spilled, nodes
     # per group: cum, ncell, ppg; per class: placed
     scratch = torch.empty(3 * n_c * n_s + n_c, dtype=I32, device=dev)
-    fn = build.load("relax_materialize").kc_relax_materialize
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 31
-    fn.restype = ctypes.c_int
+    fn = build.function("relax_materialize", "kc_relax_materialize",
+                        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 31)
     rc = fn(n_c, n_t, n_i, n_z, n_ct, n_keys, n_words, n_res, n, *(t.data_ptr() for t in (
         n_ok, tstar, per_pod, count, *merged, t_ct, feas, tmpl_daemon, requests, kmask0,
         assign, used, kmask, kdef, kneg, kgt, klt, zone, ct, viable, pod_count, tmpl_id, open_,
-        leftover, scalars, scratch)), _stream(dev))
+        leftover, scalars, scratch)), build.stream(dev))
     build.check(rc, "relax_materialize")
     materialize_launches += 1
     state = (used, kmask, kdef, kneg, kgt, klt, zone, ct, viable, ports, pod_count, tmpl_id,

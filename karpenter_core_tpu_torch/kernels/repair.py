@@ -75,9 +75,12 @@ scatter_launches = 0  # K12 launches (CUDA path only)
 free_inplace_launches = 0  # K21 launches (CUDA path only)
 scatter_inplace_launches = 0  # K22 launches (CUDA path only)
 
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+_K10_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22
+_K21_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
+_K11_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 12)
+_K12_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 11
+_K22_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
 
 def _row_bytes(t: torch.Tensor) -> int:
@@ -190,26 +193,22 @@ def repair_free(used_new, pod_count_new, fwd_new, inv_new, used_ex, pod_count_ex
     ):
         build.check_input(name, t, dt, shape, dev)
     if inplace:
-        fn = build.load("repair_free").kc_repair_free_inplace
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
-        fn.restype = ctypes.c_int
+        fn = build.function("repair_free", "kc_repair_free_inplace", _K21_ARGS)
         ptrs = [t.data_ptr() for t in (
             requests, member, own_inv, free_new, used_new, pod_count_new, fwd_new, inv_new,
             free_ex, used_ex, pod_count_ex, fwd_ex, inv_ex,
         )]
-        rc = fn(n_new, n_ex, n_cls, n_res, g1, *ptrs, _stream(dev))
+        rc = fn(n_new, n_ex, n_cls, n_res, g1, *ptrs, build.stream(dev))
         build.check(rc, "repair_free_inplace")
         free_inplace_launches += 1
         return carry_planes
     outs = [torch.empty_like(t) for t in carry_planes]
-    fn = build.load("repair_free").kc_repair_free
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22
-    fn.restype = ctypes.c_int
+    fn = build.function("repair_free", "kc_repair_free", _K10_ARGS)
     ptrs = [t.data_ptr() for t in (
         requests, member, own_inv, free_new, used_new, pod_count_new, fwd_new, inv_new,
         free_ex, used_ex, pod_count_ex, fwd_ex, inv_ex, *outs,
     )]
-    rc = fn(n_new, n_ex, n_cls, n_res, g1, *ptrs, _stream(dev))
+    rc = fn(n_new, n_ex, n_cls, n_res, g1, *ptrs, build.stream(dev))
     build.check(rc, "repair_free")
     free_launches += 1
     return tuple(outs)
@@ -277,17 +276,14 @@ def gather_window(rows, fwd_new, inv_new, idx, n_open_w: int):
     inv_w = torch.empty((g1, n_window), dtype=I32, device=dev)
     bases = tuple(torch.empty((g1, n_zones), dtype=I32, device=dev) for _ in range(3))
     n_planes = len(rows)
-    fn = build.load("repair_gather").kc_repair_gather
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 12)
-    fn.restype = ctypes.c_int
+    fn = build.function("repair_gather", "kc_repair_gather", _K11_ARGS)
     srcs = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in rows])
     dsts = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in w_rows])
     row_bytes = (ctypes.c_int * n_planes)(*[_row_bytes(p) for p in rows])
     rc = fn(n_planes, srcs, dsts, row_bytes, n_slots, n_window, g1, n_zones, int(n_open_w),
             idx.data_ptr(), fwd_new.data_ptr(), inv_new.data_ptr(), rows[_ZONE].data_ptr(),
             rows[_OPEN].data_ptr(), n_next.data_ptr(), fwd_w.data_ptr(), inv_w.data_ptr(),
-            *(b.data_ptr() for b in bases), _stream(dev))
+            *(b.data_ptr() for b in bases), build.stream(dev))
     build.check(rc, "repair_gather")
     gather_launches += 1
     return w_rows, n_next, fwd_w, inv_w, bases
@@ -353,14 +349,11 @@ def scatter_window(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w_n_nex
     row_bytes = (ctypes.c_int * n_planes)(*[_row_bytes(p) for p in rows])
     wins = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in w_rows])
     if inplace:
-        fn = build.load("repair_scatter").kc_repair_scatter_inplace
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 8)
-        fn.restype = ctypes.c_int
+        fn = build.function("repair_scatter", "kc_repair_scatter_inplace", _K22_ARGS)
         fulls = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in rows])
         rc = fn(n_planes, fulls, wins, row_bytes, n_slots, n_window, g1, int(n_open_w),
                 idx.data_ptr(), fwd_new.data_ptr(), inv_new.data_ptr(), n_next.data_ptr(),
-                w_fwd.data_ptr(), w_inv.data_ptr(), w_n_next.data_ptr(), _stream(dev))
+                w_fwd.data_ptr(), w_inv.data_ptr(), w_n_next.data_ptr(), build.stream(dev))
         build.check(rc, "repair_scatter_inplace")
         scatter_inplace_launches += 1
         return tuple(rows), fwd_new, inv_new, n_next
@@ -368,16 +361,13 @@ def scatter_window(rows, fwd_new, inv_new, n_next, w_rows, w_fwd, w_inv, w_n_nex
     fwd_out = torch.empty_like(fwd_new)
     inv_out = torch.empty_like(inv_new)
     n_next_out = torch.empty_like(n_next)
-    fn = build.load("repair_scatter").kc_repair_scatter
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 11)
-    fn.restype = ctypes.c_int
+    fn = build.function("repair_scatter", "kc_repair_scatter", _K12_ARGS)
     fulls = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in rows])
     dsts = (ctypes.c_void_p * n_planes)(*[p.data_ptr() for p in out_rows])
     rc = fn(n_planes, fulls, wins, dsts, row_bytes, n_slots, n_window, g1, int(n_open_w),
             idx.data_ptr(), fwd_new.data_ptr(), inv_new.data_ptr(), n_next.data_ptr(),
             w_fwd.data_ptr(), w_inv.data_ptr(), w_n_next.data_ptr(), fwd_out.data_ptr(),
-            inv_out.data_ptr(), n_next_out.data_ptr(), _stream(dev))
+            inv_out.data_ptr(), n_next_out.data_ptr(), build.stream(dev))
     build.check(rc, "repair_scatter")
     scatter_launches += 1
     return out_rows, fwd_out, inv_out, n_next_out

@@ -74,16 +74,13 @@ def _merge_compat_cuda(node, cls, valid, vocab_ints, is_custom, v, key_has_bound
     )
     compat = torch.empty((n_b, n), dtype=b, device=dev)
     needs_bounds = int(any(key_has_bounds))
-    lib = build.load("req_merge")
-    fn = lib.kc_req_merge
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 21
-    fn.restype = ctypes.c_int
+    fn = build.function("req_merge", "kc_req_merge", [ctypes.c_int] * 8 + [ctypes.c_void_p] * 21)
     vw = mask_ops.const_words("vocab", v, dev)
     ptrs = [t.data_ptr() for t in (
         *node, *cls, valid, vw, vocab_ints, is_custom, *merged, compat,
     )]
     rc = fn(n_b, n, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32, needs_bounds,
-            *ptrs, torch.cuda.current_stream(dev).cuda_stream)
+            *ptrs, build.stream(dev))
     build.check(rc, "req_merge")
     launches += 1
     return merged, compat

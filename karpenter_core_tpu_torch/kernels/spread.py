@@ -123,19 +123,17 @@ def _spread_quota_cuda(counts, allowed, fillable, cap_pods, skew, m, member):
         ("skew", skew, i32, (n_b,)), ("m", m, i32, (n_b,)), ("member", member, b, (n_b,)),
     ):
         build.check_input(name, t, dt, shape, dev)
-    lib = build.load("spread_quota")
-    if n_zones > lib.kc_spread_quota_max_zones():
-        raise ValueError(f"spread_quota takes at most {lib.kc_spread_quota_max_zones()} zones")
+    max_zones = build.function("spread_quota", "kc_spread_quota_max_zones", [])()
+    if n_zones > max_zones:
+        raise ValueError(f"spread_quota takes at most {max_zones} zones")
     quotas = torch.empty((n_b, n_zones), dtype=i32, device=dev)
     sat = torch.empty((n_b, n_zones), dtype=b, device=dev)
     m_rem = torch.empty((n_b,), dtype=i32, device=dev)
     residual = torch.empty((n_b,), dtype=b, device=dev)
-    fn = lib.kc_spread_quota
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-    fn.restype = ctypes.c_int
+    fn = build.function("spread_quota", "kc_spread_quota", [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12)
     rc = fn(n_b, n_zones, *(t.data_ptr() for t in (
         counts, allowed, fillable, cap_pods, skew, m, member, quotas, sat, m_rem, residual,
-    )), torch.cuda.current_stream(dev).cuda_stream)
+    )), build.stream(dev))
     build.check(rc, "spread_quota")
     launches += 1
     return quotas, sat, m_rem, residual

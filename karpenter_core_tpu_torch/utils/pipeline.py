@@ -22,11 +22,12 @@ fetch of one tick overlap the next tick's host work:
                     land in, so steady ticks allocate none.  A slot is
                     rewritten only after the copy last landed there has
                     completed (its event is kept and waited on).  A buffer
-                    is bytes that an array of any shape and type views; one
-                    that must grow is reallocated, counted in
-                    ``staging_reallocs``.  (The reference rebuilds on any
-                    change of shape: a repair window that alternates between
-                    256 and 512 slots would count there, and not here.)
+                    is bytes that an array of any shape and type views, so
+                    a smaller array reuses them and only growth allocates.
+                    ``staging_reallocs`` counts as the reference's does:
+                    every change of an array's shape or dtype in a slot
+                    filled before (a first fill is not drift), whether or
+                    not the bytes had to grow.
   SolvePipeline     the depth-N tick ring: ``submit(dispatch)`` dispatches
                     now and returns the oldest in-flight tick's results once
                     the ring is full; ``drain()`` retires the rest.
@@ -164,11 +165,12 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class _Slot:
-    __slots__ = ("store", "bufs", "event")
+    __slots__ = ("store", "bufs", "shapes", "event")
 
     def __init__(self) -> None:
         self.store: List[Optional[torch.Tensor]] = []  # u8 byte buffers
         self.bufs: List[Optional[torch.Tensor]] = []  # the views handed out
+        self.shapes: List[Optional[Tuple]] = []  # (shape, dtype) last staged at each index
         self.event = None  # the completion event of the copy last landed here
 
 
@@ -184,8 +186,10 @@ class HostStagingRing:
     def take(self, arrays: Tuple) -> _Slot:
         """The next slot, with host buffers shaped like ``arrays`` (tensors
         or None) in ``slot.bufs``: views of the slot's byte buffers, grown
-        where an array needs more bytes than they hold (counted; a first
-        fill is not)."""
+        where an array needs more bytes than they hold.  A change of shape
+        or dtype at an index the slot held before counts in
+        ``staging_reallocs``, as the reference's rebuild does; a first fill
+        and a None entry do not (a None leaves the index as it was)."""
         slot = self._slots[self._next]
         self._next = (self._next + 1) % self.depth
         if slot.event is not None:
@@ -193,28 +197,35 @@ class HostStagingRing:
             slot.event = None
         while len(slot.store) < len(arrays):
             slot.store.append(None)
+            slot.shapes.append(None)
         bufs = []
+        drift = 0
         for i, a in enumerate(arrays):
             if a is None:
                 bufs.append(None)
                 continue
+            layout = (tuple(a.shape), a.dtype)
+            if slot.shapes[i] is not None and slot.shapes[i] != layout:
+                drift += 1
+            slot.shapes[i] = layout
             store = slot.store[i]
             need = _nbytes(a)
             if store is None or store.numel() < need or store.is_pinned() != _pinned(a):
-                if store is not None:
-                    with _lock:
-                        _stats["staging_reallocs"] += 1
                 store = torch.empty(need, dtype=torch.uint8, pin_memory=_pinned(a))
                 slot.store[i] = store
-            bufs.append(store[:need].view(a.dtype).view(tuple(a.shape)))
+            bufs.append(store[:need].view(a.dtype).view(layout[0]))
+        if drift:
+            with _lock:
+                _stats["staging_reallocs"] += drift
         slot.bufs = bufs
         return slot
 
     @staticmethod
     def drop(slot: _Slot) -> None:
         """Forget a slot's buffers (a ticket abandoned with its copy maybe
-        still in flight): the next take of the slot fills fresh ones."""
-        slot.store, slot.bufs = [], []
+        still in flight): the next take of the slot fills fresh ones.  The
+        shapes it last held stay, so drift is still counted against them."""
+        slot.store, slot.bufs = [None] * len(slot.store), []
         slot.event = None
 
 

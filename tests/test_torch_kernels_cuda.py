@@ -219,20 +219,35 @@ def test_spread_quota_matches_plain(card, seed):
     _equal(spread.spread_quota(*t), spread.spread_quota_plain(*t))
 
 
-@pytest.mark.parametrize("n_lanes,n_ex,n_cls", [
-    (64, 6144, 16),  # the full-size sweep's shapes
-    (1, 6144, 16),   # one lane
-    (13, 1000, 9),   # E not a multiple of the block, C not a power of two
-    (5, 1, 1),
+@pytest.mark.parametrize("n_lanes,n_ex,n_cls,case", [
+    pytest.param(64, 6144, 16, "", id="64-6144-16"),  # the full-size sweep's shapes
+    pytest.param(1, 6144, 16, "", id="1-6144-16"),   # one lane
+    # E not a multiple of the block, C not a power of two
+    pytest.param(13, 1000, 9, "", id="13-1000-9"),
+    pytest.param(5, 1, 1, "", id="5-1-1"),
+    (64, 6144, 16, "tied"),      # several nodes share each rank
+    (64, 6144, 33, ""),          # C past one 16-class chunk
+    (64, 6144, 16, "same"),      # every lane the same size
+    (64, 6144, 16, "wrap"),      # counts near 2^31: the int32 sums wrap
+    (512, 6144, 16, ""),         # the crossed grid's R x S lanes
 ])
-def test_sweep_lanes_matches_plain(card, n_lanes, n_ex, n_cls):
+def test_sweep_lanes_matches_plain(card, n_lanes, n_ex, n_cls, case):
     rng = np.random.default_rng(n_lanes * 7 + n_ex)
     n_cand = max(n_ex * 4 // 5, 1)
     rank = np.full(n_ex, 1 << 30, np.int32)
-    rank[rng.permutation(n_ex)[:n_cand]] = np.arange(n_cand, dtype=np.int32)
+    ranks = np.arange(n_cand, dtype=np.int32)
+    if case == "tied":
+        ranks //= 3
+    rank[rng.permutation(n_ex)[:n_cand]] = ranks
     sizes = np.sort(rng.integers(1, n_cand + 1, n_lanes)).astype(np.int32)
-    args = [rank, rng.random(n_ex) < 0.9, rng.integers(0, 500, n_cls).astype(np.int32),
-            rng.integers(0, 40, (n_cls, n_ex)).astype(np.int32), sizes]
+    if case == "same":
+        sizes[:] = sizes[n_lanes // 2]
+    base = rng.integers(0, 500, n_cls).astype(np.int32)
+    counts = rng.integers(0, 40, (n_cls, n_ex)).astype(np.int32)
+    if case == "wrap":
+        base = np.full(n_cls, 2**31 - 7, np.int32)
+        counts = rng.integers(2**30, 2**31 - 1, (n_cls, n_ex)).astype(np.int32)
+    args = [rank, rng.random(n_ex) < 0.9, base, counts, sizes]
     t = [torch.as_tensor(a).to(card) for a in args]
     _equal(consolidate.sweep_lanes(*t), consolidate.sweep_lanes_plain(*t))
 
@@ -281,8 +296,10 @@ def _free_args(rng, dev, n_new, n_ex, n_cls=16, g1=8):
     shows)."""
     free_new = np.where(rng.random((n_cls, n_new)) < 0.02, rng.integers(1, 3, (n_cls, n_new)), 0)
     free_ex = np.where(rng.random((n_cls, n_ex)) < 0.05, rng.integers(1, 3, (n_cls, n_ex)), 0)
-    free_new[2, 5] = free_new[7, 5] = 1  # slot 5 freed by two classes
-    free_ex[3, 0] = free_ex[11, 0] = 2
+    if n_new > 5:
+        free_new[2, 5] = free_new[7, 5] = 1  # slot 5 freed by two classes
+    if n_ex:
+        free_ex[3, 0] = free_ex[11, 0] = 2
     req = (rng.integers(1, 40, (n_cls, 3)) * 0.1).astype(np.float32)
     args = [
         (rng.integers(0, 400, (n_new, 3)) * 0.1).astype(np.float32),
@@ -295,9 +312,18 @@ def _free_args(rng, dev, n_new, n_ex, n_cls=16, g1=8):
             for a in args]
 
 
-@pytest.mark.parametrize("n_new,n_ex", [(8192, 1), (8192, 1536), (77, 6144)])
-def test_repair_free_matches_plain(card, n_new, n_ex):
-    args = _free_args(np.random.default_rng(n_new + n_ex), card, n_new, n_ex)
+# the headline tick, a wider cluster, a narrow window; then C past one
+# 16-class chunk, an empty or one-column side, and a block-edge column count
+FREE_SHAPES = [
+    pytest.param(8192, 1, 16, id="8192-1"), pytest.param(8192, 1536, 16, id="8192-1536"),
+    pytest.param(77, 6144, 16, id="77-6144"), (8192, 1536, 33), (8192, 0, 16), (0, 6144, 16),
+    (1, 6144, 16), (1, 1, 33), (8193, 1, 16),
+]
+
+
+@pytest.mark.parametrize("n_new,n_ex,n_cls", FREE_SHAPES)
+def test_repair_free_matches_plain(card, n_new, n_ex, n_cls):
+    args = _free_args(np.random.default_rng(n_new + n_ex), card, n_new, n_ex, n_cls)
     before = [a.clone() for a in args]
     got, want = repair.repair_free(*args), repair.repair_free_plain(*args)
     _equal(got, want)
@@ -381,11 +407,11 @@ def test_repair_window_gather_and_scatter_match_plain(card, n_slots, holes, n_ne
 # -- K21, K22: K10 and K12 in place on the carry --------------------------------
 
 
-@pytest.mark.parametrize("n_new,n_ex", [(8192, 1), (8192, 1536), (77, 6144)])
-def test_repair_free_inplace_matches_plain(card, n_new, n_ex):
+@pytest.mark.parametrize("n_new,n_ex,n_cls", FREE_SHAPES)
+def test_repair_free_inplace_matches_plain(card, n_new, n_ex, n_cls):
     """K21 against its in-place twin, and against K10 on a clone: the
     carry's eight planes freed where they lie, f32 bit for bit."""
-    args = _free_args(np.random.default_rng(21 + n_new + n_ex), card, n_new, n_ex)
+    args = _free_args(np.random.default_rng(21 + n_new + n_ex), card, n_new, n_ex, n_cls)
     carry = args[:8]
     twin = [a.clone() for a in carry]
     out_of_place = repair.repair_free(*args)

@@ -38,6 +38,7 @@ import karpenter_core_tpu.testing as jtesting
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.solver import incremental as jinc
 from karpenter_core_tpu.solver.tpu import TPUSolver
+from karpenter_core_tpu.utils import pipeline as jpipe
 from karpenter_core_tpu.utils import watchdog as jwatchdog
 from karpenter_core_tpu_torch import carry as tcarry
 from karpenter_core_tpu_torch.cloudprovider import fake as tfake
@@ -546,10 +547,14 @@ def test_staging_ring_reuses_and_grows():
     assert s3 is s1 and s3.bufs[2] is None
     assert [b.data_ptr() for b in s3.bufs[:2]] == bufs1  # smaller: the same bytes
     assert tuple(s3.bufs[1].shape) == (1, 2)
-    assert tpipe.stats()["staging_reallocs"] == 0  # first fills are not drift
-    ring.take(a)
-    ring.take((torch.zeros(40, dtype=torch.int32), torch.ones(3), None))  # grows
-    assert tpipe.stats()["staging_reallocs"] == 1
+    # two first fills count nothing; the third take changes both shapes in
+    # slot 0, as the reference's rebuild counts, though no byte was allocated
+    assert tpipe.stats()["staging_reallocs"] == 2
+    ring.take(a)  # slot 1 as it was: no drift
+    assert tpipe.stats()["staging_reallocs"] == 2
+    s5 = ring.take((torch.zeros(40, dtype=torch.int32), torch.ones(3), None))  # grows
+    assert s5.bufs[0].data_ptr() != bufs1[0] and s5.bufs[1].data_ptr() == bufs1[1]
+    assert tpipe.stats()["staging_reallocs"] == 4
     ticket = tpipe.FetchTicket((torch.tensor([3, 4], dtype=torch.int32), torch.tensor(5)),
                                ring=ring)
     assert ticket.staged and tpipe.stats()["tickets_open"] == 1
@@ -559,6 +564,33 @@ def test_staging_ring_reuses_and_grows():
     assert int(first[1]) == 5 and tpipe.stats()["tickets_open"] == 0
     rec = tpipe.last_overlap()
     assert rec["hidden_s"] >= 0 and rec["exposed_s"] >= 0
+
+
+def test_staging_ring_counts_as_the_reference():
+    """One sequence of numpy-made arrays through both rings: first fills,
+    repeated shapes, a window alternating 256 and 512 slots off the ring's
+    period, a dtype change, None entries and a shorter tuple.  Both packages
+    report the same ``staging_reallocs`` after every step."""
+    rng = np.random.default_rng(12)
+
+    def arrays(n, count_dtype=np.int32, drop=()):
+        out = (rng.integers(0, 9, n).astype(count_dtype), rng.random((n, 3)).astype(np.float32),
+               rng.random(n) < 0.5)
+        return tuple(None if i in drop else a for i, a in enumerate(out))
+
+    steps = [arrays(6), arrays(6), arrays(6), arrays(256), arrays(512), arrays(512),
+             arrays(256), arrays(256), arrays(512), arrays(256, drop=(1,)),
+             arrays(256, np.int64), arrays(256, np.int64), arrays(512, drop=(0, 2)),
+             arrays(512)[:2], arrays(6)]
+    jpipe.reset_stats()
+    jring, tring = jpipe.HostStagingRing(depth=2), tpipe.HostStagingRing(depth=2)
+    counts = []
+    for step in steps:
+        jring.stage(step)
+        tring.take(tuple(None if a is None else torch.as_tensor(a) for a in step))
+        counts.append(jpipe.stats()["staging_reallocs"])
+        assert tpipe.stats()["staging_reallocs"] == counts[-1], counts
+    assert counts[:3] == [0, 0, 0] and counts[-1] > 0
 
 
 def test_pipeline_depth_from_env(monkeypatch):
