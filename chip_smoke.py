@@ -1496,11 +1496,15 @@ def class_axis_records(records, cls, statics) -> None:
         err = max_abs_err(fn(*args), plain(*args))
         if err != 0.0:
             fail(f"{name} over the class axis differs from its twin: {err}")
+        ms = time_ms(lambda: fn(*args))
+        dev_ms, queued = device_ms(lambda: fn(*args), ms)
         by_name[name]["class_axis"] = {
-            "B": n_c, "ms": time_ms(lambda: fn(*args)),
+            "B": n_c, "ms": ms, "device_ms": dev_ms,
             "plain_ms": time_ms(lambda: plain(*args), 3), **bound(moved, ops),
             "max_abs_err": err,
         }
+        if not queued:
+            by_name[name]["class_axis"]["device_ms_queued"] = False
         print(json.dumps({"class_axis": name, **by_name[name]["class_axis"]}), flush=True)
 
 
@@ -2417,6 +2421,62 @@ def sampled_solos(snapshot, avail, study, n_slots, it_price, label):
           flush=True)
 
 
+def replica_axis_inputs(last, cls, sa, khb, avail, n_b):
+    """K1's operands at the study's largest chunk, B = ``n_b`` replicas: a
+    chunk's final slot states (the last chunk's replicas, wrapped round to
+    ``n_b``), class 0 merged into their requirement rows by K3, the shared
+    catalog planes repeated and each replica's own availability, as
+    ``ops.chunks.solve_cells`` stacks them."""
+    from karpenter_core_tpu_torch.kernels import batch, reqmerge
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+
+    st = last.state
+    n_last = st.viable.shape[0]
+    first = avail.shape[0] - n_last  # the last chunk's first replica
+    idx = torch.arange(n_b, device="cuda") % n_last
+    v = sa.valid.shape[-1]
+    cls0_mask = mask_ops.pack_mask(cls.mask[0])
+    cls_req = mask_ops.ReqTensor(cls0_mask[None], cls.defined[0][None], cls.negative[0][None],
+                                 cls.gt[0][None], cls.lt[0][None])
+    it, valid, vocab_ints, is_custom, alloc, cls_it, size, cls_req = batch.repeat(
+        (mask_ops.pack_req(sa.it), mask_ops.pack_mask(sa.valid), sa.vocab_ints, sa.is_custom,
+         sa.it_alloc, cls.it[0], cls.requests[0], cls_req), n_b)
+    node_req = mask_ops.ReqTensor(*(t[idx] for t in (st.kmask, st.kdef, st.kneg, st.kgt,
+                                                     st.klt)))
+    merged, _ = reqmerge.merge_compat(node_req, cls_req, valid, vocab_ints, is_custom, v, khb)
+    zone_ok = st.zone[idx] & cls.zone[0]
+    ct_ok = st.ct[idx] & cls.ct[0]
+    return (st.viable[idx], cls_it, merged, it, vocab_ints, v, khb, zone_ok, ct_ok,
+            avail[first + idx].contiguous(), st.used[idx], size, alloc)
+
+
+def replica_axis_record(records, k1_args) -> None:
+    """K1 at the study's largest chunk, held against its twin replica by
+    replica and timed (``ms``, ``device_ms``); its bound from the solo
+    call's work: each replica's own slot planes, availability and outputs,
+    the catalog and class planes once, the operations B times the solo
+    call's.  ``replica_axis`` in K1's record."""
+    from karpenter_core_tpu_torch.kernels import capacity
+
+    n_b = k1_args[0].shape[0]
+    t0 = time.perf_counter()
+    err = max_abs_err(capacity.it_capacity(*k1_args), capacity.it_capacity_twin(*k1_args))
+    if err != 0.0:
+        fail(f"it_capacity at B = {n_b} replicas differs from its twin: {err}")
+    fn = lambda: capacity.it_capacity(*k1_args)  # noqa: E731
+    ms = time_ms(fn)
+    dev_ms, queued = device_ms(fn, ms)
+    moved, shared, ops = K1_WORK["solo"]
+    rec = {"B": n_b, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": time_ms(lambda: capacity.it_capacity_twin(*k1_args), 3),
+           **bound(shared + n_b * (moved - shared), n_b * ops), "max_abs_err": err}
+    rec["record_s"] = time.perf_counter() - t0
+    if not queued:
+        rec["device_ms_queued"] = False
+    next(r for r in records if r["name"] == "it_capacity")["replica_axis"] = rec
+    print(json.dumps({"it_capacity_replica_axis": rec}), flush=True)
+
+
 def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches) -> None:
     """Phase 9: the what-if studies (BASELINE.json config 5) on the headline
     backlog.  (a) ``monte_carlo_solve`` at R = 1,024, rate 0: every replica
@@ -2464,18 +2524,11 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     study, launches, last, cells = whatif_study(
         "monte-carlo, rate 0.3", lambda: mesh.monte_carlo_solve(
             snapshot, WHATIF_REPLICAS, seed=0, interruption_rate=WHATIF_RATE))
+    largest = max(cells)  # K1's replica-axis record runs at the largest chunk
     print(json.dumps({"monte_carlo": {k: (v.tolist()[:8] if isinstance(v, np.ndarray) else v)
                                       for k, v in study.items()}}), flush=True)
     if not np.all(study["scheduled"] + study["failed"] == N_PODS):
         fail("monte-carlo rate 0.3: a replica lost pods")
-    # K1's bound at the study's largest chunk: each replica has its own
-    # slots and availability, the catalog and class planes are shared, and
-    # the operations are B times the solo call's
-    k1 = next(rec for rec in records if rec["name"] == "it_capacity")
-    moved, shared, ops = K1_WORK["solo"]
-    n_b = max(cells)
-    k1["replica_axis"] = {"B": n_b, **bound(shared + n_b * (moved - shared), n_b * ops)}
-    print(json.dumps({"it_capacity_replica_axis": k1["replica_axis"]}), flush=True)
     avail = mesh.perturb_spot_availability(snapshot, WHATIF_REPLICAS, 0, WHATIF_RATE)
     sampled_solos(snapshot, avail, study, n_slots, it_price, "monte-carlo rate 0.3")
     cls, sa, khb = mesh.prepared(snapshot, "cuda")
@@ -2545,7 +2598,12 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
         + priced * (n_it + n_z + n_ct) + 16 * n_b,
         priced * n_it * n_z * n_ct + n_b * n_cls * n_sl, plain_reps=3,
     )
-    del last
+    k1_args = replica_axis_inputs(last, cls, sa, khb, avail, largest)
+    del last, st
+    torch.cuda.empty_cache()
+    replica_axis_record(records, k1_args)
+    del k1_args
+    torch.cuda.empty_cache()
 
     # -- (d) the risk-weighted variants after the spot move --------------------
     provider, provisioners = build_provider(N_TYPES, N_PROVISIONERS)

@@ -1,6 +1,7 @@
 // The cheapest offering of one new-node slot: the device code of
-// `node_prices` (karpenter_core_tpu/ops/solve.py:2140), shared by K9
-// (lane_finish.cu) and K20 (replica_finish.cu).
+// `node_prices` (karpenter_core_tpu/ops/solve.py:2140) that K9
+// (lane_finish.cu) runs; K20 (replica_finish.cu) takes `min_nan` from it
+// and prices its slots by a rank walk of its own.
 //
 //   price = min over (i, z, ct) with viable[i] & zone[z] & ct[ct] of
 //           it_price[i, z, ct]   (+inf when there is none),

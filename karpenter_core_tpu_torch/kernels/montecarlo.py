@@ -11,14 +11,17 @@ solves stacked on a leading axis::
 
 with ``price`` the slots' cheapest offerings, ``node_prices``
 (karpenter_core_tpu/ops/solve.py:2140): ``kernels.consolidate
-.slot_prices_plain`` in the twin, the device code K9 uses in the kernel.
+.slot_prices_plain`` in the twin; the kernel ranks the catalog by price
+within each offering cell once a call and takes, for each allowed cell, the
+first viable type in that order (the same minimum).
 The cost sums in XLA's CPU tree order (``kernels.fp32.tree_sum_plain``):
 that is what ``jit(vmap(one_replica))`` computes on the CPU.
 
-The CUDA source is ``csrc/replica_finish.cu``: one launch for every replica
-of the chunk.  ``replica_finish_plain`` is its twin (the CPU path and the
-kernel's oracle).  The wrapper takes the twin for CPU tensors and launches
-the kernel for CUDA tensors, never one in place of the other.
+The CUDA source is ``csrc/replica_finish.cu``: two launches a call (the
+rank, then every replica of the chunk).  ``replica_finish_plain`` is its
+twin (the CPU path and the kernel's oracle).  The wrapper takes the twin
+for CPU tensors and launches the kernel for CUDA tensors, never one in
+place of the other.
 """
 
 from __future__ import annotations
@@ -69,15 +72,19 @@ def replica_finish(assign, failed, viable, zone, ct, open_, pod_count, it_price)
     ):
         build.check_input(name, t, dt, shape, dev)
     n_win = -(-n_slots // WINDOW) if n_slots > WINDOW else 1
+    n_cells = n_zones * n_ct
+    ord_idx = torch.empty((n_cells, n_it), dtype=I32, device=dev)
+    ord_price = torch.empty((n_cells, n_it), dtype=f32, device=dev)
     part_cost = torch.empty((n_rep, n_win), dtype=f32, device=dev)
     part_int = torch.empty((n_rep, n_win, 2), dtype=I32, device=dev)
     ticket = torch.zeros((n_rep,), dtype=I32, device=dev)
     outs = [torch.empty((n_rep,), dtype=I32, device=dev) for _ in range(3)]
     cost = torch.empty((n_rep,), dtype=f32, device=dev)
     fn = build.function("replica_finish", "kc_replica_finish",
-                        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 16)
+                        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 18)
     ptrs = [t.data_ptr() for t in (assign, failed, viable, zone, ct, open_, pod_count, it_price,
-                                   part_cost, part_int, ticket, *outs, cost)]
+                                   ord_idx, ord_price, part_cost, part_int, ticket, *outs,
+                                   cost)]
     rc = fn(n_rep, n_slots, n_it, n_zones, n_ct, n_cls, *ptrs, build.stream(dev))
     build.check(rc, "replica_finish")
     launches += 1

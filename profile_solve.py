@@ -70,7 +70,9 @@ With ``--montecarlo`` the profiled call is the Monte-Carlo what-if study
 that backlog at 1,024 replicas, spot offerings interrupted at rate 0.3
 (seed 0), after one unprofiled study.  It reports the wall, the chunking
 (replicas a chunk, each chunk's host reads), the peak device memory, the
-busy share and each kernel's device time, K19 and K20 included.
+busy share and each kernel's device time, K19 and K20 included, with K1's
+device time a launch and K20's a call (its rank and its study kernel) on
+lines of their own.
 
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
@@ -112,6 +114,7 @@ PORT_KERNELS = {
     "materialize_slots_kernel": "relax_materialize (slots)",
     "perturb_avail_kernel": "perturb_avail",
     "replica_finish_kernel": "replica_finish",
+    "replica_rank_kernel": "replica_finish (rank)",
 }
 
 
@@ -328,8 +331,16 @@ def profile_montecarlo(prof_factory, smi: str) -> tuple:
         solve_ops.solve_core_batched = batched
     summary = device_summary(prof)
     d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
+    kern = summary["port_kernels"]
+    k20 = [kern.get(k, {}) for k in ("replica_finish", "replica_finish (rank)")]
     return prof, {
         "card": smi, "path": "montecarlo", "replicas": 1024, "wall_s": wall,
+        # K1's launches span the chunks' sizes (147 and 142 replicas); K20's
+        # call is its rank and its study launch
+        "it_capacity_device_us_per_launch": kern.get("it_capacity", {}).get(
+            "device_us_per_launch"),
+        "replica_finish_device_us_per_call": sum(k.get("device_us", 0.0) for k in k20)
+        / max(k20[0].get("launches", 0), 1),
         "replicas_per_chunk": [c[0] for c in chunks],
         "host_syncs_per_chunk": [c[1] for c in chunks], "device_to_host_copies": d2h,
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),

@@ -76,6 +76,12 @@ def _equal(got, want):
     (8192, 1000, 8, 9, False, (0.25, 0.25, 1.0)),
     (300, 77, 3, 40, True, (0.25, 0.0, 1.0)),
     (64, 40, 2, 70, True, (0.0, 0.0, 0.0)),  # BIG must saturate to INT32_MAX
+    (300, 1001, 3, 40, True, (0.25, 0.0, 1.0)),  # types not a multiple of a lane's four
+    (300, 7, 2, 9, True, (0.25, 0.5, 1.0)),  # one group of four and a ragged one
+    (200, 77, 2, 9, False, (0.5,)),  # R = 1
+    (200, 77, 2, 9, False, tuple(0.25 * (r % 5) for r in range(16))),  # R = 16
+    (1, 1000, 8, 9, False, (0.25, 0.25, 1.0)),  # N = 1
+    (17, 1000, 8, 9, False, (0.25, 0.25, 1.0)),  # a block's 16 rows + 1
 ])
 def test_it_capacity_matches_plain(card, n, types, k, v, bounds, size):
     rng = np.random.default_rng(n)
@@ -83,14 +89,15 @@ def test_it_capacity_matches_plain(card, n, types, k, v, bounds, size):
     def b(shape, p):
         return torch.as_tensor(rng.random(shape) < p).to(card)
 
+    n_res = len(size)
     khb = tuple(bool(x) for x in rng.random(k) < 0.7) if bounds else (False,) * k
     args = (
         b((n, types), 0.9), b((types,), 0.9), _req(rng, n, k, v, bounds, card),
         _req(rng, types, k, v, bounds, card), _vocab_ints(rng, k, v, card), v, khb,
         b((n, 3), 0.6), b((n, 2), 0.6), b((types, 3, 2), 0.5),
-        torch.as_tensor(rng.integers(0, 20, (n, 3)).astype(np.float32) * 0.25).to(card),
+        torch.as_tensor(rng.integers(0, 20, (n, n_res)).astype(np.float32) * 0.25).to(card),
         torch.tensor(size, dtype=torch.float32, device=card),
-        torch.as_tensor(rng.integers(0, 64, (types, 3)).astype(np.float32) * 0.5).to(card),
+        torch.as_tensor(rng.integers(0, 64, (types, n_res)).astype(np.float32) * 0.5).to(card),
     )
     _equal(capacity.it_capacity(*args), capacity.it_capacity_plain(*args))
 
@@ -660,6 +667,50 @@ def test_it_capacity_tenant_axis_matches_plain(card, n_b):
     _check_batched(capacity.it_capacity, capacity.it_capacity_plain, sets)
 
 
+@pytest.mark.parametrize("case", ["inf_bounds", "no_ok_row", "rows_block_plus_one",
+                                  "tenants_own_catalogs", "wide_cells", "type_tiles"])
+def test_it_capacity_edges_match_plain(card, case):
+    """Bounded keys whose bounds are all infinite; rows where no type is ok
+    (cap_n 0); 16 tenants of 8,193 rows (16 rows a warp: blocks of 128 rows
+    and one more); three tenants whose catalogs differ; more than 32 zone x
+    capacity-type cells; a catalog of 9,000 types (three staged tiles)."""
+    rng = np.random.default_rng(len(case))
+    k, v, n, types = 3, 40, 300, 77
+    khb = (True, False, True)
+    n_b = {"rows_block_plus_one": 16, "tenants_own_catalogs": 3}.get(case, 1)
+    if case == "rows_block_plus_one":
+        n = 8193
+    if case == "type_tiles":
+        n, types = 64, 9000
+    sets = []
+    for t in range(n_b):
+        args = list(_k1_args(rng, card, n, types, k, v, khb, (0.25, 0.5, 1.0)))
+        if case == "inf_bounds":
+            for req in (args[2], args[3]):
+                req.gt.fill_(float("-inf"))
+                req.lt.fill_(float("inf"))
+            args[6] = (True,) * k
+        elif case == "no_ok_row":
+            args[0][::7] = False  # every seventh row has no viable type
+            args[7][1::7] = False  # and the next no allowed zone
+        elif case == "tenants_own_catalogs":
+            args[1] = torch.as_tensor(rng.random(types) < 0.3 + 0.3 * t).to(card)
+        elif case == "wide_cells":
+            z, c = 8, 5
+            args[7] = torch.as_tensor(rng.random((n, z)) < 0.4).to(card)
+            args[8] = torch.as_tensor(rng.random((n, c)) < 0.4).to(card)
+            args[9] = torch.as_tensor(rng.random((types, z, c)) < 0.2).to(card)
+        sets.append(tuple(args))
+    if len(sets) == 1:
+        got = capacity.it_capacity(*sets[0])
+        want = capacity.it_capacity_plain(*sets[0])
+        _equal(got, want)
+        if case == "no_ok_row":
+            assert not bool(got[0][::7].any()) and not bool(got[2][::7].any())
+    else:
+        _check_batched(capacity.it_capacity, capacity.it_capacity_plain, sets)
+
+
 def test_it_capacity_tenant_axis_headline_shape(card):
     """Eight tenants at the headline's slot and catalog widths."""
     sets = [_k1_args(np.random.default_rng(200 + b), card, 8192, 1000, 8, 9, (False,) * 8,
@@ -800,6 +851,8 @@ def test_perturb_avail_matches_plain(card, n_rep, n_it, n_ct, seed):
     (5, 100, 40, 3),  # windows padded at both ends
     (3, 16, 40, 2),  # one window
     (2, 40000, 7, 1),  # three levels of the tree
+    (4, 33, 7, 2),  # two windows, a row shorter than a 16-byte load
+    (3, 8193, 1001, 5),  # rows that start at every alignment
 ])
 def test_replica_finish_matches_plain(card, n_rep, n_slots, n_it, n_cls):
     rng = np.random.default_rng(n_slots)
@@ -817,6 +870,44 @@ def test_replica_finish_matches_plain(card, n_rep, n_slots, n_it, n_cls):
         t(rng.integers(0, 3, (n_rep, n_slots)).astype(np.int32)), t(price),
     )
     _equal(montecarlo.replica_finish(*args), montecarlo.replica_finish_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["wide_cells", "no_priced_slot", "nan_prices",
+                                  "wide_rows"])
+def test_replica_finish_edges_match_plain(card, case):
+    """40 zone x capacity-type cells (more than one word); a replica with
+    no priced slot (all closed or empty); NaN prices (a slot that can reach
+    one prices NaN, and its cost drops it); rows wider than the kernel's
+    shared buffers (read where the rank walk lands)."""
+    rng = np.random.default_rng(len(case))
+    n_rep, n_slots, n_it, n_cls, z, c = 4, 700, 60, 3, 3, 2
+    if case == "wide_cells":
+        z, c = 8, 5
+    if case == "wide_rows":
+        n_rep, n_slots, n_it = 2, 300, 5000
+
+    def t(a):
+        return torch.as_tensor(a).to(card)
+
+    price = (rng.integers(1, 5000, (n_it, z, c)) * 1.7e-3).astype(np.float32)
+    price[rng.random(price.shape) < 0.3] = np.inf
+    if case == "nan_prices":
+        price[rng.random(price.shape) < 0.02] = np.nan
+    open_ = rng.random((n_rep, n_slots)) < 0.9
+    pods = rng.integers(0, 3, (n_rep, n_slots)).astype(np.int32)
+    if case == "no_priced_slot":
+        open_[1] = False
+        pods[2] = 0
+    args = (
+        t(rng.integers(-3, 2**20, (n_rep, n_cls, n_slots)).astype(np.int32)),
+        t(rng.integers(0, 2**30, (n_rep, n_cls)).astype(np.int32)),
+        t(rng.random((n_rep, n_slots, n_it)) < 0.3), t(rng.random((n_rep, n_slots, z)) < 0.6),
+        t(rng.random((n_rep, n_slots, c)) < 0.7), t(open_), t(pods), t(price),
+    )
+    got = montecarlo.replica_finish(*args)
+    _equal(got, montecarlo.replica_finish_plain(*args))
+    if case == "no_priced_slot":
+        assert float(got[3][1]) == 0.0 and float(got[3][2]) == 0.0
 
 
 @pytest.mark.parametrize("n_pods,n_types", [(700, 50), (50_000, 1000)])
