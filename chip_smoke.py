@@ -23,8 +23,10 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
   2. kernels K1-K4 and K15 — each against its plain twin on the card, on
      inputs taken from the cold path's final state and encode (their real
      shapes), plus a small bounded-keys case for K1, a hole-preference case
-     for K2 and K2's multi-block path at N = 32,768 (the main path's plane
-     four times over, and a quota whose int32 prefix sums wrap).
+     for K2, K2 on a sorted input (the same caps with index priorities, as
+     the existing-node fills give it: ``sorted_input`` in its record) and
+     K2's multi-block path at N = 32,768 (the main path's plane four times
+     over, and a quota whose int32 prefix sums wrap).
   3. existing-node path — first a mid-size solve (10,000 pods x 100 types
      into a 1,000-node cluster) whose counts must equal the JAX package's
      answer on the same inputs, measured on the CPU; then the same 50,000
@@ -38,7 +40,10 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      scheduled + failed + residual must be 50,000; every kernel K1-K7 must
      have launched in the cold run.  The warm outputs are decoded again
      under the policy objective (no re-solve): K13's selection must equal its
-     twin's.  Then K5-K7 against their twins at this path's shapes.
+     twin's.  Then K5-K7 against their twins at this path's shapes (K6 as
+     the fused mask and fill and the commit a phase without hole
+     preferences launches; the mask alone, the single-node pin and a
+     restricted phase through both mask entry points).
 
   4. consolidation path — multi-node consolidation with every node a
      candidate and no pending pods, through
@@ -57,7 +62,10 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      equal the kernel run (``new_cost`` to rtol 1e-6, the one leaf whose f32
      sum the reference lets vary with reduction order), and three lanes of
      the coarse pass their solo ``solve_core``.  Then K8 and K9 against
-     their twins at this path's shapes.  Each run pinned to a fresh JAX
+     their twins at this path's shapes, and K6 on the coarse pass's lanes
+     (B = 64 x the 6,144 existing rows, each lane's ``open_`` and counts
+     from K8): the fused mask and fill and the commit of that fill
+     (``lane_axis`` in K6's record).  Each run pinned to a fresh JAX
      process's answer starts from an empty slot-count and feature-set
      history (``utils.compilecache.reset_memo``) and prints the slot counts
      it used.
@@ -159,7 +167,8 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      its 50,000 pods, replicas 0, 1, 511 and 1,023 must equal ``solve_core``
      run alone on their availability, and a chunk of 8 replicas must equal
      the twins' batch leaf for leaf; K19 (both modes, at [1,024, 1,000, 3,
-     2]) and K20 (on the study's last chunk) against their twins; (d)
+     2]) and K20 (on the study's last chunk) against their twins, and K1
+     and K2 at the largest chunk's B = 147 replicas (``replica_axis``); (d)
      ``policy_monte_carlo`` at 1,024 replicas, seed 5, after the policy
      benchmark's spot move with every spot offering at interruption rate
      0.3: the same pins, with ``best_replica`` and ``expected_cost``
@@ -213,7 +222,9 @@ Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records (each with its launches on the tenant path,
 ``tenants``, and on the what-if paths, ``launches_per_path``; K1-K3 and
 K5-K7 with their batched entry points' lines at B = 8, ``tenant_axis``;
-K19 with its risk-plane mode, ``risk_mode``), and last ``{"ok": true, "device": {...}}``.  Any
+K1 and K2 at the study's B = 147, ``replica_axis``; K2 on a sorted input,
+``sorted_input``; K6 on the consolidation lanes, ``lane_axis``; K19 with
+its risk-plane mode, ``risk_mode``), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Needs one card; refuses to
 run without one.
 """
@@ -594,6 +605,50 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
     return got
 
 
+def axis_line(records, name, axis, entry, kernel_fn, plain_fn, moved, ops, plain_reps=3,
+              **extra):
+    """Hold one more call of kernel ``name`` against its twin (exactly), time
+    it as the kernel line's calls are (``ms``, ``device_ms``, ``plain_ms``),
+    bound it from ``moved`` bytes and ``ops``, and file it under the kernel
+    record's ``axis`` (``entry`` names it there, or None for the axis
+    itself); returns the kernel's outputs."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        fail(f"{name} {axis} {entry or ''}: kernel differs from its twin (max_abs_err {err})")
+    wall = time_ms(kernel_fn)
+    dev_ms, queued = device_ms(kernel_fn, wall)
+    rec = {**extra, "max_abs_err": err, "ms": wall, "device_ms": dev_ms,
+           "plain_ms": time_ms(plain_fn, plain_reps), **bound(moved, ops)}
+    if not queued:
+        rec["device_ms_queued"] = False
+    owner = next(r for r in records if r["name"] == name)
+    if entry is None:
+        owner[axis] = rec
+    else:
+        owner.setdefault(axis, {})[entry] = rec
+    print(json.dumps({f"{name}_{axis}" + (f"_{entry}" if entry else ""): rec}), flush=True)
+    return got
+
+
+def commit_bytes(ex, merged, zone_new, ct_ok, cls_ports, vol_add, per_pod, requests,
+                 assigned, host_ports, volume_limits) -> int:
+    """The bytes K6's commit must move: each state plane read once and
+    written once (a selected row reads its merged planes, ``zone_new`` and
+    ``ct_ok``, an unselected row its old ones: the same widths), the
+    requests and ``assigned`` read, the class's ports with host ports on,
+    and with volume limits on the per-pod vector and ``vol_add`` of the
+    selected rows only."""
+    moved = 2 * nbytes(ex[:-1]) + nbytes(requests, assigned)
+    if host_ports:
+        moved += nbytes(cls_ports)
+    if volume_limits:
+        selected = int((assigned > 0).sum())
+        moved += nbytes(per_pod) + selected * (nbytes(vol_add) // assigned.numel())
+    return moved
+
+
 def path_counts(results) -> dict:
     """Where the pods of one existing-node solve went."""
     return {
@@ -762,34 +817,40 @@ def existing_path(records, cold_launches):
         lambda: existing.existing_intake_plain(*k5, ft.host_ports, ft.volume_limits),
         nbytes(*read) + n_ex * (4 + n_zones + n_ct), n_ex * (6 * n_res + n_zones + n_ct + 8),
     )
-    # K6: the caps of an all-zone phase, K2's fill of the class's count, the
-    # commit; timed as the pair of entry points around the fill
+    # K6: the fused caps and fill of an all-zone phase (the class's count),
+    # then the commit of that fill; timed as the pair of entry points a
+    # phase without hole preferences launches
     all_zones = torch.ones(n_zones, dtype=torch.bool, device="cuda")
-    cap_m, pri_m, zone_ok = existing.existing_mask(cap, ex.zone, cls.zone, all_zones, None, False)
     quota = torch.clamp(cls.count, min=1)
-    assigned = fill.fill_by_priority(quota, cap_m, pri_m)
-    rows = ex[:-1]  # the commit reads and writes every field but open_, which it passes on
+    k6m = (cap, ex.zone, cls.zone, all_zones, None, False, quota)
+    assigned, _, zone_ok = existing.existing_mask_fill(*k6m)
     k6c = (ex, merged, zone_ok, ex.ct & cls.ct[None, :], cls.ports, ex_static.cls_vol_add[c],
            ex_static.cls_vol_per_pod[c], cls.requests, assigned, ft.host_ports, ft.volume_limits)
     record_kernel(
         records, "existing_phase", "karpenter_core_tpu_torch/csrc/existing_phase.cu",
         "karpenter_core_tpu/ops/solve.py:624", launches["existing_phase"],
-        lambda: (existing.existing_mask(cap, ex.zone, cls.zone, all_zones, None, False),
-                 existing.existing_commit(*k6c)),
-        lambda: (existing.existing_mask_plain(cap, ex.zone, cls.zone, all_zones, None, False),
-                 existing.existing_commit_plain(*k6c)),
-        nbytes(cap, ex.zone, cls.zone, all_zones, cap_m, pri_m, zone_ok)
-        + nbytes(rows, *k6c[1:9]) + nbytes(rows),
-        n_ex * (n_zones + 4 + 2 * n_res),
+        lambda: (existing.existing_mask_fill(*k6m), existing.existing_commit(*k6c)),
+        lambda: (existing.existing_mask_fill_plain(*k6m), existing.existing_commit_plain(*k6c)),
+        nbytes(cap, ex.zone, cls.zone, all_zones, quota) + n_ex * (4 + n_zones) + 4
+        + commit_bytes(*k6c),
+        n_ex * (n_zones + 6 + 2 * n_res),
     )
-    # the single-node pin and a restricted, partly-excluded phase
+    # the mask alone (the phases with hole preferences), K2 on its caps and
+    # the fused entry's sum, equal to the fused fill
+    cap_m, pri_m, _ = existing.existing_mask(cap, ex.zone, cls.zone, all_zones, None, False)
+    if not torch.equal(fill.fill_by_priority(quota, cap_m, pri_m), assigned):
+        fail("existing_phase: the fused fill differs from the mask and K2's fill")
+    # the single-node pin and a restricted, partly-excluded phase, both entry
+    # points
     taken = assigned > 0
     for args in ((cap, ex.zone, cls.zone, all_zones, None, True),
                  (cap, ex.zone, cls.zone, torch.arange(n_zones, device="cuda") != 1,
                   ~taken, False)):
-        err = max_abs_err(existing.existing_mask(*args), existing.existing_mask_plain(*args))
+        err = max(max_abs_err(existing.existing_mask(*args), existing.existing_mask_plain(*args)),
+                  max_abs_err(existing.existing_mask_fill(*args, quota),
+                              existing.existing_mask_fill_plain(*args, quota)))
         if err != 0.0:
-            fail(f"existing_phase (mask) differs from its twin: {err}")
+            fail(f"existing_phase (mask or mask_fill) differs from its twin: {err}")
     # K7: the class's quota rounds against the existing members per zone
     g = cls.groups[0].long()
     member_ex = ex_static.grp_node_member.index_select(0, g.reshape(1))[0]
@@ -812,7 +873,7 @@ def existing_path(records, cold_launches):
         err = max_abs_err(spread.spread_quota(*args), spread.spread_quota_plain(*args))
         if err != 0.0:
             fail(f"spread_quota with finite caps differs from its twin: {err}")
-    print("existing path kernels exact: K5, K6 (mask, single-node pin, commit), "
+    print("existing path kernels exact: K5, K6 (mask_fill, mask, single-node pin, commit), "
           "K7 (unlimited and finite caps)", flush=True)
     for rec in records:
         rec["launches_per_path"] = {"cold": cold_launches[rec["name"]],
@@ -1021,6 +1082,7 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
         nbytes(*k8) + n_lanes * n_ex + n_lanes * n_cls * 4, 2 * n_lanes * n_cls * n_ex,
         library_fn=lambda: torch.matmul(subset_f, counts_f),
     )
+    lane_axis_records(records, prep, lane_open, lane_count)
     library_exact = torch.equal(torch.matmul(subset_f, counts_f).to(torch.int32)
                                 + prep.cls.count[None, :], lane_count)
     k9 = (stack.viable, stack.zone, stack.ct, stack.open_, stack.pod_count, stack.failed,
@@ -1049,6 +1111,62 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
                                                         "existing": existing_launches[rec["name"]]})
         per_path["consolidation"] = launches[rec["name"]]
     return launches, (snapshot, prep, coarse_sizes, coarse_out)
+
+
+def lane_axis_records(records, prep, lane_open, lane_count) -> None:
+    """Phase 4: K6's fused mask and fill and its commit at the coarse pass's
+    lanes (B = 64) over phase 3's existing rows, stacked as the lanes stack
+    them: the shared planes repeated, each lane its own ``open_`` and class
+    counts (K8's outputs).  The class with the most pods over the lanes: its
+    intake a lane (K3, K5), the fill of its count, the commit of that fill;
+    each held exactly to its twin and timed (``lane_axis`` in K6's record).
+    The commit's bound counts the merged planes of the selected rows only."""
+    from karpenter_core_tpu_torch.kernels import batch, existing, reqmerge
+    from karpenter_core_tpu_torch.ops import masks as mask_ops
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+    n_b, n_ex = lane_open.shape
+    c = int(torch.argmax(lane_count.sum(dim=0)))
+    ft = prep.features
+    st = solve_ops.StaticArrays(*prep.statics_arrays)
+    v = st.valid.shape[-1]
+    cls = solve_ops.ClassTensors(*(t[c] for t in prep.cls))
+    cls = cls._replace(mask=mask_ops.pack_mask(cls.mask))
+    cls_req = mask_ops.ReqTensor(cls.mask[None], cls.defined[None], cls.negative[None],
+                                 cls.gt[None], cls.lt[None])
+    ex, es = prep.ex_state, prep.ex_static
+    merged, key_ok = reqmerge.merge_compat(
+        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req,
+        mask_ops.pack_mask(st.valid), st.vocab_ints, st.is_custom, v, prep.key_has_bounds)
+    host_cap = torch.full((n_ex,), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
+    ex_b, merged_b, key_ok_b, cls_b, es_b, host_cap_b = batch.repeat(
+        (ex, merged, key_ok, cls, (es.alloc, es.tol[c], es.vol_limit, es.cls_vol_add[c],
+                                   es.cls_vol_per_pod[c]), host_cap), n_b)
+    ex_b = ex_b._replace(open_=lane_open.contiguous())
+    alloc, tol, vol_limit, vol_add, per_pod = es_b
+    cap, _, ct_ok = existing.existing_intake(
+        alloc, ex_b.used, ex_b.open_, key_ok_b, tol, ex_b.zone, cls_b.zone, ex_b.ct, cls_b.ct,
+        ex_b.ports, cls_b.ports, vol_limit, ex_b.vol_used, vol_add, per_pod, cls_b.requests,
+        host_cap_b, ft.host_ports, ft.volume_limits)
+    n_zones = ex.zone.shape[-1]
+    all_zones = torch.ones((n_b, n_zones), dtype=torch.bool, device="cuda")
+    quota = torch.clamp(lane_count[:, c], min=1).contiguous()
+    k6m = (cap, ex_b.zone, cls_b.zone, all_zones, None, False, quota)
+    assigned, _, zone_ok = axis_line(
+        records, "existing_phase", "lane_axis", "mask_fill",
+        lambda: existing.existing_mask_fill(*k6m), lambda: existing.existing_mask_fill_twin(*k6m),
+        nbytes(*k6m[:4], quota) + n_b * (n_ex * (4 + n_zones) + 4), n_b * n_ex * (n_zones + 6),
+        B=n_b, rows=n_ex, cls=c)
+    if not bool((assigned > 0).any()):
+        fail("existing_phase lane axis: the fill placed nothing to commit")
+    k6c = (ex_b, merged_b, zone_ok, ct_ok, cls_b.ports, vol_add, per_pod, cls_b.requests,
+           assigned, ft.host_ports, ft.volume_limits)
+    axis_line(records, "existing_phase", "lane_axis", "commit",
+              lambda: existing.existing_commit(*k6c), lambda: existing.existing_commit_twin(*k6c),
+              commit_bytes(*k6c), n_b * n_ex * (2 * ex.used.shape[-1] + 4),
+              B=n_b, rows=n_ex, selected=int((assigned > 0).sum()))
+    del ex_b, merged_b, k6m, k6c
+    torch.cuda.empty_cache()
 
 
 def carry_leaves(carry) -> dict:
@@ -1480,7 +1598,6 @@ def class_axis_records(records, cls, statics) -> None:
           vocab_ints, v, khb, torch.ones((n_c, n_t, n_z), **ones),
           torch.ones((n_c, n_t, n_ct), **ones), torch.ones((n_c, n_i, n_z, n_ct), **ones),
           daemon, cls.requests, alloc)
-    by_name = {rec["name"]: rec for rec in records}
     # the bytes the class planes need: each shared template and catalog
     # plane once (not its C copies), each class's row and requests, the
     # outputs; K1's all-true planes are constants the function does not need
@@ -1493,19 +1610,8 @@ def class_axis_records(records, cls, statics) -> None:
          shared_k1 + nbytes(tuple(merged), cls.requests) + n_c * n_t * (n_i * 5 + 4),
          n_c * n_t * n_i * (it.mask.shape[-2] * 6 + 12 + 4 * alloc.shape[-1])),
     ):
-        err = max_abs_err(fn(*args), plain(*args))
-        if err != 0.0:
-            fail(f"{name} over the class axis differs from its twin: {err}")
-        ms = time_ms(lambda: fn(*args))
-        dev_ms, queued = device_ms(lambda: fn(*args), ms)
-        by_name[name]["class_axis"] = {
-            "B": n_c, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": time_ms(lambda: plain(*args), 3), **bound(moved, ops),
-            "max_abs_err": err,
-        }
-        if not queued:
-            by_name[name]["class_axis"]["device_ms_queued"] = False
-        print(json.dumps({"class_axis": name, **by_name[name]["class_axis"]}), flush=True)
+        axis_line(records, name, "class_axis", None, lambda: fn(*args), lambda: plain(*args),
+                  moved, ops, B=n_c)
 
 
 def relax_path(records, path_launches) -> dict:
@@ -2426,7 +2532,7 @@ def replica_axis_inputs(last, cls, sa, khb, avail, n_b):
     chunk's final slot states (the last chunk's replicas, wrapped round to
     ``n_b``), class 0 merged into their requirement rows by K3, the shared
     catalog planes repeated and each replica's own availability, as
-    ``ops.chunks.solve_cells`` stacks them."""
+    ``ops.chunks.solve_cells`` stacks them; and those slots' pod counts."""
     from karpenter_core_tpu_torch.kernels import batch, reqmerge
     from karpenter_core_tpu_torch.ops import masks as mask_ops
 
@@ -2447,7 +2553,26 @@ def replica_axis_inputs(last, cls, sa, khb, avail, n_b):
     zone_ok = st.zone[idx] & cls.zone[0]
     ct_ok = st.ct[idx] & cls.ct[0]
     return (st.viable[idx], cls_it, merged, it, vocab_ints, v, khb, zone_ok, ct_ok,
-            avail[first + idx].contiguous(), st.used[idx], size, alloc)
+            avail[first + idx].contiguous(), st.used[idx], size, alloc), st.pod_count[idx]
+
+
+def replica_fill_record(records, k1_args, pod_count, count) -> None:
+    """K2 at the study's largest chunk: class 0's count filled over the caps
+    of K1's replica-axis record, emptiest slot first (pod count * N + slot,
+    as the scan packs it), held against its twin replica by replica and
+    timed; ``replica_axis`` in K2's record."""
+    from karpenter_core_tpu_torch.kernels import capacity, fill
+
+    n_b, n_slots = pod_count.shape
+    _, _, cap_n = capacity.it_capacity(*k1_args)
+    priority = pod_count * n_slots + torch.arange(n_slots, dtype=torch.int32, device="cuda")
+    priority = torch.where(cap_n > 0, priority, 2**31 - 1)
+    quota = torch.full((n_b,), max(int(count), 1000), dtype=torch.int32, device="cuda")
+    axis_line(records, "fill_priority", "replica_axis", None,
+              lambda: fill.fill_by_priority(quota, cap_n, priority),
+              lambda: fill.fill_by_priority_twin(quota, cap_n, priority),
+              nbytes(quota, cap_n, priority) + n_b * n_slots * 4, n_b * n_slots * 8, B=n_b,
+              kept=int((cap_n != 0).sum()))
 
 
 def replica_axis_record(records, k1_args) -> None:
@@ -2460,21 +2585,12 @@ def replica_axis_record(records, k1_args) -> None:
 
     n_b = k1_args[0].shape[0]
     t0 = time.perf_counter()
-    err = max_abs_err(capacity.it_capacity(*k1_args), capacity.it_capacity_twin(*k1_args))
-    if err != 0.0:
-        fail(f"it_capacity at B = {n_b} replicas differs from its twin: {err}")
-    fn = lambda: capacity.it_capacity(*k1_args)  # noqa: E731
-    ms = time_ms(fn)
-    dev_ms, queued = device_ms(fn, ms)
     moved, shared, ops = K1_WORK["solo"]
-    rec = {"B": n_b, "ms": ms, "device_ms": dev_ms,
-           "plain_ms": time_ms(lambda: capacity.it_capacity_twin(*k1_args), 3),
-           **bound(shared + n_b * (moved - shared), n_b * ops), "max_abs_err": err}
+    axis_line(records, "it_capacity", "replica_axis", None,
+              lambda: capacity.it_capacity(*k1_args), lambda: capacity.it_capacity_twin(*k1_args),
+              shared + n_b * (moved - shared), n_b * ops, B=n_b)
+    rec = next(r for r in records if r["name"] == "it_capacity")["replica_axis"]
     rec["record_s"] = time.perf_counter() - t0
-    if not queued:
-        rec["device_ms_queued"] = False
-    next(r for r in records if r["name"] == "it_capacity")["replica_axis"] = rec
-    print(json.dumps({"it_capacity_replica_axis": rec}), flush=True)
 
 
 def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches) -> None:
@@ -2598,11 +2714,12 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
         + priced * (n_it + n_z + n_ct) + 16 * n_b,
         priced * n_it * n_z * n_ct + n_b * n_cls * n_sl, plain_reps=3,
     )
-    k1_args = replica_axis_inputs(last, cls, sa, khb, avail, largest)
+    k1_args, pod_count = replica_axis_inputs(last, cls, sa, khb, avail, largest)
     del last, st
     torch.cuda.empty_cache()
     replica_axis_record(records, k1_args)
-    del k1_args
+    replica_fill_record(records, k1_args, pod_count, cls.count[0])
+    del k1_args, pod_count
     torch.cuda.empty_cache()
 
     # -- (d) the risk-weighted variants after the spot move --------------------
@@ -3167,6 +3284,15 @@ def main() -> None:
         nbytes(quota, cap_n, priority) + n_slots * 4,
         n_slots * 32 * 4,
     )
+    # K2 on a sorted input: the same caps with index priorities, the
+    # existing-node fills' form (no sort)
+    index_pri = torch.where(cap_n > 0, torch.arange(n_slots, dtype=torch.int32, device="cuda"),
+                            2**31 - 1)
+    axis_line(records, "fill_priority", "sorted_input", None,
+              lambda: fill.fill_by_priority(quota, cap_n, index_pri),
+              lambda: fill.fill_by_priority_plain(quota, cap_n, index_pri),
+              nbytes(quota, cap_n, index_pri) + n_slots * 4, n_slots * 8, plain_reps=20,
+              n=n_slots)
     # K2's multi-block path at N = 32,768: the main path's plane four times
     # over (duplicate priorities, so the sort's stability shows), then a
     # quota whose int32 prefix sums wrap

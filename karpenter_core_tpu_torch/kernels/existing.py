@@ -8,11 +8,14 @@ closed, key-incompatible, intolerant, outside the class's zones or capacity
 types, port-conflicting or volume-blocked.  Its source is
 ``csrc/existing_intake.cu``.
 
-``existing_mask`` and ``existing_commit`` (K6, two entry points of
-``csrc/existing_phase.cu``) are ``_phase_existing`` (:624) around its
-priority fill (K2): the caps and index priorities the fill takes, and the
+``existing_mask_fill``, ``existing_mask`` and ``existing_commit`` (K6,
+three entry points of ``csrc/existing_phase.cu``) are ``_phase_existing``
+(:624): the fused mask and priority fill of a phase without hole
+preferences (its assigned pods, their sum and the live zone mask, in one
+launch); the caps and index priorities alone, for the phases whose fill
+takes hole preferences (K2 twice, ``ops.solve._fill_with_pref``); and the
 existing-node state after the fill's pods land.  The zone-committal sweep
-uses the same two entry points for its existing-node fills and commit.
+uses the same entry points for its existing-node fills and commit.
 
 Each wrapper runs its plain torch twin for CPU tensors and launches its
 kernel for CUDA tensors; the twins are the CPU path and the kernels' oracle.
@@ -27,9 +30,11 @@ import torch
 
 from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED, to_i32
+from karpenter_core_tpu_torch.kernels.fill import fill_by_priority_plain
+from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
 
 intake_launches = 0  # K5 launches (CUDA path only)
-phase_launches = 0  # K6 launches, both entry points (CUDA path only)
+phase_launches = 0  # K6 launches, every entry point (CUDA path only)
 
 
 class ExistingState(NamedTuple):
@@ -214,14 +219,74 @@ def _existing_mask_cuda(prep_cap, zone, cls_zone, zone_restrict,
     return cap, priority, zone_ok
 
 
+def existing_mask_fill_plain(prep_cap, zone, cls_zone, zone_restrict,
+                             extra_elig: Optional[torch.Tensor], single_node: bool, quota):
+    """The plain torch version of K6's fused entry point: the mask, K2's
+    fill of ``quota`` and the int32 sum, (assigned i32[E], placed i32,
+    zone_ok bool[E, Z])."""
+    cap, priority, zone_ok = existing_mask_plain(prep_cap, zone, cls_zone, zone_restrict,
+                                                 extra_elig, single_node)
+    assigned = fill_by_priority_plain(quota, cap, priority)
+    return assigned, assigned.sum(dtype=torch.int32), zone_ok
+
+
+existing_mask_fill_twin = batch.tenantwise(
+    existing_mask_fill_plain, lambda prep_cap, *_: prep_cap.dim() == 1)
+
+
+def existing_mask_fill(prep_cap, zone, cls_zone, zone_restrict,
+                       extra_elig: Optional[torch.Tensor], single_node: bool, quota):
+    """K6 wrapper, fused entry point: one existing-node fill without hole
+    preferences, (assigned, placed, zone_ok).  ``quota`` is an int32 scalar
+    on the rows' device (read there; no host sync).  Every operand may carry
+    a leading tenant axis B (``quota`` and ``placed`` then [B])."""
+    args = (prep_cap, zone, cls_zone, zone_restrict, extra_elig, single_node, quota)
+    if prep_cap.device.type != "cuda":
+        return existing_mask_fill_twin(*args)
+    if prep_cap.dim() == 1:
+        return batch.drop_axis(_existing_mask_fill_cuda(*batch.add_axis(args)))
+    return _existing_mask_fill_cuda(*args)
+
+
+def _existing_mask_fill_cuda(prep_cap, zone, cls_zone, zone_restrict,
+                             extra_elig: Optional[torch.Tensor], single_node: bool, quota):
+    global phase_launches
+    dev = prep_cap.device
+    n_b, n, n_zones = zone.shape
+    b, i32 = torch.bool, torch.int32
+    for name, t, dt, shape in (
+        ("prep_cap", prep_cap, i32, (n_b, n)), ("zone", zone, b, (n_b, n, n_zones)),
+        ("cls_zone", cls_zone, b, (n_b, n_zones)),
+        ("zone_restrict", zone_restrict, b, (n_b, n_zones)), ("quota", quota, i32, (n_b,)),
+    ):
+        build.check_input(name, t, dt, shape, dev)
+    if extra_elig is not None:
+        build.check_input("extra_elig", extra_elig, b, (n_b, n), dev)
+    assigned = torch.empty((n_b, n), dtype=i32, device=dev)
+    zone_ok = torch.empty((n_b, n, n_zones), dtype=b, device=dev)
+    if n == 0:  # nothing to fill: the kernel would not write the sums
+        return assigned, torch.zeros(n_b, dtype=i32, device=dev), zone_ok
+    placed = torch.empty(n_b, dtype=i32, device=dev)
+    fn = build.function("existing_phase", "kc_existing_mask_fill",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 10)
+    rc = fn(n_b, n, n_zones, int(extra_elig is not None), int(single_node), prep_cap.data_ptr(),
+            zone.data_ptr(), cls_zone.data_ptr(), zone_restrict.data_ptr(),
+            extra_elig.data_ptr() if extra_elig is not None else 0, quota.data_ptr(),
+            assigned.data_ptr(), placed.data_ptr(), zone_ok.data_ptr(), build.stream(dev))
+    build.check(rc, "existing_phase (mask_fill)")
+    phase_launches += 1
+    return assigned, placed, zone_ok
+
+
 def existing_commit_plain(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
                           vol_per_pod, requests, assigned, host_ports: bool,
                           volume_limits: bool) -> ExistingState:
     """The plain torch version of K6's second entry point: the state after
-    ``assigned`` pods of the class land."""
+    ``assigned`` pods of the class land; ``used + assigned * req`` is one
+    fused multiply-add, as XLA's CPU code contracts it in the reference."""
     sel = (assigned > 0)[:, None]
     return ExistingState(
-        used=ex.used + assigned[:, None].to(torch.float32) * requests[None, :],
+        used=fma_f32(assigned[:, None].to(torch.float32), requests[None, :], ex.used),
         kmask=torch.where(sel[..., None], merged.mask, ex.kmask),
         kdef=torch.where(sel, merged.defined, ex.kdef),
         kneg=torch.where(sel, merged.negative, ex.kneg),

@@ -6,9 +6,12 @@ that accepts wins" of scheduler.go:183-190.  The sort must be STABLE — empty
 slots all share pod count 0, and ``jnp.argsort`` keeps their index order —
 and the cumsum stays int32 and wraps exactly as the reference's does.
 The CUDA source is ``csrc/fill_priority.cu``: one block up to
-``kc_fill_priority_max_n()`` = 16,384 slots, a multi-block sort, scan and
-scatter above it (any N, as the reference takes); one block a tenant, or
-one segment of the sort a tenant, under a leading tenant axis.
+``kc_fill_priority_max_n()`` = 16,384 slots (read once), which drops the
+zero caps, skips the sort when the kept priorities already run in index
+order and otherwise sorts only the kept slots over the key bits in use; a
+multi-block sort, scan and scatter above it (any N, as the reference
+takes); one block a tenant, or one segment of the sort a tenant, under a
+leading tenant axis.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from karpenter_core_tpu_torch.kernels import batch, build
 
 launches = 0  # kernel launches (CUDA path only)
+_max_n = None  # the one-block path's largest plane, read from the library once
 
 _ONE_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
 _MULTI_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
@@ -54,14 +58,16 @@ def fill_by_priority(quota: torch.Tensor, cap: torch.Tensor,
 
 
 def _fill_cuda(quota, cap, priority):
-    global launches
+    global launches, _max_n
     n_b, n = cap.shape
     for name, t, shape in (("quota", quota, (n_b,)), ("cap", cap, (n_b, n)),
                            ("priority", priority, (n_b, n))):
         build.check_input(name, t, torch.int32, shape, cap.device)
     out = torch.empty_like(cap)
     stream = build.stream(cap.device)
-    if n <= build.function("fill_priority", "kc_fill_priority_max_n", [])():
+    if _max_n is None:
+        _max_n = build.function("fill_priority", "kc_fill_priority_max_n", [])()
+    if n <= _max_n:
         fn = build.function("fill_priority", "kc_fill_priority", _ONE_ARGS)
         rc = fn(n_b, n, quota.data_ptr(), cap.data_ptr(), priority.data_ptr(), out.data_ptr(),
                 stream)

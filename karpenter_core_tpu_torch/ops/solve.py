@@ -16,8 +16,10 @@ Device work goes through seven hand-written CUDA kernels (``kernels/``):
   K3 ``merge_compat``     requirement merge + compatibility
   K4 ``pack_bool``        the decode fetch's bit-packing
   K5 ``existing_intake``  each existing node's intake of one class
-  K6 ``existing_mask`` / ``existing_commit``  an existing-node fill's caps
-                          and priorities, and the state commit after it
+  K6 ``existing_mask_fill`` / ``existing_mask`` / ``existing_commit``
+                          an existing-node fill (mask, fill and sum in one
+                          launch; or the caps and priorities alone, for a
+                          fill with hole preferences), and the state commit
   K7 ``spread_quota``     the zone-spread quota rounds (water-fill)
 
 A warm-start repair (``solver.incremental``) resumes the scan from a
@@ -227,18 +229,19 @@ class Kernels(NamedTuple):
     repair_free: object
     gather_window: object
     scatter_window: object
+    existing_mask_fill: object
 
 
 KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool,
                   k56.existing_intake, k56.existing_mask, k56.existing_commit,
                   k7.spread_quota, k1012.repair_free, k1012.gather_window,
-                  k1012.scatter_window)
+                  k1012.scatter_window, k56.existing_mask_fill)
 # the twins of the scan's kernels take the tenant axis as their wrappers do
 PLAIN = Kernels(k1.it_capacity_twin, k2.fill_by_priority_twin,
                 k3.merge_compat_twin, k4.pack_bool_plain, k56.existing_intake_twin,
                 k56.existing_mask_twin, k56.existing_commit_twin, k7.spread_quota_twin,
                 k1012.repair_free_plain, k1012.gather_window_plain,
-                k1012.scatter_window_plain)
+                k1012.scatter_window_plain, k56.existing_mask_fill_twin)
 
 
 class Statics(NamedTuple):
@@ -468,6 +471,19 @@ def _prep_existing(ex, ex_static, cls, statics, host_cap_vec, tol_row, vol_add_r
                        vol_add=vol_add_row, vol_per_pod=vol_per_pod_row)
 
 
+def _fill_existing(k: Kernels, prep_cap, zone, cls_zone, zone_restrict, extra_elig,
+                   single_node, quota, pref):
+    """(assigned, placed, zone_ok) of one existing-node fill: K6's fused
+    mask and fill, or with ``pref`` K6's caps and ``_fill_with_pref``."""
+    if pref is None:
+        return k.existing_mask_fill(prep_cap, zone, cls_zone, zone_restrict, extra_elig,
+                                    single_node, quota)
+    cap, priority, zone_ok = k.existing_mask(prep_cap, zone, cls_zone, zone_restrict,
+                                             extra_elig, single_node)
+    assigned = _fill_with_pref(k, quota, cap, priority, pref)
+    return assigned, _isum(assigned, dim=-1), zone_ok
+
+
 def _commit_existing(k: Kernels, ex, prep, cls, assigned, zone_new, ft):
     """The existing-node state after ``assigned`` pods of the class land (K6)."""
     return k.existing_commit(
@@ -479,12 +495,11 @@ def _commit_existing(k: Kernels, ex, prep, cls, assigned, zone_new, ft):
 def _phase_existing(ex, prep, cls, quota, zone_restrict, k: Kernels, extra_elig=None,
                     single_node=False, ft=ALL_FEATURES, pref=None):
     """Place up to ``quota`` pods of the class onto existing nodes in index
-    order (scheduler.go:176-180): K6's caps, K2's fill, K6's commit.  Zone
+    order (scheduler.go:176-180): K6's fused mask and fill (with hole
+    preferences, K6's caps and K2's fills), then K6's commit.  Zone
     eligibility reads the LIVE zone mask."""
-    cap, priority, zone_ok = k.existing_mask(prep.cap, ex.zone, cls.zone, zone_restrict,
-                                             extra_elig, single_node)
-    assigned = _fill_with_pref(k, quota, cap, priority, pref)
-    placed = _isum(assigned, dim=-1)
+    assigned, placed, zone_ok = _fill_existing(k, prep.cap, ex.zone, cls.zone, zone_restrict,
+                                               extra_elig, single_node, quota, pref)
     return _commit_existing(k, ex, prep, cls, assigned, zone_ok, ft), assigned, placed
 
 
@@ -859,13 +874,11 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             q = torch.clamp(torch.minimum(quota, cap_total - placed), min=0)
             # existing nodes first, in index order (scheduler.go:176-180);
             # rows that took pods in an earlier zone are out
-            cap_e, pri_e, _ = k.existing_mask(
-                ex_prep.cap, ex_i.zone, cls.zone,
+            a_ex, placed_ex, _ = _fill_existing(
+                k, ex_prep.cap, ex_i.zone, cls.zone,
                 zone_onehot[z].expand(n_b, n_zones).contiguous(),
-                ~taken_ex if ok_ex is None else ~taken_ex & ok_ex, False,
+                ~taken_ex if ok_ex is None else ~taken_ex & ok_ex, False, q, pref_ex,
             )
-            a_ex = _fill_with_pref(k, q, cap_e, pri_e, pref_ex)
-            placed_ex = _isum(a_ex, dim=-1)
             took_e = a_ex > 0
             taken_ex = taken_ex | took_e
             a_ex_acc = a_ex_acc + a_ex

@@ -94,6 +94,7 @@ PORT_KERNELS = {
     "pack_bool_kernel": "pack_bool",
     "existing_intake_kernel": "existing_intake",
     "existing_mask_kernel": "existing_phase (mask)",
+    "existing_mask_fill_kernel": "existing_phase (mask_fill)",
     "existing_commit_kernel": "existing_phase (commit)",
     "spread_quota_kernel": "spread_quota",
     "sweep_lanes_kernel": "sweep_lanes",

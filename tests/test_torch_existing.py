@@ -18,13 +18,19 @@ Three levels, each with no tolerance (ints and bools exact, f32 bit for bit):
   finite-capacity rounds of the zone-spread quota (K7's loop);
 - K7's twin, the quota rounds, against a transcription of the reference's
   loop (karpenter_core_tpu/ops/solve.py:1440-1475) under hypothesis, with
-  finite zone caps.
+  finite zone caps;
+- K6's fused entry point (``kernels.existing.existing_mask_fill``: the mask,
+  the priority fill and its sum) and the commit after it, through the
+  port's ``_phase_existing``, against the reference's ``_phase_existing``
+  (:624) on random planes, tenant by tenant: assigned, placed and every
+  leaf of the committed state.
 """
 
 import dataclasses
 import importlib.util
 import pathlib
 import random
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +53,10 @@ import karpenter_core_tpu_torch.state.cluster as tcluster
 import karpenter_core_tpu_torch.testing as ttesting
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.solver.tpu import TPUSolver
+from karpenter_core_tpu.ops import masks as jmasks
+from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import spread as k7
+from karpenter_core_tpu_torch.ops import masks as tmasks
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.solver.cuda import CudaSolver
 from karpenter_core_tpu_torch.testing import workloads
@@ -363,6 +372,44 @@ def test_solve_into_existing_cluster_matches_reference(seed):
     assert (solver.last_outputs.ex_state.used.numpy() <= alloc + 1e-4).all()
 
 
+
+@pytest.mark.parametrize("seed", (3, 11))
+def test_torch_existing_solve_non_binary_requests_match_reference(seed, monkeypatch):
+    """The same prepared planes through both whole solves, with cpu and
+    memory requests and the existing nodes' usage off binary fractions
+    (requests x 1.1, usage + tenths): every leaf bit for bit.  The reference's
+    jitted scan contracts the existing-node commit ``used + a * req`` into an
+    FMA, so the port's K6 commit takes one too; a commit that rounds twice
+    differs on these inputs."""
+    nodes, bound = workloads.build_cluster(60, 50, 5, 0.6, seed)
+    solver, pods = workloads.build_inputs(700, 50, 5, device="cpu")
+    js, jnodes, jbound, jpods = _reference_inputs(nodes, bound, pods, 50)
+    jprep = js.prepare_encoded(js.encode(jpods, jnodes, jbound), jnodes, jbound)
+    tprep = solver.prepare_encoded(solver.encode(pods, nodes, bound), nodes, bound)
+    rng = np.random.default_rng(seed)
+    # the third column is the pod count: its request stays 1, as every class's
+    requests = (np.asarray(jprep.cls.requests) * np.array([1.1, 1.1, 1.0], np.float32)
+                ).astype(np.float32)
+    used = np.asarray(jprep.ex_state.used)
+    used = np.where(used > 0, used + rng.integers(0, 10, used.shape) * np.float32(0.1),
+                    used).astype(np.float32)
+    jprep = jprep._replace(cls=jprep.cls._replace(requests=jnp.asarray(requests)),
+                           ex_state=jprep.ex_state._replace(used=jnp.asarray(used)))
+    tprep = tprep._replace(cls=tprep.cls._replace(requests=torch.as_tensor(requests)),
+                           ex_state=tprep.ex_state._replace(used=torch.as_tensor(used)))
+    jout = jax.device_get(js.run_prepared(jprep))
+    _assert_leaves_equal(jout, solver.run_prepared(tprep), f"seed {seed}")
+
+    def rounded_twice(ex, *args):
+        out = k56.existing_commit_plain(ex, *args)
+        a, req = args[7], args[6]
+        return out._replace(used=ex.used + a[:, None].to(torch.float32) * req[None, :])
+
+    monkeypatch.setattr(k56, "existing_commit_twin", k56.batch.tenantwise(
+        rounded_twice, lambda ex, *_: ex.used.dim() == 2))
+    twice = solver.run_prepared(tprep).ex_state.used.numpy()
+    assert (twice != np.asarray(jout.ex_state.used)).any()
+
 def _chip_smoke():
     """chip_smoke.py's module (its constants; nothing runs on import)."""
     spec = importlib.util.spec_from_file_location(
@@ -510,3 +557,122 @@ def test_spread_quota_rounds_match_reference(counts, allowed, fillable, caps, sk
         a = np.asarray(a)
         assert a.dtype == b.numpy().dtype, name
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+
+
+# -- K6's fused mask and fill, with the commit, against _phase_existing ---------
+
+
+def _phase_planes(rng, n, n_zones=3, k=4, words=2, n_res=3, n_ct=2, n_ports=4, n_csi=2,
+                  negative_cap=False):
+    """One tenant's random existing-node planes, merged planes and class
+    vectors for a phase, as numpy arrays."""
+    def b(shape, p):
+        return rng.random(shape) < p
+
+    def i(shape, lo, hi):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    def f(shape):
+        # tenths: `used + a * req` is inexact in f32, so an FMA and two
+        # roundings differ on some elements; XLA's CPU code contracts it
+        return (rng.integers(0, 64, shape) * np.float32(0.1)).astype(np.float32)
+
+    def req():
+        return (i((n, k, words), -2**31, 2**31 - 1), b((n, k), 0.6), b((n, k), 0.3), f((n, k)),
+                f((n, k)))
+
+    # cpu and memory in tenths; the third column is the pod count, whose
+    # request is always 1 (at R = 3 XLA's CPU code rounds that column twice,
+    # the others once: an FMA)
+    requests = (f(n_res) + np.float32(0.1)).astype(np.float32)
+    requests[2] = 1.0
+    cap = np.where(b(n, 0.4), i(n, 1, 9), 0).astype(np.int32)
+    if negative_cap:
+        cap[rng.integers(0, n, 2)] = -3
+    return dict(
+        ex=(f((n, n_res)), *req(), b((n, n_zones), 0.6), b((n, n_ct), 0.6), b((n, n_ports), 0.2),
+            i((n, n_csi), 0, 5), i(n, 0, 50), b(n, 0.8)),
+        merged=req(), cap=cap, ct_ok=b((n, n_ct), 0.5), vol_add=i((n, n_csi), 0, 3),
+        vol_per_pod=i(n_csi, 0, 3), cls_zone=b(n_zones, 0.8), requests=requests,
+        cls_ports=b(n_ports, 0.4), restrict=b(n_zones, 0.8), extra=b(n, 0.7),
+        quota=np.int32(rng.integers(0, 3 * n + 2)))
+
+
+class _PhaseCls(NamedTuple):
+    """The class vectors ``_phase_existing`` reads."""
+
+    zone: object
+    requests: object
+    ports: object
+
+
+_jax_phase_existing = jax.jit(jsolve._phase_existing, static_argnames=("single_node",))
+
+
+def _jax_phase(t, extra, single_node):
+    ex = jsolve.ExistingState(*(jnp.asarray(a) for a in t["ex"]))
+    prep = jsolve.ExClassPrep(
+        cap=jnp.asarray(t["cap"]), merged=jmasks.ReqTensor(*(jnp.asarray(a) for a in t["merged"])),
+        zone_full=None, ct_ok=jnp.asarray(t["ct_ok"]), vol_add=jnp.asarray(t["vol_add"]),
+        vol_per_pod=jnp.asarray(t["vol_per_pod"]))
+    cls = _PhaseCls(jnp.asarray(t["cls_zone"]), jnp.asarray(t["requests"]),
+                    jnp.asarray(t["cls_ports"]))
+    out = _jax_phase_existing(
+        ex, prep, cls, jnp.asarray(t["quota"]), jnp.asarray(t["restrict"]),
+        extra_elig=jnp.asarray(t["extra"]) if extra else None, single_node=single_node)
+    return jax.device_get(out)
+
+
+@pytest.mark.parametrize("use_kernels", (True, False))
+@pytest.mark.parametrize("extra,single_node,negative_cap", [
+    (False, False, False), (True, False, False), (False, True, False), (True, True, False),
+    (True, False, True), (False, True, True)])
+@pytest.mark.parametrize("n,n_b", [(1, 1), (37, 3), (300, 2)])
+def test_torch_phase_existing_mask_fill_matches_reference(n, n_b, extra, single_node,
+                                                          negative_cap, use_kernels):
+    rng = np.random.default_rng(n * 31 + n_b + 7 * extra + 3 * single_node + negative_cap)
+    tenants = [_phase_planes(rng, n, negative_cap=negative_cap) for _ in range(n_b)]
+    if single_node and n > 1:
+        tenants[0]["cap"][:] = 0  # no eligible row: the pin falls on row 0
+    if n > 1:
+        tenants[-1]["quota"] = np.int32(2**31 - 1)  # past every cap: the sums near the wrap
+
+    def stacked(key, i=None):
+        return torch.as_tensor(np.stack([t[key] if i is None else t[key][i] for t in tenants]))
+
+    ex = tsolve.ExistingState(*(stacked("ex", i) for i in range(12)))
+    prep = tsolve.ExClassPrep(
+        cap=stacked("cap"), merged=tmasks.ReqTensor(*(stacked("merged", i) for i in range(5))),
+        zone_full=None, ct_ok=stacked("ct_ok"), vol_add=stacked("vol_add"),
+        vol_per_pod=stacked("vol_per_pod"))
+    cls = _PhaseCls(stacked("cls_zone"), stacked("requests"), stacked("cls_ports"))
+    k = tsolve.KERNELS if use_kernels else tsolve.PLAIN
+    got_ex, got_a, got_placed = tsolve._phase_existing(
+        ex, prep, cls, stacked("quota"), stacked("restrict"), k,
+        extra_elig=stacked("extra") if extra else None, single_node=single_node)
+    for b_, t in enumerate(tenants):
+        want_ex, want_a, want_placed = _jax_phase(t, extra, single_node)
+        np.testing.assert_array_equal(got_a[b_].numpy(), np.asarray(want_a))
+        assert got_placed.dtype == torch.int32
+        assert int(got_placed[b_]) == int(want_placed)
+        for name in jsolve.ExistingState._fields:
+            a, w = _np(getattr(got_ex, name)[b_]), np.asarray(getattr(want_ex, name))
+            assert a.dtype == w.dtype, name
+            np.testing.assert_array_equal(a, w, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_torch_existing_mask_fill_twin_is_mask_fill_and_sum(seed):
+    """The fused entry's solo call (a 0-dim quota and placed, no tenant
+    axis) equals K6's caps, K2's fill and the int32 sum."""
+    rng = np.random.default_rng(100 + seed)
+    t = _phase_planes(rng, 64, negative_cap=seed % 2 == 1)
+    args = (torch.as_tensor(t["cap"]), torch.as_tensor(t["ex"][6]), torch.as_tensor(t["cls_zone"]),
+            torch.as_tensor(t["restrict"]), torch.as_tensor(t["extra"]) if seed < 2 else None,
+            seed == 3)
+    quota = torch.as_tensor(t["quota"])
+    assigned, placed, zone_ok = k56.existing_mask_fill(*args, quota)
+    cap, priority, want_zone_ok = k56.existing_mask_plain(*args)
+    want = tsolve.PLAIN.fill(quota, cap, priority)
+    assert torch.equal(assigned, want) and torch.equal(zone_ok, want_zone_ok)
+    assert placed.dtype == torch.int32 and int(placed) == int(want.sum(dtype=torch.int32))

@@ -114,12 +114,46 @@ def test_req_merge_matches_plain(card, n, k, v, bounds):
     _equal(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1025, 8192, 16384, 32768, 100003])
-def test_fill_priority_matches_plain(card, n):
+def _fill_case(rng, n, case):
+    """(cap, priority) of one K2 case, as numpy int32 planes: random caps and
+    few distinct priorities, or a shape the redesigned kernel branches on."""
+    cap = rng.integers(0, 5, n).astype(np.int32)
+    prio = rng.integers(0, 4, n).astype(np.int32)
+    if case in ("ordered", "ordered_but_last"):
+        # the existing-node fills' priorities: index order (ties included)
+        prio = np.sort(rng.integers(0, n, n)).astype(np.int32)
+        if case == "ordered_but_last":
+            last = np.flatnonzero(cap)[-1]
+            prio[last] = -1  # one kept entry out of order, at the end
+    elif case == "equal":
+        prio = np.full(n, 7, np.int32)
+    elif case == "span":
+        prio = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+        prio[:2] = (-2**31, 2**31 - 2)
+        cap[:2] = (1, 3)
+    elif case == "negative":
+        prio = rng.integers(-50, 5, n).astype(np.int32)
+        cap = rng.integers(-3, 5, n).astype(np.int32)
+    elif case == "zero":
+        cap[:] = 0
+    elif case == "one":
+        cap[:] = 0
+        cap[n // 2] = 4
+    if case not in ("span", "negative"):
+        prio = np.where(cap > 0, prio, 2**31 - 1).astype(np.int32)
+    return cap, prio
+
+
+@pytest.mark.parametrize("n,case", [
+    *(pytest.param(n, "", id=str(n)) for n in (1, 1023, 1025, 8192, 16384, 32768, 100003)),
+    (16, ""), (1024, ""),  # the lanes' and the churn window's planes
+    (8192, "ordered"), (8192, "ordered_but_last"), (8192, "equal"), (8192, "span"),
+    (8192, "negative"), (8192, "zero"), (8192, "one"), (40, "ordered_but_last"),
+    (1024, "span"), (16, "negative"), (100, ""), (513, "ordered"), (4097, "span"),
+])
+def test_fill_priority_matches_plain(card, n, case):
     rng = np.random.default_rng(n)
-    cap = torch.as_tensor(rng.integers(0, 5, n).astype(np.int32)).to(card)
-    prio = torch.as_tensor(rng.integers(0, 4, n).astype(np.int32)).to(card)
-    prio = torch.where(cap > 0, prio, 2**31 - 1)
+    cap, prio = (torch.as_tensor(a).to(card) for a in _fill_case(rng, n, case))
     pref = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32)).to(card)
     for quota in (0, n // 3, 3 * n):
         q = torch.tensor(quota, dtype=torch.int32, device=card)
@@ -168,22 +202,43 @@ def test_existing_intake_matches_plain(card, n, host_ports, volume_limits, zero_
     _equal(existing.existing_intake(*args), existing.existing_intake_plain(*args))
 
 
-@pytest.mark.parametrize("n,extra,single", [(6144, True, False), (6144, False, True),
-                                            (5000, True, True), (1, False, False)])
-def test_existing_mask_matches_plain(card, n, extra, single):
-    rng = np.random.default_rng(n)
-    cap = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(0, 9, n), 0)
-                          .astype(np.int32)).to(card)
+def _mask_args(rng, n, card, extra, single, negative=False):
+    cap = np.where(rng.random(n) < 0.3, rng.integers(0, 9, n), 0).astype(np.int32)
     zone = torch.as_tensor(rng.random((n, 3)) < 0.5).to(card)
-    args = (cap, zone, torch.tensor([True, True, False], device=card),
-            torch.tensor([True, False, True], device=card),
-            torch.as_tensor(rng.random(n) < 0.7).to(card) if extra else None, single)
+    extra_elig = torch.as_tensor(rng.random(n) < 0.7).to(card) if extra else None
+    if negative:
+        cap[rng.integers(0, n, 3)] = -2  # K5 never makes one; the twin takes it
+    return (torch.as_tensor(cap).to(card), zone, torch.tensor([True, True, False], device=card),
+            torch.tensor([True, False, True], device=card), extra_elig, single)
+
+
+@pytest.mark.parametrize("n,extra,single,negative", [
+    *(pytest.param(n, e, s, False, id=f"{n}-{e}-{s}") for n, e, s in (
+        (6144, True, False), (6144, False, True), (5000, True, True), (1, False, False))),
+    (6144, False, False, True), (5000, True, False, False), (1, True, True, False),
+    (6144, True, True, True), (2049, False, False, False),
+])
+def test_existing_mask_matches_plain(card, n, extra, single, negative):
+    """Both mask entry points: the caps and priorities, and the fused fill
+    (assigned, placed, zone_ok) at quotas below, at and past the caps' sum."""
+    args = _mask_args(np.random.default_rng(n), n, card, extra, single, negative)
     _equal(existing.existing_mask(*args), existing.existing_mask_plain(*args))
+    total = int(args[0].clamp(min=0).sum())
+    for quota in (0, total // 2, total, 2**31 - 1):
+        q = torch.tensor(quota, dtype=torch.int32, device=card)
+        _equal(existing.existing_mask_fill(*args, q), existing.existing_mask_fill_plain(*args, q))
 
 
-@pytest.mark.parametrize("n,host_ports,volume_limits", [(6144, True, True), (6144, True, False),
-                                                        (1, False, False)])
-def test_existing_commit_matches_plain(card, n, host_ports, volume_limits):
+@pytest.mark.parametrize("n,host_ports,volume_limits,sel", [
+    *(pytest.param(n, h, v, "", id=f"{n}-{h}-{v}") for n, h, v in (
+        (6144, True, True), (6144, True, False), (1, False, False))),
+    (6144, True, True, "all"), (6144, False, True, "none"),
+    (6144, True, True, "offset"), (777, False, False, "offset"),
+])
+def test_existing_commit_matches_plain(card, n, host_ports, volume_limits, sel):
+    """``sel``: every row selected, none, or (offset) every plane a view one
+    row into a larger one, so no plane is 16-byte aligned and the commit
+    takes narrower vectors."""
     rng = np.random.default_rng(n + 1)
     k, words = 8, 1
     rows = existing.ExistingState(
@@ -208,6 +263,13 @@ def test_existing_commit_matches_plain(card, n, host_ports, volume_limits):
             torch.tensor((0.1, 0.3, 1.0), dtype=torch.float32, device=card), assigned,
             host_ports, volume_limits)
     assert words == merged.mask.shape[-1]
+    if sel in ("all", "none"):
+        args = args[:8] + (assigned.clamp(min=1) if sel == "all" else 0 * assigned,) + args[9:]
+    elif sel == "offset":
+        def shifted(t):
+            return torch.cat([t[:1], t])[1:] if t.dim() >= 1 and t.shape[0] == n else t
+
+        args = tuple(batch.tree_map(shifted, a) for a in args)
     _equal(existing.existing_commit(*args), existing.existing_commit_plain(*args))
 
 
@@ -738,11 +800,28 @@ def _fill_args(rng, n, card, quota):
     return torch.tensor(quota, dtype=torch.int32, device=card), cap, prio
 
 
-@pytest.mark.parametrize("n_b", TENANTS)
-@pytest.mark.parametrize("n", [1025, 8192])
+@pytest.mark.parametrize("n_b,n", [
+    *(pytest.param(n_b, n, id=f"{n}-{n_b}") for n in (1025, 8192) for n_b in TENANTS),
+    (147, 8192),  # the what-if study's largest chunk
+    (64, 16),     # the consolidation lanes' slots
+])
 def test_fill_priority_tenant_axis_matches_plain(card, n_b, n):
     sets = [_fill_args(np.random.default_rng(400 + b), n, card, (0, n // 3, 3 * n)[b % 3])
             for b in range(n_b)]
+    _check_batched(fill.fill_by_priority, fill.fill_by_priority_plain, sets)
+
+
+@pytest.mark.parametrize("n_b,n", [(147, 8192), (8, 1024)])
+def test_fill_priority_tenant_axis_mixed_cases_matches_plain(card, n_b, n):
+    """Tenants of one launch on different paths: in order (no sort), one out
+    of order, a wide key range, every cap 0, one kept entry."""
+    cases = ("ordered", "ordered_but_last", "span", "zero", "one", "", "negative", "equal")
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(450 + b)
+        cap, prio = _fill_case(rng, n, cases[b % len(cases)])
+        sets.append((torch.tensor(int(rng.integers(0, 3 * n)), dtype=torch.int32, device=card),
+                     torch.as_tensor(cap).to(card), torch.as_tensor(prio).to(card)))
     _check_batched(fill.fill_by_priority, fill.fill_by_priority_plain, sets)
 
 
@@ -776,6 +855,59 @@ def test_existing_mask_tenant_axis_matches_plain(card, n_b, extra, single):
                      torch.as_tensor(rng.random(3) < 0.7).to(card),
                      torch.as_tensor(rng.random(n) < 0.7).to(card) if extra else None, single))
     _check_batched(existing.existing_mask, existing.existing_mask_plain, sets)
+
+
+@pytest.mark.parametrize("n_b,n,extra,single,negative", [
+    (8, 6144, True, False, False), (64, 6144, False, False, False), (64, 6144, True, False, True),
+    (8, 5000, False, True, False), (64, 5000, True, True, True), (8, 1, False, False, False),
+    (64, 1, True, True, False),
+])
+def test_existing_mask_fill_tenant_axis_matches_plain(card, n_b, n, extra, single, negative):
+    """K6's fused entry at the lanes' and tenants' B, each tenant its own
+    quota (0, within, or past its caps' sum)."""
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(750 + b)
+        args = _mask_args(rng, n, card, extra, single, negative)
+        total = int(args[0].clamp(min=0).sum())
+        quota = (0, total // 3, total, 2**31 - 1)[b % 4]
+        sets.append(args + (torch.tensor(quota, dtype=torch.int32, device=card),))
+    _check_batched(existing.existing_mask_fill, existing.existing_mask_fill_plain, sets)
+
+
+@pytest.mark.parametrize("sel", ["all", "none", "some"])
+def test_existing_commit_lanes_matches_plain(card, sel):
+    """The commit at the consolidation lanes' B = 64 x E = 6,144."""
+    n_b, n, k = 64, 6144, 8
+    rng = np.random.default_rng(880)
+    rows = existing.ExistingState(
+        torch.as_tensor((rng.integers(0, 64, (n_b, n, 3)) * 0.1).astype(np.float32)).to(card),
+        torch.as_tensor(rng.integers(-2**31, 2**31, (n_b, n, k, 1)).astype(np.int32)).to(card),
+        *(torch.as_tensor(rng.random((n_b, n, k)) < p).to(card) for p in (0.6, 0.3)),
+        *(torch.as_tensor(rng.integers(-3, 12, (n_b, n, k)).astype(np.float32)).to(card)
+          for _ in range(2)),
+        torch.as_tensor(rng.random((n_b, n, 3)) < 0.5).to(card),
+        torch.as_tensor(rng.random((n_b, n, 2)) < 0.5).to(card),
+        torch.as_tensor(rng.random((n_b, n, 4)) < 0.2).to(card),
+        torch.as_tensor(rng.integers(0, 5, (n_b, n, 2)).astype(np.int32)).to(card),
+        torch.as_tensor(rng.integers(0, 50, (n_b, n)).astype(np.int32)).to(card),
+        torch.as_tensor(rng.random((n_b, n)) < 0.8).to(card),
+    )
+    merged = mask_ops.ReqTensor(
+        torch.as_tensor(rng.integers(-2**31, 2**31, (n_b, n, k, 1)).astype(np.int32)).to(card),
+        *(torch.as_tensor(rng.random((n_b, n, k)) < p).to(card) for p in (0.6, 0.3)),
+        *(torch.as_tensor(rng.integers(-3, 12, (n_b, n, k)).astype(np.float32)).to(card)
+          for _ in range(2)))
+    assigned = {"all": rng.integers(1, 7, (n_b, n)), "none": np.zeros((n_b, n), np.int64),
+                "some": np.where(rng.random((n_b, n)) < 0.05, rng.integers(1, 7, (n_b, n)), 0)}
+    args = (rows, merged, torch.as_tensor(rng.random((n_b, n, 3)) < 0.5).to(card),
+            torch.as_tensor(rng.random((n_b, n, 2)) < 0.5).to(card),
+            torch.as_tensor(rng.random((n_b, 4)) < 0.5).to(card),
+            torch.as_tensor(rng.integers(0, 3, (n_b, n, 2)).astype(np.int32)).to(card),
+            torch.as_tensor(rng.integers(0, 3, (n_b, 2)).astype(np.int32)).to(card),
+            torch.as_tensor(rng.random((n_b, 3)).astype(np.float32)).to(card),
+            torch.as_tensor(assigned[sel].astype(np.int32)).to(card), True, True)
+    _equal(tuple(existing.existing_commit(*args)), tuple(existing.existing_commit_twin(*args)))
 
 
 @pytest.mark.parametrize("n_b", TENANTS)
