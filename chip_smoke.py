@@ -62,10 +62,11 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      equal the kernel run (``new_cost`` to rtol 1e-6, the one leaf whose f32
      sum the reference lets vary with reduction order), and three lanes of
      the coarse pass their solo ``solve_core``.  Then K8 and K9 against
-     their twins at this path's shapes, and K6 on the coarse pass's lanes
-     (B = 64 x the 6,144 existing rows, each lane's ``open_`` and counts
-     from K8): the fused mask and fill and the commit of that fill
-     (``lane_axis`` in K6's record).  Each run pinned to a fresh JAX
+     their twins at this path's shapes, and K3 and K6 on the coarse pass's
+     lanes (B = 64 x the 6,144 existing rows, each lane's ``open_`` and
+     counts from K8): K3's merge and its compat entry point, the fused mask
+     and fill and the commit of that fill (``lane_axis`` in K3's and K6's
+     records).  Each run pinned to a fresh JAX
      process's answer starts from an empty slot-count and feature-set
      history (``utils.compilecache.reset_memo``) and prints the slot counts
      it used.
@@ -167,8 +168,9 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      its 50,000 pods, replicas 0, 1, 511 and 1,023 must equal ``solve_core``
      run alone on their availability, and a chunk of 8 replicas must equal
      the twins' batch leaf for leaf; K19 (both modes, at [1,024, 1,000, 3,
-     2]) and K20 (on the study's last chunk) against their twins, and K1
-     and K2 at the largest chunk's B = 147 replicas (``replica_axis``); (d)
+     2]) and K20 (on the study's last chunk) against their twins, and K1,
+     K2, K3 and K7 at the largest chunk's B = 147 replicas
+     (``replica_axis``); (d)
      ``policy_monte_carlo`` at 1,024 replicas, seed 5, after the policy
      benchmark's spot move with every spot offering at interruption rate
      0.3: the same pins, with ``best_replica`` and ``expected_cost``
@@ -222,8 +224,9 @@ Prints the card's name and power limit, the kernel build time, one JSON
 line of kernel records (each with its launches on the tenant path,
 ``tenants``, and on the what-if paths, ``launches_per_path``; K1-K3 and
 K5-K7 with their batched entry points' lines at B = 8, ``tenant_axis``;
-K1 and K2 at the study's B = 147, ``replica_axis``; K2 on a sorted input,
-``sorted_input``; K6 on the consolidation lanes, ``lane_axis``; K19 with
+K1-K3 and K7 at the study's B = 147, ``replica_axis``; K2 on a sorted
+input, ``sorted_input``; K3 and K6 on the consolidation lanes,
+``lane_axis``, each with the shapes it ran; K19 with
 its risk-plane mode, ``risk_mode``), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Needs one card; refuses to
 run without one.
@@ -606,12 +609,14 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
 
 
 def axis_line(records, name, axis, entry, kernel_fn, plain_fn, moved, ops, plain_reps=3,
-              **extra):
+              timed=False, **extra):
     """Hold one more call of kernel ``name`` against its twin (exactly), time
     it as the kernel line's calls are (``ms``, ``device_ms``, ``plain_ms``),
     bound it from ``moved`` bytes and ``ops``, and file it under the kernel
     record's ``axis`` (``entry`` names it there, or None for the axis
-    itself); returns the kernel's outputs."""
+    itself), with the seconds the line took as ``record_s`` when ``timed``;
+    returns the kernel's outputs."""
+    t0 = time.perf_counter()
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -623,6 +628,8 @@ def axis_line(records, name, axis, entry, kernel_fn, plain_fn, moved, ops, plain
            "plain_ms": time_ms(plain_fn, plain_reps), **bound(moved, ops)}
     if not queued:
         rec["device_ms_queued"] = False
+    if timed:
+        rec["record_s"] = time.perf_counter() - t0
     owner = next(r for r in records if r["name"] == name)
     if entry is None:
         owner[axis] = rec
@@ -632,15 +639,17 @@ def axis_line(records, name, axis, entry, kernel_fn, plain_fn, moved, ops, plain
     return got
 
 
-def commit_bytes(ex, merged, zone_new, ct_ok, cls_ports, vol_add, per_pod, requests,
+def commit_bytes(ex, merge, zone_new, ct_ok, cls_ports, vol_add, per_pod, requests,
                  assigned, host_ports, volume_limits) -> int:
     """The bytes K6's commit must move: each state plane read once and
-    written once (a selected row reads its merged planes, ``zone_new`` and
-    ``ct_ok``, an unselected row its old ones: the same widths), the
-    requests and ``assigned`` read, the class's ports with host ports on,
-    and with volume limits on the per-pod vector and ``vol_add`` of the
-    selected rows only."""
-    moved = 2 * nbytes(ex[:-1]) + nbytes(requests, assigned)
+    written once (a selected row reads its own requirement planes, which it
+    merges with the class, and ``zone_new`` and ``ct_ok`` where an
+    unselected row reads its old zone and ct: the same widths), the class
+    row and vocabulary it merges with, the requests and ``assigned`` read,
+    the class's ports with host ports on, and with volume limits on the
+    per-pod vector and ``vol_add`` of the selected rows only."""
+    moved = 2 * nbytes(ex[:-1]) + nbytes(merge.cls, merge.valid, merge.vocab_ints, requests,
+                                         assigned)
     if host_ports:
         moved += nbytes(cls_ports)
     if volume_limits:
@@ -795,9 +804,10 @@ def existing_path(records, cold_launches):
     ex, ex_static = prep.ex_state, prep.ex_static
     ex = ex._replace(kmask=mask_ops.pack_mask(ex.kmask))
     n_ex = ex.used.shape[0]
-    merged, key_ok = reqmerge.merge_compat(
+    key_ok = reqmerge.req_compat(
         mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
         st.vocab_ints, st.is_custom, v, prep.key_has_bounds)
+    merge = reqmerge.ClassMerge(cls_req, st.valid, st.vocab_ints, v, prep.key_has_bounds)
     host_cap = torch.full((n_ex,), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
     k5 = (ex_static.alloc, ex.used, ex.open_, key_ok, ex_static.tol[c], ex.zone, cls.zone,
           ex.ct, cls.ct, ex.ports, cls.ports, ex_static.vol_limit, ex.vol_used,
@@ -824,7 +834,7 @@ def existing_path(records, cold_launches):
     quota = torch.clamp(cls.count, min=1)
     k6m = (cap, ex.zone, cls.zone, all_zones, None, False, quota)
     assigned, _, zone_ok = existing.existing_mask_fill(*k6m)
-    k6c = (ex, merged, zone_ok, ex.ct & cls.ct[None, :], cls.ports, ex_static.cls_vol_add[c],
+    k6c = (ex, merge, zone_ok, ex.ct & cls.ct[None, :], cls.ports, ex_static.cls_vol_add[c],
            ex_static.cls_vol_per_pod[c], cls.requests, assigned, ft.host_ports, ft.volume_limits)
     record_kernel(
         records, "existing_phase", "karpenter_core_tpu_torch/csrc/existing_phase.cu",
@@ -1114,13 +1124,15 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
 
 
 def lane_axis_records(records, prep, lane_open, lane_count) -> None:
-    """Phase 4: K6's fused mask and fill and its commit at the coarse pass's
-    lanes (B = 64) over phase 3's existing rows, stacked as the lanes stack
-    them: the shared planes repeated, each lane its own ``open_`` and class
-    counts (K8's outputs).  The class with the most pods over the lanes: its
-    intake a lane (K3, K5), the fill of its count, the commit of that fill;
-    each held exactly to its twin and timed (``lane_axis`` in K6's record).
-    The commit's bound counts the merged planes of the selected rows only."""
+    """Phase 4: K3's two entry points, K6's fused mask and fill and its
+    commit at the coarse pass's lanes (B = 64) over phase 3's existing rows,
+    stacked as the lanes stack them: the shared planes repeated, each lane
+    its own ``open_`` and class counts (K8's outputs).  The class with the
+    most pods over the lanes: its merge and compat (K3, both entry points,
+    over the 64 x E stacked rows), its intake a lane (K5), the fill of its
+    count, the commit of that fill (which merges the selected rows with the
+    class row); each held exactly to its twin and timed (``lane_axis`` in
+    K3's and K6's records)."""
     from karpenter_core_tpu_torch.kernels import batch, existing, reqmerge
     from karpenter_core_tpu_torch.ops import masks as mask_ops
     from karpenter_core_tpu_torch.ops import solve as solve_ops
@@ -1135,14 +1147,27 @@ def lane_axis_records(records, prep, lane_open, lane_count) -> None:
     cls_req = mask_ops.ReqTensor(cls.mask[None], cls.defined[None], cls.negative[None],
                                  cls.gt[None], cls.lt[None])
     ex, es = prep.ex_state, prep.ex_static
-    merged, key_ok = reqmerge.merge_compat(
-        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req,
-        mask_ops.pack_mask(st.valid), st.vocab_ints, st.is_custom, v, prep.key_has_bounds)
     host_cap = torch.full((n_ex,), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
-    ex_b, merged_b, key_ok_b, cls_b, es_b, host_cap_b = batch.repeat(
-        (ex, merged, key_ok, cls, (es.alloc, es.tol[c], es.vol_limit, es.cls_vol_add[c],
-                                   es.cls_vol_per_pod[c]), host_cap), n_b)
+    ex_b, cls_b, cls_req_b, valid_b, vocab_b, custom_b, es_b, host_cap_b = batch.repeat(
+        (ex, cls, cls_req, mask_ops.pack_mask(st.valid), st.vocab_ints, st.is_custom,
+         (es.alloc, es.tol[c], es.vol_limit, es.cls_vol_add[c], es.cls_vol_per_pod[c]),
+         host_cap), n_b)
     ex_b = ex_b._replace(open_=lane_open.contiguous())
+    khb = prep.key_has_bounds
+    k3 = (mask_ops.ReqTensor(ex_b.kmask, ex_b.kdef, ex_b.kneg, ex_b.kgt, ex_b.klt), cls_req_b,
+          valid_b, vocab_b, custom_b, v, khb)
+    n_keys, n_words = ex.kmask.shape[-2:]
+    shapes = dict(B=n_b, rows=n_ex, K=n_keys, W=n_words, V=st.vocab_ints.shape[-1])
+    # each row's five planes read once (and, merging, written once), the
+    # class row and vocabulary of each lane read, compat written
+    rows_bytes, class_bytes = nbytes(k3[0]), nbytes(*k3[1:5])
+    axis_line(records, "req_merge", "lane_axis", "merge_compat",
+              lambda: reqmerge.merge_compat(*k3), lambda: reqmerge.merge_compat_twin(*k3),
+              2 * rows_bytes + class_bytes + n_b * n_ex, n_b * n_ex * n_keys * 16, **shapes)
+    key_ok_b = axis_line(records, "req_merge", "lane_axis", "req_compat",
+                         lambda: reqmerge.req_compat(*k3), lambda: reqmerge.req_compat_twin(*k3),
+                         rows_bytes + class_bytes + n_b * n_ex, n_b * n_ex * n_keys * 12,
+                         **shapes)
     alloc, tol, vol_limit, vol_add, per_pod = es_b
     cap, _, ct_ok = existing.existing_intake(
         alloc, ex_b.used, ex_b.open_, key_ok_b, tol, ex_b.zone, cls_b.zone, ex_b.ct, cls_b.ct,
@@ -1159,13 +1184,15 @@ def lane_axis_records(records, prep, lane_open, lane_count) -> None:
         B=n_b, rows=n_ex, cls=c)
     if not bool((assigned > 0).any()):
         fail("existing_phase lane axis: the fill placed nothing to commit")
-    k6c = (ex_b, merged_b, zone_ok, ct_ok, cls_b.ports, vol_add, per_pod, cls_b.requests,
-           assigned, ft.host_ports, ft.volume_limits)
+    k6c = (ex_b, reqmerge.ClassMerge(cls_req_b, valid_b, vocab_b, v, khb), zone_ok, ct_ok,
+           cls_b.ports, vol_add, per_pod, cls_b.requests, assigned, ft.host_ports,
+           ft.volume_limits)
+    selected = int((assigned > 0).sum())
     axis_line(records, "existing_phase", "lane_axis", "commit",
               lambda: existing.existing_commit(*k6c), lambda: existing.existing_commit_twin(*k6c),
-              commit_bytes(*k6c), n_b * n_ex * (2 * ex.used.shape[-1] + 4),
-              B=n_b, rows=n_ex, selected=int((assigned > 0).sum()))
-    del ex_b, merged_b, k6m, k6c
+              commit_bytes(*k6c), n_b * n_ex * (2 * ex.used.shape[-1] + 4) + selected * n_keys * 16,
+              B=n_b, rows=n_ex, selected=selected)
+    del ex_b, k3, k6m, k6c
     torch.cuda.empty_cache()
 
 
@@ -2237,9 +2264,10 @@ def fleet_kernel_lines(records, path_launches, preps) -> None:
     ex = ex._replace(kmask=mask_ops.pack_mask(ex.kmask))
     es = solve_ops.ExistingStatic(*stacked([p.ex_static for p in preps]))
     n_ex, n_zones = ex.used.shape[1], ex.zone.shape[-1]
-    merged, key_ok = reqmerge.merge_compat(
+    key_ok = reqmerge.req_compat(
         mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
         st.vocab_ints, st.is_custom, v, preps[0].key_has_bounds)
+    merge = reqmerge.ClassMerge(cls_req, st.valid, st.vocab_ints, v, preps[0].key_has_bounds)
     host_cap = torch.full((n_b, n_ex), solve_ops.UNLIMITED, dtype=torch.int32, device="cuda")
     vol_add, vol_per_pod = es.cls_vol_add[:, 0].contiguous(), es.cls_vol_per_pod[:, 0].contiguous()
     k5 = (es.alloc, ex.used, ex.open_, key_ok, es.tol[:, 0].contiguous(), ex.zone, cls.zone,
@@ -2262,7 +2290,7 @@ def fleet_kernel_lines(records, path_launches, preps) -> None:
     assigned = fill.fill_by_priority(torch.clamp(cls.count, min=1), cap_m, pri_m)
     if not bool((assigned > 0).any()):
         fail("existing_commit on the fleets: the fill placed nothing to commit")
-    k6c = (ex, merged, zone_ok, ex.ct & cls.ct[:, None, :], cls.ports, vol_add, vol_per_pod,
+    k6c = (ex, merge, zone_ok, ex.ct & cls.ct[:, None, :], cls.ports, vol_add, vol_per_pod,
            cls.requests, assigned, True, True)
     line("existing_phase", "existing_commit_fleets", lambda: existing.existing_commit(*k6c),
          lambda: existing.existing_commit_twin(*k6c), nbytes(*k6c[:9]) * 2, n_b * n_ex * 64)
@@ -2346,10 +2374,8 @@ def tenant_kernel_lines(records, worlds, preps, path_launches) -> None:
     line("existing_phase", "existing_mask", existing_mask, existing_mask_plain,
          nbytes(cap_e, ex.zone, cls0.zone, restrict) + n_b * n_ex * 8, n_b * n_ex * 16)
     assigned = torch.zeros((n_b, n_ex), dtype=torch.int32, device="cuda")
-    ex_merged, _ = reqmerge.merge_compat(
-        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls_req, st.valid,
-        st.vocab_ints, st.is_custom, v, khb)
-    k6c = (ex, ex_merged, ex.zone, ct_e, cls0.ports, es.cls_vol_add[:, 0].contiguous(),
+    k6c = (ex, reqmerge.ClassMerge(cls_req, st.valid, st.vocab_ints, v, khb), ex.zone, ct_e,
+           cls0.ports, es.cls_vol_add[:, 0].contiguous(),
            es.cls_vol_per_pod[:, 0].contiguous(), cls0.requests, assigned, True, True)
 
     def existing_commit():
@@ -2527,12 +2553,14 @@ def sampled_solos(snapshot, avail, study, n_slots, it_price, label):
           flush=True)
 
 
-def replica_axis_inputs(last, cls, sa, khb, avail, n_b):
+def replica_axis_inputs(records, last, cls, sa, khb, avail, n_b):
     """K1's operands at the study's largest chunk, B = ``n_b`` replicas: a
     chunk's final slot states (the last chunk's replicas, wrapped round to
     ``n_b``), class 0 merged into their requirement rows by K3, the shared
     catalog planes repeated and each replica's own availability, as
-    ``ops.chunks.solve_cells`` stacks them; and those slots' pod counts."""
+    ``ops.chunks.solve_cells`` stacks them; and those slots' pod counts.
+    That merge is held exactly to its twin replica by replica and timed
+    (``replica_axis`` in K3's record, with the shapes it ran)."""
     from karpenter_core_tpu_torch.kernels import batch, reqmerge
     from karpenter_core_tpu_torch.ops import masks as mask_ops
 
@@ -2549,7 +2577,13 @@ def replica_axis_inputs(last, cls, sa, khb, avail, n_b):
          sa.it_alloc, cls.it[0], cls.requests[0], cls_req), n_b)
     node_req = mask_ops.ReqTensor(*(t[idx] for t in (st.kmask, st.kdef, st.kneg, st.kgt,
                                                      st.klt)))
-    merged, _ = reqmerge.merge_compat(node_req, cls_req, valid, vocab_ints, is_custom, v, khb)
+    k3 = (node_req, cls_req, valid, vocab_ints, is_custom, v, khb)
+    n_slots, n_keys, n_words = st.kmask.shape[1:]
+    merged, _ = axis_line(
+        records, "req_merge", "replica_axis", None, lambda: reqmerge.merge_compat(*k3),
+        lambda: reqmerge.merge_compat_twin(*k3),
+        2 * nbytes(node_req) + nbytes(*k3[1:5]) + n_b * n_slots, n_b * n_slots * n_keys * 16,
+        B=n_b, rows=n_slots, K=n_keys, W=n_words, V=vocab_ints.shape[-1])
     zone_ok = st.zone[idx] & cls.zone[0]
     ct_ok = st.ct[idx] & cls.ct[0]
     return (st.viable[idx], cls_it, merged, it, vocab_ints, v, khb, zone_ok, ct_ok,
@@ -2575,6 +2609,38 @@ def replica_fill_record(records, k1_args, pod_count, count) -> None:
               kept=int((cap_n != 0).sum()))
 
 
+def quota_replica_record(records, last, cls, sa, n_b) -> None:
+    """K7 at the study's largest chunk, B = ``n_b`` replicas (the last
+    chunk's, wrapped round): the quota rounds of the study's first
+    zone-spread class against each replica's final slots, its group's
+    members counted on the slots committed to one zone (as the scan counts
+    them), its zones, skew, pod count and membership, caps UNLIMITED (no
+    existing node); held exactly to its twin replica by replica and timed
+    (``replica_axis`` in K7's record, with its shapes)."""
+    from karpenter_core_tpu_torch.kernels import batch, spread
+
+    g_dummy = sa.grp_skew.shape[0] - 1
+    spread_cls = [c for c in range(cls.count.shape[0]) if int(cls.groups[c, 0]) < g_dummy]
+    if not spread_cls:
+        fail("spread_quota replica axis: the study has no zone-spread class")
+    c = spread_cls[0]
+    g = int(cls.groups[c, 0])
+    st = last.state
+    idx = torch.arange(n_b, device="cuda") % st.zone.shape[0]
+    zone_i = (st.zone[idx] & st.open_[idx][..., None]).to(torch.int32)
+    single = torch.where(zone_i.sum(dim=-1, dtype=torch.int32)[..., None] == 1, zone_i, 0)
+    counts = (last.topo.fwd_new[idx, g][..., None] * single).sum(dim=1, dtype=torch.int32)
+    n_zones = counts.shape[-1]
+    k7 = (counts.contiguous(),) + batch.repeat(
+        (cls.zone[c], torch.ones(n_zones, dtype=torch.bool, device="cuda"),
+         torch.full((n_zones,), 1 << 30, dtype=torch.int32, device="cuda"), sa.grp_skew[g],
+         cls.count[c], sa.grp_member[c, g]), n_b)
+    axis_line(records, "spread_quota", "replica_axis", None, lambda: spread.spread_quota(*k7),
+              lambda: spread.spread_quota_twin(*k7), nbytes(*k7) + n_b * (n_zones * 5 + 5),
+              n_b * (n_zones + 1) * (n_zones * n_zones + 30 * n_zones), plain_reps=1, B=n_b,
+              Z=n_zones, cls=c, m=int(cls.count[c]))
+
+
 def replica_axis_record(records, k1_args) -> None:
     """K1 at the study's largest chunk, held against its twin replica by
     replica and timed (``ms``, ``device_ms``); its bound from the solo
@@ -2584,13 +2650,10 @@ def replica_axis_record(records, k1_args) -> None:
     from karpenter_core_tpu_torch.kernels import capacity
 
     n_b = k1_args[0].shape[0]
-    t0 = time.perf_counter()
     moved, shared, ops = K1_WORK["solo"]
     axis_line(records, "it_capacity", "replica_axis", None,
               lambda: capacity.it_capacity(*k1_args), lambda: capacity.it_capacity_twin(*k1_args),
-              shared + n_b * (moved - shared), n_b * ops, B=n_b)
-    rec = next(r for r in records if r["name"] == "it_capacity")["replica_axis"]
-    rec["record_s"] = time.perf_counter() - t0
+              shared + n_b * (moved - shared), n_b * ops, timed=True, B=n_b)
 
 
 def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches) -> None:
@@ -2714,7 +2777,8 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
         + priced * (n_it + n_z + n_ct) + 16 * n_b,
         priced * n_it * n_z * n_ct + n_b * n_cls * n_sl, plain_reps=3,
     )
-    k1_args, pod_count = replica_axis_inputs(last, cls, sa, khb, avail, largest)
+    k1_args, pod_count = replica_axis_inputs(records, last, cls, sa, khb, avail, largest)
+    quota_replica_record(records, last, cls, sa, largest)
     del last, st
     torch.cuda.empty_cache()
     replica_axis_record(records, k1_args)

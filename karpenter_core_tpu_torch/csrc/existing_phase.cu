@@ -18,8 +18,9 @@
 // kc_existing_commit — the existing-node state after `assigned` pods of the
 //   class land (`_phase_existing`'s tail and the committal block's commit):
 //   used += assigned * req                   (every row, as the reference)
-//   rows with assigned > 0: requirement planes <- merged (K3's output),
-//   zone <- zone_new, ct <- ct_ok, ports |= cls_ports (host ports on),
+//   rows with assigned > 0: requirement planes <- the row merged with the
+//   class row (req_merge.cuh, K3's row code), zone <- zone_new,
+//   ct <- ct_ok, ports |= cls_ports (host ports on),
 //   vol_used += vol_add + assigned * per_pod (volume limits on)
 //   pod_count += assigned
 //
@@ -51,17 +52,23 @@
 //
 // kc_existing_commit: bound by bytes.  At the lanes' B = 64 x E = 6,144 it
 // reads and writes every state plane (about 0.29 KB a row) and reads the
-// merged planes of the selected rows only.  The planes are walked flat as
-// one index space of vectors, a grid-stride loop over it with the grid
-// sized to the card: each select plane (the requirement planes, zone, ct,
-// and ports / vol_used when their feature is off) in the widest vector of
-// 16, 8, 4, 2 or 1 bytes that divides its row and its pointers' alignment,
-// so a warp reads and writes whole contiguous segments; a vector's row is
-// its index / the row's vectors, and the row's `assigned` (an L1 hit) picks
-// the merged or the old plane, so only one of them is read.  `used`,
-// `pod_count`, `ports` and `vol_used` (features on) go element by element,
-// also coalesced.  Out of place: every output plane is written and no input
-// is changed (the reference's `_phase_existing` is functional; callers keep
+// tenant's class row and vocabulary (a few hundred bytes).  The merge of a
+// selected row happens here, not in K3 at the class's start: the merge is
+// idempotent and within one class step a row changes only through this
+// class's commits, so merging the row as it stands gives what merging it
+// at the class's start gives, and K3 need not write merged planes for
+// every row.  The planes are walked flat as one index space, a grid-stride
+// loop over it with the grid sized to the card: the requirement planes a
+// whole row a unit (merged or copied; the (8, 1) rows as vectors in
+// registers, req_merge.cuh), each other select plane (zone, ct, and ports
+// / vol_used when their feature is off) in the widest vector of 16, 8, 4,
+// 2 or 1 bytes that divides its row and its pointers' alignment, so a warp
+// reads and writes whole contiguous segments; a vector's row is its index
+// / the row's vectors, and the row's `assigned` (an L1 hit) picks the new
+// or the old plane, so only one of them is read.  `used`, `pod_count`,
+// `ports` and `vol_used` (features on) go element by element, also
+// coalesced.  Out of place: every output plane is written and no input is
+// changed (the reference's `_phase_existing` is functional; callers keep
 // the old state).
 //
 // Arithmetic matches the reference bit for bit: `used + assigned * req` is
@@ -74,13 +81,15 @@
 // ptxas (sm_90a, -O3 -Xptxas -v): existing_mask_fill_kernel<512, Z> 53-64
 // registers, no spill, 2,224 bytes of static shared memory (its scan) and Z
 // dynamic; the one-warp <32, Z> 64-71 registers, up to 24 bytes of spill;
-// existing_commit_kernel 22 registers, no spill (its plane table stays in
+// existing_commit_kernel 95 registers, no spill (its plane table stays in
 // the constant bank, __grid_constant__); existing_mask_kernel 26.
 
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "req_merge.cuh"
 
 namespace {
 
@@ -349,7 +358,8 @@ __global__ void __launch_bounds__(kMaskThreads) existing_mask_kernel(
 // -- the commit ------------------------------------------------------------------
 
 enum PlaneKind : int {
-  kSelect = 0,       // vectors within a row: the row's pick of merged or old
+  kReqRows = 7,      // whole rows of the five requirement planes: merged or copied
+  kSelect = 0,       // vectors within a row: the row's pick of new or old
   kSelectWords = 1,  // 4-byte words across rows narrower than 4 bytes: a pick a byte
   kUsed = 2,
   kPodCount = 3,
@@ -381,7 +391,45 @@ struct CommitParams {
   const float* req;          // [B, R]
   const uint8_t* cls_ports;  // [B, P]
   const int32_t* per_pod;    // [B, D]
+  // the requirement planes (kReqRows): the rows, the class row and the
+  // vocabulary they merge with, and the (8, 1) vector path
+  kc::MergeShape ms;
+  int fixed;
+  kc::RowIn rows_in;      // [B, E, K, W] and [B, E, K]
+  kc::RowOut rows_out;
+  const uint32_t* c_mask;      // [B, K, W]
+  const uint8_t* c_def;        // [B, K]
+  const uint8_t* c_neg;
+  const float* c_gt;
+  const float* c_lt;
+  const uint32_t* valid;       // [B, K, W]
+  const uint32_t* vocab_w;     // [W]
+  const float* vocab_ints;     // [B, K, V]
 };
+
+// one row's requirement planes: merged with its tenant's class row where
+// the row took pods (K3's row code), copied where it did not
+__device__ __forceinline__ void commit_req_row(const CommitParams& P, uint32_t row) {
+  const int n_keys = P.ms.n_keys;
+  const size_t kw = static_cast<size_t>(n_keys) * P.ms.n_words;
+  const size_t tb = row / static_cast<uint32_t>(P.n_rows);
+  const kc::ClassOps c{P.c_mask + tb * kw, P.c_def + tb * n_keys, P.c_neg + tb * n_keys,
+                       P.c_gt + tb * n_keys, P.c_lt + tb * n_keys, P.valid + tb * kw, P.vocab_w,
+                       P.vocab_ints + tb * n_keys * static_cast<size_t>(P.ms.n_vocab), nullptr};
+  const size_t r = row;
+  const kc::RowIn in{P.rows_in.mask + r * kw, P.rows_in.def + r * n_keys,
+                     P.rows_in.neg + r * n_keys, P.rows_in.gt + r * n_keys,
+                     P.rows_in.lt + r * n_keys};
+  const kc::RowOut out{P.rows_out.mask + r * kw, P.rows_out.def + r * n_keys,
+                       P.rows_out.neg + r * n_keys, P.rows_out.gt + r * n_keys,
+                       P.rows_out.lt + r * n_keys};
+  const bool take = P.assigned[row] > 0;
+  if (P.fixed) {
+    kc::merge_row<8, 1, true, false>(P.ms, c, in, out, take);
+  } else {
+    kc::merge_row<0, 0, true, false>(P.ms, c, in, out, take);
+  }
+}
 
 template <typename V>
 __device__ __forceinline__ void select_unit(const Plane& p, uint32_t u, const int32_t* assigned) {
@@ -401,6 +449,9 @@ __global__ void __launch_bounds__(kCommitThreads) existing_commit_kernel(
     const Plane& p = P.plane[k];
     const uint32_t u = g - (k == 0 ? 0u : P.plane[k - 1].end);
     switch (p.kind) {
+      case kReqRows:
+        commit_req_row(P, u);
+        break;
       case kSelect:
         switch (p.vec) {
           case 16: select_unit<uint4>(p, u, P.assigned); break;
@@ -589,12 +640,14 @@ extern "C" int kc_existing_mask(int n_batch, int n_rows, int n_zones, int has_ex
 }
 
 extern "C" int kc_existing_commit(
-    int n_batch, int n_rows, int n_res, int n_kw, int n_keys, int n_zones, int n_ct, int n_ports,
-    int n_csi, int host_ports, int volume_limits,
+    int n_batch, int n_rows, int n_res, int n_keys, int n_words, int n_vocab, int other_word,
+    int other_bitpos, int needs_bounds, int n_zones, int n_ct, int n_ports, int n_csi,
+    int host_ports, int volume_limits,
     const void* used, const void* kmask, const void* kdef, const void* kneg,
     const void* kgt, const void* klt, const void* zone, const void* ct, const void* ports,
-    const void* vol_used, const void* pod_count, const void* m_mask, const void* m_def,
-    const void* m_neg, const void* m_gt, const void* m_lt, const void* zone_new,
+    const void* vol_used, const void* pod_count, const void* c_mask, const void* c_def,
+    const void* c_neg, const void* c_gt, const void* c_lt, const void* valid,
+    const void* vocab_w, const void* vocab_ints, const void* zone_new,
     const void* ct_ok, const void* cls_ports, const void* vol_add, const void* per_pod,
     const void* req, const void* assigned, void* used_out, void* kmask_out,
     void* kdef_out, void* kneg_out, void* kgt_out, void* klt_out, void* zone_out,
@@ -602,18 +655,34 @@ extern "C" int kc_existing_commit(
     void* stream) {
   const long long rows = static_cast<long long>(n_batch) * n_rows;
   if (rows <= 0) return 0;
+  if (n_keys < 1 || n_words < 1) return static_cast<int>(cudaErrorInvalidValue);
   CommitPlan b;
   b.P.n_rows = n_rows;
   b.P.assigned = static_cast<const int32_t*>(assigned);
   b.P.req = static_cast<const float*>(req);
   b.P.cls_ports = static_cast<const uint8_t*>(cls_ports);
   b.P.per_pod = static_cast<const int32_t*>(per_pod);
+  b.P.ms = kc::MergeShape{n_keys, n_words, n_vocab, other_word, other_bitpos, needs_bounds};
+  b.P.rows_in = kc::RowIn{static_cast<const uint32_t*>(kmask), static_cast<const uint8_t*>(kdef),
+                          static_cast<const uint8_t*>(kneg), static_cast<const float*>(kgt),
+                          static_cast<const float*>(klt)};
+  b.P.rows_out = kc::RowOut{static_cast<uint32_t*>(kmask_out), static_cast<uint8_t*>(kdef_out),
+                            static_cast<uint8_t*>(kneg_out), static_cast<float*>(kgt_out),
+                            static_cast<float*>(klt_out)};
+  b.P.c_mask = static_cast<const uint32_t*>(c_mask);
+  b.P.c_def = static_cast<const uint8_t*>(c_def);
+  b.P.c_neg = static_cast<const uint8_t*>(c_neg);
+  b.P.c_gt = static_cast<const float*>(c_gt);
+  b.P.c_lt = static_cast<const float*>(c_lt);
+  b.P.valid = static_cast<const uint32_t*>(valid);
+  b.P.vocab_w = static_cast<const uint32_t*>(vocab_w);
+  b.P.vocab_ints = static_cast<const float*>(vocab_ints);
+  // the (8, 1) vector path: the row planes start on 16-byte boundaries
+  b.P.fixed = n_keys == 8 && n_words == 1 && aligned(16, kmask, kdef, kneg) &&
+              aligned(16, kgt, klt, kmask_out) && aligned(16, kdef_out, kneg_out, kgt_out) &&
+              aligned(16, klt_out, klt_out, klt_out);
   // the widest planes first: their warps stay whole
-  b.select(rows, 4LL * n_kw, kmask, m_mask, kmask_out);
-  b.select(rows, 4LL * n_keys, kgt, m_gt, kgt_out);
-  b.select(rows, 4LL * n_keys, klt, m_lt, klt_out);
-  b.select(rows, n_keys, kdef, m_def, kdef_out);
-  b.select(rows, n_keys, kneg, m_neg, kneg_out);
+  b.add(kReqRows, 0, rows, 1, nullptr, nullptr, nullptr, nullptr);
   b.select(rows, n_zones, zone, zone_new, zone_out);
   b.select(rows, n_ct, ct, ct_ok, ct_out);
   b.add(kUsed, 4, rows * n_res, n_res, used, nullptr, nullptr, used_out);

@@ -1,8 +1,9 @@
 """K5 and K6: the existing-node half of a class step.
 
 ``existing_intake`` (K5) is ``_prep_existing``
-(karpenter_core_tpu/ops/solve.py:548) without its requirement merge, which
-is K3: each existing node's intake of one class — the resource fit, the
+(karpenter_core_tpu/ops/solve.py:548) without its key compatibility (K3's
+compat entry point) and its requirement merge (K6's commit): each existing
+node's intake of one class — the resource fit, the
 host-port and CSI attach caps and the hostname cap — and 0 where the node is
 closed, key-incompatible, intolerant, outside the class's zones or capacity
 types, port-conflicting or volume-blocked.  Its source is
@@ -14,7 +15,8 @@ three entry points of ``csrc/existing_phase.cu``) are ``_phase_existing``
 preferences (its assigned pods, their sum and the live zone mask, in one
 launch); the caps and index priorities alone, for the phases whose fill
 takes hole preferences (K2 twice, ``ops.solve._fill_with_pref``); and the
-existing-node state after the fill's pods land.  The zone-committal sweep
+existing-node state after the fill's pods land, each row that took pods
+merged with the class (``reqmerge.ClassMerge``; the row code is K3's).  The zone-committal sweep
 uses the same entry points for its existing-node fills and commit.
 
 Each wrapper runs its plain torch twin for CPU tensors and launches its
@@ -28,10 +30,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from karpenter_core_tpu_torch.kernels import batch, build
+from karpenter_core_tpu_torch.kernels import batch, build, reqmerge
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED, to_i32
 from karpenter_core_tpu_torch.kernels.fill import fill_by_priority_plain
 from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
+from karpenter_core_tpu_torch.ops import masks as mask_ops
 
 intake_launches = 0  # K5 launches (CUDA path only)
 phase_launches = 0  # K6 launches, every entry point (CUDA path only)
@@ -278,13 +281,17 @@ def _existing_mask_fill_cuda(prep_cap, zone, cls_zone, zone_restrict,
     return assigned, placed, zone_ok
 
 
-def existing_commit_plain(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
-                          vol_per_pod, requests, assigned, host_ports: bool,
+def existing_commit_plain(ex: ExistingState, merge: reqmerge.ClassMerge, zone_new, ct_ok,
+                          cls_ports, vol_add, vol_per_pod, requests, assigned, host_ports: bool,
                           volume_limits: bool) -> ExistingState:
     """The plain torch version of K6's second entry point: the state after
-    ``assigned`` pods of the class land; ``used + assigned * req`` is one
-    fused multiply-add, as XLA's CPU code contracts it in the reference."""
+    ``assigned`` pods of the class land.  A selected row's requirement
+    planes are the row merged with the class (``merge``, ops/masks.py
+    ``add``); ``used + assigned * req`` is one fused multiply-add, as XLA's
+    CPU code contracts it in the reference."""
     sel = (assigned > 0)[:, None]
+    merged = reqmerge.merge_plain(
+        mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), merge)
     return ExistingState(
         used=fma_f32(assigned[:, None].to(torch.float32), requests[None, :], ex.used),
         kmask=torch.where(sel[..., None], merged.mask, ex.kmask),
@@ -307,12 +314,14 @@ def existing_commit_plain(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
 existing_commit_twin = batch.tenantwise(existing_commit_plain, lambda ex, *_: ex.used.dim() == 2)
 
 
-def existing_commit(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
-                    vol_per_pod, requests, assigned, host_ports: bool,
+def existing_commit(ex: ExistingState, merge: reqmerge.ClassMerge, zone_new, ct_ok, cls_ports,
+                    vol_add, vol_per_pod, requests, assigned, host_ports: bool,
                     volume_limits: bool) -> ExistingState:
-    """K6 wrapper, second entry point: the state commit after a fill.  Every
+    """K6 wrapper, second entry point: the state commit after a fill, the
+    selected rows merged with the class (``merge``: the class row [1, K, W],
+    the valid words, the vocabulary ints, v and the bounds flags).  Every
     operand may carry a leading tenant axis B."""
-    args = (ex, merged, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
+    args = (ex, merge, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
             host_ports, volume_limits)
     if ex.used.device.type != "cuda":
         return existing_commit_twin(*args)
@@ -321,8 +330,8 @@ def existing_commit(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_a
     return _existing_commit_cuda(*args)
 
 
-def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports, vol_add,
-                          vol_per_pod, requests, assigned, host_ports: bool,
+def _existing_commit_cuda(ex: ExistingState, merge: reqmerge.ClassMerge, zone_new, ct_ok,
+                          cls_ports, vol_add, vol_per_pod, requests, assigned, host_ports: bool,
                           volume_limits: bool) -> ExistingState:
     global phase_launches
     dev = ex.used.device
@@ -330,6 +339,8 @@ def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
     _, _, n_keys, n_words = ex.kmask.shape
     n_zones, n_ct, n_ports = ex.zone.shape[2], ex.ct.shape[2], ex.ports.shape[2]
     n_drivers = ex.vol_used.shape[2]
+    cls, v = merge.cls, merge.v
+    n_vocab = merge.vocab_ints.shape[-1]
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     shapes = {
         "used": (f32, (n_b, n, n_res)), "kmask": (i32, (n_b, n, n_keys, n_words)),
@@ -342,11 +353,12 @@ def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
     for name, (dt, shape) in shapes.items():
         build.check_input(name, getattr(ex, name), dt, shape, dev)
     for name, t, dt, shape in (
-        ("merged.mask", merged.mask, i32, (n_b, n, n_keys, n_words)),
-        ("merged.defined", merged.defined, b, (n_b, n, n_keys)),
-        ("merged.negative", merged.negative, b, (n_b, n, n_keys)),
-        ("merged.gt", merged.gt, f32, (n_b, n, n_keys)),
-        ("merged.lt", merged.lt, f32, (n_b, n, n_keys)),
+        ("cls.mask", cls.mask, i32, (n_b, 1, n_keys, n_words)),
+        ("cls.defined", cls.defined, b, (n_b, 1, n_keys)),
+        ("cls.negative", cls.negative, b, (n_b, 1, n_keys)),
+        ("cls.gt", cls.gt, f32, (n_b, 1, n_keys)), ("cls.lt", cls.lt, f32, (n_b, 1, n_keys)),
+        ("valid", merge.valid, i32, (n_b, n_keys, n_words)),
+        ("vocab_ints", merge.vocab_ints, f32, (n_b, n_keys, n_vocab)),
         ("zone_new", zone_new, b, (n_b, n, n_zones)), ("ct_ok", ct_ok, b, (n_b, n, n_ct)),
         ("cls_ports", cls_ports, b, (n_b, n_ports)),
         ("vol_add", vol_add, i32, (n_b, n, n_drivers)),
@@ -354,14 +366,17 @@ def _existing_commit_cuda(ex: ExistingState, merged, zone_new, ct_ok, cls_ports,
         ("requests", requests, f32, (n_b, n_res)), ("assigned", assigned, i32, (n_b, n)),
     ):
         build.check_input(name, t, dt, shape, dev)
+    if mask_ops.words_for(v) != n_words:
+        raise ValueError(f"mask width {n_words} words does not hold v={v} slots")
     rows = [torch.empty(shape, dtype=dt, device=dev) for dt, shape in shapes.values()]
     fn = build.function("existing_phase", "kc_existing_commit",
-                        [ctypes.c_int] * 11 + [ctypes.c_void_p] * 35)
+                        [ctypes.c_int] * 15 + [ctypes.c_void_p] * 38)
     ptrs = [t.data_ptr() for t in (
-        *ex[:-1], *merged, zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned,
-        *rows,
+        *ex[:-1], *cls, merge.valid, mask_ops.const_words("vocab", v, dev), merge.vocab_ints,
+        zone_new, ct_ok, cls_ports, vol_add, vol_per_pod, requests, assigned, *rows,
     )]
-    rc = fn(n_b, n, n_res, n_keys * n_words, n_keys, n_zones, n_ct, n_ports, n_drivers,
+    rc = fn(n_b, n, n_res, n_keys, n_words, n_vocab, (v - 1) // 32, (v - 1) % 32,
+            int(any(merge.key_has_bounds)), n_zones, n_ct, n_ports, n_drivers,
             int(host_ports), int(volume_limits), *ptrs, build.stream(dev))
     build.check(rc, "existing_phase (commit)")
     phase_launches += 1

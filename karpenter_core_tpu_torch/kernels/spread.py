@@ -19,6 +19,7 @@ import torch
 
 from karpenter_core_tpu_torch.kernels import batch, build
 from karpenter_core_tpu_torch.kernels.capacity import BIG, UNLIMITED, to_i32
+from karpenter_core_tpu_torch.kernels.fp32 import cumsum_xla_plain, fma_f32
 
 BIGI = UNLIMITED  # the reference's BIGI, the count of a zone that bounds nothing
 
@@ -33,15 +34,20 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def water_fill(count0: torch.Tensor, allowed: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """i32[Z] quotas: distribute m pods over allowed zones, always filling
     the lowest-count zone first (topologygroup.go:155-182 telescoped).  Ties
-    among allowed zones keep index order: the sort is stable."""
+    among allowed zones keep index order: the sort is stable.  The floats
+    round as the reference's jitted ``_water_fill`` rounds them on the CPU:
+    its running sum in XLA's cumsum order (``fp32.cumsum_xla_plain``:
+    sequential up to 16 zones), and ``idx * s - prefix`` and ``rem - floor
+    * k`` each one fused multiply-add (XLA contracts both; torch.cumsum
+    would sum in double on the CPU and in a parallel order on the card)."""
     z = count0.shape[0]
     dev = count0.device
     c = torch.where(allowed, count0.to(torch.float32), BIG)
     order = torch.argsort(c, stable=True)
     s = c[order]
     idx = torch.arange(z, dtype=torch.float32, device=dev)
-    prefix = torch.cumsum(s, dim=0) - s
-    cost = idx * s - prefix
+    prefix = cumsum_xla_plain(s) - s
+    cost = fma_f32(idx, s, -prefix)
     cost = torch.where(torch.isfinite(cost), cost, BIG)
     mf = m.to(torch.float32)
     k_star = (cost <= mf).sum(dtype=torch.int32) - 1
@@ -50,8 +56,9 @@ def water_fill(count0: torch.Tensor, allowed: torch.Tensor, m: torch.Tensor) -> 
     spent = _take(cost, k_star)
     rem = mf - spent
     k_count = (k_star + 1).to(torch.float32)
-    level = base_level + torch.floor(rem / k_count)
-    leftover = rem - torch.floor(rem / k_count) * k_count
+    fl = torch.floor(rem / k_count)
+    level = base_level + fl
+    leftover = fma_f32(-fl, k_count, rem)
     ar = torch.arange(z, dtype=torch.int32, device=dev)
     in_fill = ar <= k_star
     extra = (ar < leftover).to(torch.float32)

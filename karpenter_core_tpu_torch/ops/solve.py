@@ -13,7 +13,9 @@ Device work goes through seven hand-written CUDA kernels (``kernels/``):
 
   K1 ``it_capacity``      viability + per-type capacity + row max
   K2 ``fill``             priority fill (stable sort + exclusive scan)
-  K3 ``merge_compat``     requirement merge + compatibility
+  K3 ``merge_compat`` / ``req_compat``
+                          requirement merge + compatibility (or compatibility
+                          alone: the existing rows, merged by K6's commit)
   K4 ``pack_bool``        the decode fetch's bit-packing
   K5 ``existing_intake``  each existing node's intake of one class
   K6 ``existing_mask_fill`` / ``existing_mask`` / ``existing_commit``
@@ -81,6 +83,7 @@ from karpenter_core_tpu_torch.kernels import reqmerge as k3
 from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED
 from karpenter_core_tpu_torch.kernels.existing import ExistingState
+from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
 from karpenter_core_tpu_torch.models.snapshot import EncodedSnapshot
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
@@ -230,18 +233,19 @@ class Kernels(NamedTuple):
     gather_window: object
     scatter_window: object
     existing_mask_fill: object
+    req_compat: object
 
 
 KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool,
                   k56.existing_intake, k56.existing_mask, k56.existing_commit,
                   k7.spread_quota, k1012.repair_free, k1012.gather_window,
-                  k1012.scatter_window, k56.existing_mask_fill)
+                  k1012.scatter_window, k56.existing_mask_fill, k3.req_compat)
 # the twins of the scan's kernels take the tenant axis as their wrappers do
 PLAIN = Kernels(k1.it_capacity_twin, k2.fill_by_priority_twin,
                 k3.merge_compat_twin, k4.pack_bool_plain, k56.existing_intake_twin,
                 k56.existing_mask_twin, k56.existing_commit_twin, k7.spread_quota_twin,
                 k1012.repair_free_plain, k1012.gather_window_plain,
-                k1012.scatter_window_plain, k56.existing_mask_fill_twin)
+                k1012.scatter_window_plain, k56.existing_mask_fill_twin, k3.req_compat_twin)
 
 
 class Statics(NamedTuple):
@@ -316,7 +320,9 @@ class ExClassPrep(NamedTuple):
     step's phases (see the reference's docstring)."""
 
     cap: torch.Tensor  # i32[E]
-    merged: mask_ops.ReqTensor
+    # the class row and vocabulary K6's commit merges the rows it selects
+    # with (the reference keeps the merged planes of every row here)
+    merge: k3.ClassMerge
     zone_full: torch.Tensor  # bool[E, Z]
     ct_ok: torch.Tensor  # bool[E, CT]
     vol_add: torch.Tensor  # i32[E, D]
@@ -370,6 +376,14 @@ def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, at.expand(tuple(idx.shape) + tuple(x.shape[2:])))
 
 
+def _slot_used(base: torch.Tensor, assigned: torch.Tensor, requests: torch.Tensor):
+    """f32[B, N, R] = ``base + assigned * requests`` of a slot commit, one
+    fused multiply-add rounded once: the reference's jitted solve contracts
+    each slot commit (open and fresh slots, in the phases and the committal
+    block) into an FMA on the CPU, as it does the existing-node commit."""
+    return fma_f32(assigned[..., None].to(F32), requests[:, None, :], base)
+
+
 def _add_row(x: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """``x[b, idx[b]] += delta[b]`` for every tenant (the reference's
     ``.at[t].add``): one add per tenant, every other row untouched."""
@@ -412,6 +426,11 @@ def _merge_compat(rows: mask_ops.ReqTensor, cls, statics: Statics):
         rows, _cls_req(cls), statics.valid, statics.vocab_ints, statics.is_custom,
         statics.mask_v, statics.key_has_bounds,
     )
+
+
+def _class_merge(cls, statics: Statics) -> k3.ClassMerge:
+    return k3.ClassMerge(_cls_req(cls), statics.valid, statics.vocab_ints, statics.mask_v,
+                         statics.key_has_bounds)
 
 
 def _it_cap(statics: Statics, viable, cls, merged, zone_ok, ct_ok, used):
@@ -457,18 +476,23 @@ def _and_opt(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
 
 def _prep_existing(ex, ex_static, cls, statics, host_cap_vec, tol_row, vol_add_row,
                    vol_per_pod_row, ft=ALL_FEATURES) -> ExClassPrep:
-    """Intake of the class on each existing node (0 = ineligible), with the
-    merged requirement planes (existingnode.go:77-130 at class granularity):
-    the merge and key compatibility are K3, the intake K5."""
+    """Intake of the class on each existing node (0 = ineligible)
+    (existingnode.go:77-130 at class granularity): the key compatibility is
+    K3's compat entry point, the intake K5.  No merged planes: K6's commit
+    merges the rows it selects (the merge is idempotent, and within a class
+    step a row changes only through this class's commits)."""
     node_t = mask_ops.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt)
-    merged, key_ok = _merge_compat(node_t, cls, statics)
+    key_ok = statics.k.req_compat(
+        node_t, _cls_req(cls), statics.valid, statics.vocab_ints, statics.is_custom,
+        statics.mask_v, statics.key_has_bounds,
+    )
     cap, zone_full, ct_ok = statics.k.existing_intake(
         ex_static.alloc, ex.used, ex.open_, key_ok, tol_row, ex.zone, cls.zone, ex.ct, cls.ct,
         ex.ports, cls.ports, ex_static.vol_limit, ex.vol_used, vol_add_row, vol_per_pod_row,
         cls.requests, host_cap_vec, ft.host_ports, ft.volume_limits,
     )
-    return ExClassPrep(cap=cap, merged=merged, zone_full=zone_full, ct_ok=ct_ok,
-                       vol_add=vol_add_row, vol_per_pod=vol_per_pod_row)
+    return ExClassPrep(cap=cap, merge=_class_merge(cls, statics), zone_full=zone_full,
+                       ct_ok=ct_ok, vol_add=vol_add_row, vol_per_pod=vol_per_pod_row)
 
 
 def _fill_existing(k: Kernels, prep_cap, zone, cls_zone, zone_restrict, extra_elig,
@@ -487,7 +511,7 @@ def _fill_existing(k: Kernels, prep_cap, zone, cls_zone, zone_restrict, extra_el
 def _commit_existing(k: Kernels, ex, prep, cls, assigned, zone_new, ft):
     """The existing-node state after ``assigned`` pods of the class land (K6)."""
     return k.existing_commit(
-        ex, prep.merged, zone_new, prep.ct_ok, cls.ports, prep.vol_add, prep.vol_per_pod,
+        ex, prep.merge, zone_new, prep.ct_ok, cls.ports, prep.vol_add, prep.vol_per_pod,
         cls.requests, assigned, ft.host_ports, ft.volume_limits,
     )
 
@@ -545,7 +569,7 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     placed_existing = _isum(assigned, dim=-1)
 
     sel = (assigned > 0)[..., None]
-    used = state.used + assigned[..., None].to(F32) * cls.requests[:, None, :]
+    used = _slot_used(state.used, assigned, cls.requests)
     kmask = torch.where(sel[..., None], merged.mask, state.kmask)
     kdef = torch.where(sel, merged.defined, state.kdef)
     kneg = torch.where(sel, merged.negative, state.kneg)
@@ -618,8 +642,7 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     seln = is_new[..., None]
     used = torch.where(
         seln,
-        _take(statics.tmpl_daemon, t_star)[:, None, :]
-        + a_new[..., None].to(F32) * cls.requests[:, None, :],
+        _slot_used(_take(statics.tmpl_daemon, t_star)[:, None, :], a_new, cls.requests),
         used,
     )
     kmask = torch.where(seln[..., None], _take(tmpl_merged.mask, t_star)[:, None], kmask)
@@ -954,11 +977,9 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         sel_f = is_fresh[..., None]
         zhot_o = (zar == zopen[..., None]) & sel_o
         zhot_f = (zar == fresh_z[..., None]) & sel_f
-        used = state_i.used + a_open_acc[..., None].to(F32) * cls.requests[:, None, :]
+        used = _slot_used(state_i.used, a_open_acc, cls.requests)
         used = torch.where(
-            sel_f,
-            _rows_at(statics.tmpl_daemon, tmpl_idx)
-            + fresh_a[..., None].to(F32) * cls.requests[:, None, :],
+            sel_f, _slot_used(_rows_at(statics.tmpl_daemon, tmpl_idx), fresh_a, cls.requests),
             used,
         )
         kmask = torch.where(sel_o[..., None], merged.mask, state_i.kmask)

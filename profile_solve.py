@@ -91,6 +91,7 @@ PORT_KERNELS = {
     "it_capacity_kernel": "it_capacity",
     "fill_priority_kernel": "fill_priority",
     "req_merge_kernel": "req_merge",
+    "req_compat_kernel": "req_merge (compat)",
     "pack_bool_kernel": "pack_bool",
     "existing_intake_kernel": "existing_intake",
     "existing_mask_kernel": "existing_phase (mask)",

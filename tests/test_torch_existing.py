@@ -55,6 +55,7 @@ from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.solver.tpu import TPUSolver
 from karpenter_core_tpu.ops import masks as jmasks
 from karpenter_core_tpu_torch.kernels import existing as k56
+from karpenter_core_tpu_torch.kernels import reqmerge as k3
 from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.ops import masks as tmasks
 from karpenter_core_tpu_torch.ops import solve as tsolve
@@ -410,6 +411,46 @@ def test_torch_existing_solve_non_binary_requests_match_reference(seed, monkeypa
     twice = solver.run_prepared(tprep).ex_state.used.numpy()
     assert (twice != np.asarray(jout.ex_state.used)).any()
 
+@pytest.mark.parametrize("cpu,memory,seed", [(1.1, 1.1, 0), (0.9, 1.17, 3)])
+def test_torch_slot_commit_non_binary_requests_match_reference(cpu, memory, seed, monkeypatch):
+    """A cold solve of the headline mix with cpu and memory requests scaled
+    off binary fractions and template daemon overheads in tenths, through
+    both whole solves: every leaf bit for bit.  Pods of two classes share
+    new slots, so a slot's usage is ``used + a * req`` over a usage that is
+    not 0.  The reference's jitted scan contracts each slot commit into one
+    FMA, and the port's ``_slot_used`` takes one too; on these inputs a
+    commit that rounds twice gives other floats.  The first case tells the
+    phases' open and fresh slots and the committal block's fresh slots
+    apart from two roundings, the second the committal block's open slots."""
+    solver, pods = workloads.build_inputs(700, 50, 5, device="cpu")
+    js, jnodes, jbound, jpods = _reference_inputs([], [], pods, 50)
+    jprep = js.prepare_encoded(js.encode(jpods, jnodes, jbound), jnodes, jbound)
+    tprep = solver.prepare_encoded(solver.encode(pods, [], []), [], [])
+    rng = np.random.default_rng(seed)
+    # the third column is the pod count: its request stays 1, as every class's
+    requests = (np.asarray(jprep.cls.requests) * np.array([cpu, memory, 1.0], np.float32)
+                ).astype(np.float32)
+    daemon = np.asarray(jprep.statics_arrays.tmpl_daemon).copy()
+    daemon[:, :2] = rng.integers(1, 20, daemon[:, :2].shape) * np.float32(0.1)
+    daemon[:, 1] *= np.float32(2**20)
+    jprep = jprep._replace(
+        cls=jprep.cls._replace(requests=jnp.asarray(requests)),
+        statics_arrays=jprep.statics_arrays._replace(tmpl_daemon=jnp.asarray(daemon)))
+    tprep = tprep._replace(
+        cls=tprep.cls._replace(requests=torch.as_tensor(requests)),
+        statics_arrays=tprep.statics_arrays._replace(tmpl_daemon=torch.as_tensor(daemon)))
+    jout = jax.device_get(js.run_prepared(jprep))
+    assert ((np.asarray(jout.assign) > 0).sum(axis=0) >= 2).any()  # shared slots
+    _assert_leaves_equal(jout, solver.run_prepared(tprep), "slot commit")
+
+    def rounded_twice(base, assigned, requests):
+        return base + assigned[..., None].to(torch.float32) * requests[:, None, :]
+
+    monkeypatch.setattr(tsolve, "_slot_used", rounded_twice)
+    twice = solver.run_prepared(tprep).state.used.numpy()
+    assert (twice != np.asarray(jout.state.used)).any()
+
+
 def _chip_smoke():
     """chip_smoke.py's module (its constants; nothing runs on import)."""
     spec = importlib.util.spec_from_file_location(
@@ -539,16 +580,25 @@ def _jax_quota_rounds(counts_zs, allowed_zone, fillable, cap_pods_z, skew_zs, m,
     return quotas, sat, m_rem, fill_residual
 
 
-_zone_vec = st.lists(st.integers(0, 40), min_size=3, max_size=3)
+def _zone_lists(n_zones, elements):
+    return st.lists(elements, min_size=n_zones, max_size=n_zones)
 
 
+# counts: small, or near 2^24, where the water-fill's float sums round (the
+# reference sums in f32, in order, and contracts `idx * s - prefix` and
+# `rem - floor * k` into FMAs)
+_COUNT = st.one_of(st.integers(0, 40), st.integers(2**24 - 8, 2**24 + 8))
+
+
+@pytest.mark.parametrize("n_zones", (1, 2, 3, 4, 8))
 @settings(max_examples=80, deadline=None)
-@given(counts=_zone_vec, allowed=st.lists(st.booleans(), min_size=3, max_size=3),
-       fillable=st.lists(st.booleans(), min_size=3, max_size=3),
-       caps=st.lists(st.one_of(st.integers(0, 60), st.just(UNLIMITED)), min_size=3, max_size=3),
-       skew=st.one_of(st.integers(1, 5), st.just(UNLIMITED)), m=st.integers(0, 200),
-       member=st.booleans())
-def test_spread_quota_rounds_match_reference(counts, allowed, fillable, caps, skew, m, member):
+@given(data=st.data(), skew=st.one_of(st.integers(1, 5), st.just(UNLIMITED)),
+       m=st.one_of(st.integers(0, 200), st.integers(2**24, 2**31 - 1)), member=st.booleans())
+def test_spread_quota_rounds_match_reference(n_zones, data, skew, m, member):
+    counts = data.draw(_zone_lists(n_zones, _COUNT))
+    allowed = data.draw(_zone_lists(n_zones, st.booleans()))
+    fillable = data.draw(_zone_lists(n_zones, st.booleans()))
+    caps = data.draw(_zone_lists(n_zones, st.one_of(st.integers(0, 60), st.just(UNLIMITED))))
     args = (np.asarray(counts, np.int32), np.asarray(allowed), np.asarray(fillable),
             np.asarray(caps, np.int32), np.int32(skew), np.int32(m), np.bool_(member))
     ref = jax.device_get(_jax_quota_rounds(*args))
@@ -559,13 +609,41 @@ def test_spread_quota_rounds_match_reference(counts, allowed, fillable, caps, sk
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
 
 
+@pytest.mark.parametrize("n_zones", (1, 2, 3, 4, 8, 16, 20, 32))
+def test_spread_quota_large_counts_match_reference(n_zones):
+    """Seeded rounds at counts near 2^24 (the water-fill's f32 sums round:
+    the reference's order and FMAs decide them) and near 2^31 (the int32
+    sums wrap), with finite and UNLIMITED caps, up to 32 zones (past 16 the
+    reference's cumsum goes in blocks of 16)."""
+    rng = np.random.default_rng(1000 + n_zones)
+    for case in range(90):
+        lo = (0, 2**24 - 8, 2**31 - 60)[case % 3]
+        counts = rng.integers(lo, lo + (40 if lo == 0 else 16), n_zones)
+        args = (counts.astype(np.int32), rng.random(n_zones) < 0.8, rng.random(n_zones) < 0.85,
+                np.where(rng.random(n_zones) < 0.5, UNLIMITED,
+                         rng.integers(0, 40, n_zones)).astype(np.int32),
+                np.int32(rng.choice([1, 2, 5, UNLIMITED])),
+                np.int32(rng.choice([0, 3, 17, 100, 2**24 + 3, 2**31 - 1])),
+                np.bool_(rng.random() < 0.8))
+        ref = jax.device_get(_jax_quota_rounds(*args))
+        got = k7.spread_quota(*(torch.as_tensor(np.asarray(a)) for a in args))
+        for name, a, b in zip(("quotas", "sat", "m_rem", "fill_residual"), ref, got):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f"{case} {name}")
+
+
 # -- K6's fused mask and fill, with the commit, against _phase_existing ---------
+
+
+V_PHASE = 40  # the phase planes' slots a key: two words, the "other" slot bit 7 of word 1
+KHB_PHASE = (True, False, True, True)  # the keys that carry Gt/Lt bounds
 
 
 def _phase_planes(rng, n, n_zones=3, k=4, words=2, n_res=3, n_ct=2, n_ports=4, n_csi=2,
                   negative_cap=False):
-    """One tenant's random existing-node planes, merged planes and class
-    vectors for a phase, as numpy arrays."""
+    """One tenant's random existing-node planes, class row and vectors and
+    vocabulary for a phase, as numpy arrays."""
+    assert tmasks.words_for(V_PHASE) == words
+
     def b(shape, p):
         return rng.random(shape) < p
 
@@ -577,9 +655,13 @@ def _phase_planes(rng, n, n_zones=3, k=4, words=2, n_res=3, n_ct=2, n_ports=4, n
         # roundings differ on some elements; XLA's CPU code contracts it
         return (rng.integers(0, 64, shape) * np.float32(0.1)).astype(np.float32)
 
-    def req():
-        return (i((n, k, words), -2**31, 2**31 - 1), b((n, k), 0.6), b((n, k), 0.3), f((n, k)),
-                f((n, k)))
+    def req(rows):
+        # random words (the "other" slot on either side or both), bounds in
+        # tenths on some keys
+        shape = (rows, k)
+        gt = np.where(b(shape, 0.5), -np.inf, f(shape)).astype(np.float32)
+        lt = np.where(b(shape, 0.5), np.inf, f(shape) + np.float32(3.0)).astype(np.float32)
+        return (i((rows, k, words), -2**31, 2**31 - 1), b(shape, 0.6), b(shape, 0.3), gt, lt)
 
     # cpu and memory in tenths; the third column is the pod count, whose
     # request is always 1 (at R = 3 XLA's CPU code rounds that column twice,
@@ -589,10 +671,14 @@ def _phase_planes(rng, n, n_zones=3, k=4, words=2, n_res=3, n_ct=2, n_ports=4, n
     cap = np.where(b(n, 0.4), i(n, 1, 9), 0).astype(np.int32)
     if negative_cap:
         cap[rng.integers(0, n, 2)] = -3
+    full = tmasks.full_words(V_PHASE)
     return dict(
-        ex=(f((n, n_res)), *req(), b((n, n_zones), 0.6), b((n, n_ct), 0.6), b((n, n_ports), 0.2),
+        ex=(f((n, n_res)), *req(n), b((n, n_zones), 0.6), b((n, n_ct), 0.6), b((n, n_ports), 0.2),
             i((n, n_csi), 0, 5), i(n, 0, 50), b(n, 0.8)),
-        merged=req(), cap=cap, ct_ok=b((n, n_ct), 0.5), vol_add=i((n, n_csi), 0, 3),
+        cls=req(1), valid=(i((k, words), -2**31, 2**31 - 1) & full).astype(np.int32),
+        vocab_ints=np.where(b((k, V_PHASE - 1), 0.7), f((k, V_PHASE - 1)),
+                            np.inf).astype(np.float32),
+        cap=cap, ct_ok=b((n, n_ct), 0.5), vol_add=i((n, n_csi), 0, 3),
         vol_per_pod=i(n_csi, 0, 3), cls_zone=b(n_zones, 0.8), requests=requests,
         cls_ports=b(n_ports, 0.4), restrict=b(n_zones, 0.8), extra=b(n, 0.7),
         quota=np.int32(rng.integers(0, 3 * n + 2)))
@@ -607,20 +693,66 @@ class _PhaseCls(NamedTuple):
 
 
 _jax_phase_existing = jax.jit(jsolve._phase_existing, static_argnames=("single_node",))
+_jax_add = jax.jit(jmasks.add, static_argnames=("v", "key_has_bounds"))
 
 
-def _jax_phase(t, extra, single_node):
-    ex = jsolve.ExistingState(*(jnp.asarray(a) for a in t["ex"]))
-    prep = jsolve.ExClassPrep(
-        cap=jnp.asarray(t["cap"]), merged=jmasks.ReqTensor(*(jnp.asarray(a) for a in t["merged"])),
-        zone_full=None, ct_ok=jnp.asarray(t["ct_ok"]), vol_add=jnp.asarray(t["vol_add"]),
+def _u32(a):
+    return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def _jax_ex(t):
+    """The tenant's existing-node state, mask words as the reference's uint32."""
+    return jsolve.ExistingState(*(jnp.asarray(_u32(a)) if j == 1 else jnp.asarray(a)
+                                  for j, a in enumerate(t["ex"])))
+
+
+def _jax_prep(t):
+    """The reference's ExClassPrep of the tenant: the merged planes of every
+    row, merged with the class row at the class's start."""
+    ex = _jax_ex(t)
+    cls = jmasks.ReqTensor(jnp.asarray(_u32(t["cls"][0])), *(jnp.asarray(a) for a in t["cls"][1:]))
+    merged = _jax_add(jmasks.ReqTensor(ex.kmask, ex.kdef, ex.kneg, ex.kgt, ex.klt), cls,
+                      jnp.asarray(_u32(t["valid"])), jnp.asarray(t["vocab_ints"]), v=V_PHASE,
+                      key_has_bounds=KHB_PHASE)
+    return jsolve.ExClassPrep(
+        cap=jnp.asarray(t["cap"]), merged=merged, zone_full=None,
+        ct_ok=jnp.asarray(t["ct_ok"]), vol_add=jnp.asarray(t["vol_add"]),
         vol_per_pod=jnp.asarray(t["vol_per_pod"]))
+
+
+def _jax_phase(t, extra, single_node, ex=None, prep=None, quota=None, restrict=None):
     cls = _PhaseCls(jnp.asarray(t["cls_zone"]), jnp.asarray(t["requests"]),
                     jnp.asarray(t["cls_ports"]))
     out = _jax_phase_existing(
-        ex, prep, cls, jnp.asarray(t["quota"]), jnp.asarray(t["restrict"]),
+        _jax_ex(t) if ex is None else ex, _jax_prep(t) if prep is None else prep, cls,
+        jnp.asarray(t["quota"] if quota is None else quota),
+        jnp.asarray(t["restrict"] if restrict is None else restrict),
         extra_elig=jnp.asarray(t["extra"]) if extra else None, single_node=single_node)
     return jax.device_get(out)
+
+
+def _port_phase_inputs(tenants):
+    """The tenants' port state, ExClassPrep (the class row to merge with) and
+    class vectors, stacked on the tenant axis."""
+    def stacked(key, i=None):
+        return torch.as_tensor(np.stack([t[key] if i is None else t[key][i] for t in tenants]))
+
+    ex = tsolve.ExistingState(*(stacked("ex", i) for i in range(12)))
+    prep = tsolve.ExClassPrep(
+        cap=stacked("cap"),
+        merge=k3.ClassMerge(tmasks.ReqTensor(*(stacked("cls", i) for i in range(5))),
+                            stacked("valid"), stacked("vocab_ints"), V_PHASE, KHB_PHASE),
+        zone_full=None, ct_ok=stacked("ct_ok"), vol_add=stacked("vol_add"),
+        vol_per_pod=stacked("vol_per_pod"))
+    cls = _PhaseCls(stacked("cls_zone"), stacked("requests"), stacked("cls_ports"))
+    return ex, prep, cls, stacked
+
+
+def _assert_ex_equal(got_ex, b_, want_ex):
+    for name in jsolve.ExistingState._fields:
+        a, w = _np(getattr(got_ex, name)[b_]), _np(getattr(want_ex, name))
+        assert a.dtype == w.dtype, name
+        np.testing.assert_array_equal(a, w, err_msg=name)
 
 
 @pytest.mark.parametrize("use_kernels", (True, False))
@@ -637,15 +769,7 @@ def test_torch_phase_existing_mask_fill_matches_reference(n, n_b, extra, single_
     if n > 1:
         tenants[-1]["quota"] = np.int32(2**31 - 1)  # past every cap: the sums near the wrap
 
-    def stacked(key, i=None):
-        return torch.as_tensor(np.stack([t[key] if i is None else t[key][i] for t in tenants]))
-
-    ex = tsolve.ExistingState(*(stacked("ex", i) for i in range(12)))
-    prep = tsolve.ExClassPrep(
-        cap=stacked("cap"), merged=tmasks.ReqTensor(*(stacked("merged", i) for i in range(5))),
-        zone_full=None, ct_ok=stacked("ct_ok"), vol_add=stacked("vol_add"),
-        vol_per_pod=stacked("vol_per_pod"))
-    cls = _PhaseCls(stacked("cls_zone"), stacked("requests"), stacked("cls_ports"))
+    ex, prep, cls, stacked = _port_phase_inputs(tenants)
     k = tsolve.KERNELS if use_kernels else tsolve.PLAIN
     got_ex, got_a, got_placed = tsolve._phase_existing(
         ex, prep, cls, stacked("quota"), stacked("restrict"), k,
@@ -655,10 +779,39 @@ def test_torch_phase_existing_mask_fill_matches_reference(n, n_b, extra, single_
         np.testing.assert_array_equal(got_a[b_].numpy(), np.asarray(want_a))
         assert got_placed.dtype == torch.int32
         assert int(got_placed[b_]) == int(want_placed)
-        for name in jsolve.ExistingState._fields:
-            a, w = _np(getattr(got_ex, name)[b_]), np.asarray(getattr(want_ex, name))
-            assert a.dtype == w.dtype, name
-            np.testing.assert_array_equal(a, w, err_msg=name)
+        _assert_ex_equal(got_ex, b_, want_ex)
+
+
+@pytest.mark.parametrize("n,n_b", [(37, 3), (300, 2)])
+def test_torch_commit_merges_overlapping_phases_as_reference(n, n_b):
+    """Two phases of one class whose selections overlap: the reference
+    commits the planes it merged at the class's start (``prep.merged``), the
+    port's commit merges each selected row as it stands (``prep.merge``,
+    ``existing_commit_plain``), so a row taken twice is merged twice.  The
+    merge is idempotent, so every leaf agrees after both phases, with
+    bounds on three keys and the "other" slot on either side."""
+    rng = np.random.default_rng(500 + n)
+    tenants = [_phase_planes(rng, n) for _ in range(n_b)]
+    q1 = [np.int32(max(1, int(t["cap"].clip(0).sum()) // 3)) for t in tenants]
+    q2 = [np.int32(int(t["cap"].clip(0).sum())) for t in tenants]
+    all_zones = np.ones(3, bool)
+    ex, prep, cls, stacked = _port_phase_inputs(tenants)
+    ex1, a1, _ = tsolve._phase_existing(ex, prep, cls, torch.as_tensor(np.stack(q1)),
+                                        torch.as_tensor(np.stack([all_zones] * n_b)), tsolve.PLAIN)
+    ex2, a2, _ = tsolve._phase_existing(ex1, prep, cls, torch.as_tensor(np.stack(q2)),
+                                        torch.as_tensor(np.stack([all_zones] * n_b)), tsolve.PLAIN)
+    assert ((a1 > 0) & (a2 > 0)).any()  # rows taken in both phases
+    for b_, t in enumerate(tenants):
+        finite = np.isfinite(t["cls"][3][0]) | np.isfinite(t["cls"][4][0])
+        assert (finite & np.asarray(KHB_PHASE)).any()  # the bounds pass runs
+        jprep = _jax_prep(t)
+        want1, want_a1, _ = _jax_phase(t, False, False, prep=jprep, quota=q1[b_],
+                                       restrict=all_zones)
+        _assert_ex_equal(ex1, b_, want1)
+        want2, want_a2, _ = _jax_phase(t, False, False, ex=want1, prep=jprep, quota=q2[b_],
+                                       restrict=all_zones)
+        np.testing.assert_array_equal(a2[b_].numpy(), np.asarray(want_a2))
+        _assert_ex_equal(ex2, b_, want2)
 
 
 @pytest.mark.parametrize("seed", range(4))

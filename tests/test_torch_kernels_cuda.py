@@ -66,6 +66,19 @@ def _vocab_ints(rng, k, v, dev):
     return torch.as_tensor(vi.astype(np.float32)).to(dev)
 
 
+def _class_merge(rng, k, v, bounds, dev):
+    """K6's commit's class operands: one class row, its valid words and
+    vocabulary, and the per-key bounds flags."""
+    valid = mask_ops.pack_mask(torch.as_tensor(rng.random((k, v)) < 0.8).to(dev))
+    return reqmerge.ClassMerge(_req(rng, 1, k, v, bounds, dev), valid, _vocab_ints(rng, k, v, dev),
+                               v, _khb(k, bounds))
+
+
+def _khb(k, bounds):
+    """The per-key bounds flags: one problem's, shared by its tenants."""
+    return tuple(bounds and j % 3 != 1 for j in range(k))
+
+
 def _equal(got, want):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -102,16 +115,36 @@ def test_it_capacity_matches_plain(card, n, types, k, v, bounds, size):
     _equal(capacity.it_capacity(*args), capacity.it_capacity_plain(*args))
 
 
-@pytest.mark.parametrize("n,k,v,bounds", [(8192, 8, 9, False), (500, 3, 40, True),
-                                          (77, 1, 70, True)])
-def test_req_merge_matches_plain(card, n, k, v, bounds):
-    rng = np.random.default_rng(k)
-    node, cls = _req(rng, n, k, v, bounds, card), _req(rng, 1, k, v, bounds, card)
-    valid = mask_ops.pack_mask(torch.as_tensor(rng.random((k, v)) < 0.8).to(card))
-    args = (node, cls, valid, _vocab_ints(rng, k, v, card),
-            torch.as_tensor(rng.random(k) < 0.5).to(card), v, (bounds,) * k)
-    got, want = reqmerge.merge_compat(*args), reqmerge.merge_compat_plain(*args)
-    _equal(tuple(got[0]) + (got[1],), tuple(want[0]) + (want[1],))
+@pytest.mark.parametrize("entry", ["merge_compat", "req_compat"])
+@pytest.mark.parametrize("n_b,n,k,v,bounds,offset", [
+    (64, 6144, 8, 9, False, False),   # the consolidation lanes' existing rows
+    (1, 8192, 8, 9, False, False),    # the headline's slot plane
+    (3, 6145, 8, 9, True, False),     # no block divides the rows
+    (2, 129, 8, 9, True, True),       # planes one row off 16 bytes: the key-by-key path
+    (1, 500, 3, 40, True, False),
+    (4, 77, 1, 70, True, False),
+    (1, 1, 8, 9, False, False),
+])
+def test_req_merge_matches_plain(card, entry, n_b, n, k, v, bounds, offset):
+    """Both entry points against the twin, tenant by tenant, and each tenant
+    solo."""
+    sets = []
+    for b in range(n_b):
+        rng = np.random.default_rng(k * 1000 + n + b)
+        node, cls = _req(rng, n + offset, k, v, bounds, card), _req(rng, 1, k, v, bounds, card)
+        if offset:
+            node = mask_ops.ReqTensor(*(t[1:] for t in node))
+        valid = mask_ops.pack_mask(torch.as_tensor(rng.random((k, v)) < 0.8).to(card))
+        sets.append((node, cls, valid, _vocab_ints(rng, k, v, card),
+                     torch.as_tensor(rng.random(k) < 0.5).to(card), v, _khb(k, bounds)))
+    kernel = reqmerge.merge_compat if entry == "merge_compat" else reqmerge.req_compat
+    plain = (reqmerge.merge_compat_plain if entry == "merge_compat"
+             else reqmerge.req_compat_plain)
+    if n_b == 1:
+        got, want = kernel(*sets[0]), plain(*sets[0])
+        _equal(_leaves_of(got), _leaves_of(want))
+    else:
+        _check_batched(kernel, plain, sets)
 
 
 def _fill_case(rng, n, case):
@@ -252,17 +285,17 @@ def test_existing_commit_matches_plain(card, n, host_ports, volume_limits, sel):
         torch.as_tensor(rng.integers(0, 50, n).astype(np.int32)).to(card),
         torch.as_tensor(rng.random(n) < 0.8).to(card),
     )
-    merged = _req(rng, n, k, 9, True, card)
+    merge = _class_merge(rng, k, 9, True, card)
     assigned = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(1, 7, n), 0)
                                .astype(np.int32)).to(card)
-    args = (rows, merged, torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
+    args = (rows, merge, torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
             torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
             torch.as_tensor(rng.random(4) < 0.5).to(card),
             torch.as_tensor(rng.integers(0, 3, (n, 2)).astype(np.int32)).to(card),
             torch.as_tensor(rng.integers(0, 3, 2).astype(np.int32)).to(card),
             torch.tensor((0.1, 0.3, 1.0), dtype=torch.float32, device=card), assigned,
             host_ports, volume_limits)
-    assert words == merged.mask.shape[-1]
+    assert words == merge.cls.mask.shape[-1]
     if sel in ("all", "none"):
         args = args[:8] + (assigned.clamp(min=1) if sel == "all" else 0 * assigned,) + args[9:]
     elif sel == "offset":
@@ -877,7 +910,8 @@ def test_existing_mask_fill_tenant_axis_matches_plain(card, n_b, n, extra, singl
 
 @pytest.mark.parametrize("sel", ["all", "none", "some"])
 def test_existing_commit_lanes_matches_plain(card, sel):
-    """The commit at the consolidation lanes' B = 64 x E = 6,144."""
+    """The commit at the consolidation lanes' B = 64 x E = 6,144, each
+    tenant's selected rows merged with its own class row."""
     n_b, n, k = 64, 6144, 8
     rng = np.random.default_rng(880)
     rows = existing.ExistingState(
@@ -893,14 +927,10 @@ def test_existing_commit_lanes_matches_plain(card, sel):
         torch.as_tensor(rng.integers(0, 50, (n_b, n)).astype(np.int32)).to(card),
         torch.as_tensor(rng.random((n_b, n)) < 0.8).to(card),
     )
-    merged = mask_ops.ReqTensor(
-        torch.as_tensor(rng.integers(-2**31, 2**31, (n_b, n, k, 1)).astype(np.int32)).to(card),
-        *(torch.as_tensor(rng.random((n_b, n, k)) < p).to(card) for p in (0.6, 0.3)),
-        *(torch.as_tensor(rng.integers(-3, 12, (n_b, n, k)).astype(np.float32)).to(card)
-          for _ in range(2)))
+    merge = batch.stack([_class_merge(rng, k, 9, True, card) for b in range(n_b)])
     assigned = {"all": rng.integers(1, 7, (n_b, n)), "none": np.zeros((n_b, n), np.int64),
                 "some": np.where(rng.random((n_b, n)) < 0.05, rng.integers(1, 7, (n_b, n)), 0)}
-    args = (rows, merged, torch.as_tensor(rng.random((n_b, n, 3)) < 0.5).to(card),
+    args = (rows, merge, torch.as_tensor(rng.random((n_b, n, 3)) < 0.5).to(card),
             torch.as_tensor(rng.random((n_b, n, 2)) < 0.5).to(card),
             torch.as_tensor(rng.random((n_b, 4)) < 0.5).to(card),
             torch.as_tensor(rng.integers(0, 3, (n_b, n, 2)).astype(np.int32)).to(card),
@@ -929,7 +959,7 @@ def test_existing_commit_tenant_axis_matches_plain(card, n_b):
         )
         assigned = torch.as_tensor(np.where(rng.random(n) < 0.3, rng.integers(1, 7, n), 0)
                                    .astype(np.int32)).to(card)
-        sets.append((rows, _req(rng, n, k, 9, True, card),
+        sets.append((rows, _class_merge(rng, k, 9, True, card),
                      torch.as_tensor(rng.random((n, 3)) < 0.5).to(card),
                      torch.as_tensor(rng.random((n, 2)) < 0.5).to(card),
                      torch.as_tensor(rng.random(4) < 0.5).to(card),
@@ -938,6 +968,37 @@ def test_existing_commit_tenant_axis_matches_plain(card, n_b):
                      torch.as_tensor(rng.random(3).astype(np.float32)).to(card), assigned,
                      True, True))
     _check_batched(existing.existing_commit, existing.existing_commit_plain, sets)
+
+
+def _quota_args(rng, n_zones, kind):
+    """One tenant's K7 operands: ties and BIG (non-allowed) zones, UNLIMITED
+    and finite caps; counts small, near 2^24 (the float sums round) or near
+    2^31 (the int32 sums wrap)."""
+    unlimited = np.int32(1 << 30)
+    lo = (0, 2**24 - 8, 2**31 - 60)[kind]
+    counts = lo + rng.integers(0, 4 if kind == 0 else 16, n_zones)
+    caps = np.where(rng.random(n_zones) < 0.5, rng.integers(0, 40, n_zones), unlimited)
+    args = (counts.astype(np.int32), rng.random(n_zones) < 0.8, rng.random(n_zones) < 0.85,
+            caps.astype(np.int32), np.int32(rng.choice([1, 2, 5, unlimited])),
+            np.int32(rng.choice([0, 3, 17, 100, 2**24 + 3, 2**31 - 1])),
+            np.bool_(rng.random() < 0.8))
+    return tuple(torch.as_tensor(np.asarray(a)) for a in args)
+
+
+@pytest.mark.parametrize("n_b", [1, 147])
+@pytest.mark.parametrize("n_zones", [1, 2, 3, 5, 8, 16, 32])
+def test_spread_quota_zones_matches_plain(card, n_zones, n_b):
+    """Every zone count the warp kernel takes a lane each, one launch for
+    the batch against the twin tenant by tenant (on CPU copies of the same
+    inputs: the twin's many small operations are slow on the card)."""
+    rng = np.random.default_rng(1000 * n_zones + n_b)
+    sets = [_quota_args(rng, n_zones, b % 3) for b in range(n_b)]
+    got = spread.spread_quota(*(t.to(card) for t in batch.stack(sets)))
+    want = batch.stack([spread.spread_quota_plain(*a) for a in sets])
+    _equal(tuple(t.cpu() for t in got), want)
+    if n_b == 1:
+        solo = spread.spread_quota(*(t.to(card) for t in sets[0]))
+        _equal(tuple(t.cpu() for t in solo), spread.spread_quota_plain(*sets[0]))
 
 
 @pytest.mark.parametrize("n_b", TENANTS)

@@ -130,23 +130,28 @@ def test_popcount_counts_the_sign_bit():
     assert tmasks.popcount(words).tolist() == want
 
 
+@pytest.mark.parametrize("entry", ["merge_compat", "req_compat"])
 @pytest.mark.parametrize("bounds", [True, False])
 @pytest.mark.parametrize("v", (5, 33))
-def test_merge_compat_plain_matches_reference(v, bounds):
+def test_merge_compat_plain_matches_reference(v, bounds, entry):
     """K3's plain twin against the reference's _merge_node_class /
-    _key_compat_node_class pair (ops/masks.py add + compatible)."""
+    _key_compat_node_class pair (ops/masks.py add + compatible); the compat
+    entry point's twin against ``compatible`` alone."""
     a, b, valid, vocab_ints, is_custom = _case(7 + v, v, bounds)
     khb = (True, True, False) if bounds else (False, False, False)
     ref = _jax_ops(a, b, valid, vocab_ints, is_custom, v=v, khb=khb)
     t = torch.as_tensor
     node = tmasks.ReqTensor(tmasks.pack_mask(t(a[0])), *(t(x) for x in a[1:]))
     cls = tmasks.ReqTensor(tmasks.pack_mask(t(b[0])), *(t(x) for x in b[1:]))
-    merged, compat = reqmerge.merge_compat(
-        node, cls, tmasks.pack_mask(t(valid)), t(vocab_ints), t(is_custom), v, khb
-    )
-    for name, g in zip(("merged_mask", "merged_defined", "merged_negative", "merged_gt",
-                        "merged_lt"), merged):
-        np.testing.assert_array_equal(_as_np(ref[name]), g.numpy(), err_msg=name)
+    args = (node, cls, tmasks.pack_mask(t(valid)), t(vocab_ints), t(is_custom), v, khb)
+    if entry == "req_compat":
+        compat = reqmerge.req_compat(*args)
+        assert compat.dtype == torch.bool and compat.shape == node.defined.shape[:-1]
+    else:
+        merged, compat = reqmerge.merge_compat(*args)
+        for name, g in zip(("merged_mask", "merged_defined", "merged_negative", "merged_gt",
+                            "merged_lt"), merged):
+            np.testing.assert_array_equal(_as_np(ref[name]), g.numpy(), err_msg=name)
     np.testing.assert_array_equal(_as_np(ref["compatible"]), compat.numpy())
 
 
