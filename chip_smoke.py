@@ -6,8 +6,8 @@ solve, the what-if studies and the pipelined churn tick.
 
     python3 chip_smoke.py
 
-Builds the twenty-two hand-written CUDA kernels from the twenty sources in
-``karpenter_core_tpu_torch/csrc`` (one nvcc per source, all at once), then:
+Builds the twenty-three hand-written CUDA kernels from the twenty-one sources
+in ``karpenter_core_tpu_torch/csrc`` (one nvcc per source, all at once), then:
 
   1. cold path — 50,000 pending pods x 1,000 instance types x 5 provisioners
      (the reference benchmark's makeDiversePods mix) through
@@ -20,9 +20,10 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      further warm solve with ``KC_ENCODE_DEVICE_FINISH=1`` pads the class
      planes on the card (K15): every leaf must equal the host-padded solve's
      and K15 must have launched.
-  2. kernels K1-K4 and K15 — each against its plain twin on the card, on
-     inputs taken from the cold path's final state and encode (their real
-     shapes), plus a small bounded-keys case for K1, a hole-preference case
+  2. kernels K1-K4, K15 and K23 — each against its plain twin on the card,
+     on inputs taken from the cold path's final state and encode (their real
+     shapes; K23 on the arguments of the commit that took the most rows in
+     a further warm solve), plus a small bounded-keys case for K1, a hole-preference case
      for K2, K2 on a sorted input (the same caps with index priorities, as
      the existing-node fills give it: ``sorted_input`` in its record) and
      K2's multi-block path at N = 32,768 (the main path's plane four times
@@ -66,7 +67,8 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      lanes (B = 64 x the 6,144 existing rows, each lane's ``open_`` and
      counts from K8): K3's merge and its compat entry point, the fused mask
      and fill and the commit of that fill (``lane_axis`` in K3's and K6's
-     records).  Each run pinned to a fresh JAX
+     records); and K23 on the slot commit that took the most rows in a
+     kernel rerun of the coarse pass (``lane_axis`` in its record).  Each run pinned to a fresh JAX
      process's answer starts from an empty slot-count and feature-set
      history (``utils.compilecache.reset_memo``) and prints the slot counts
      it used.
@@ -170,7 +172,8 @@ Builds the twenty-two hand-written CUDA kernels from the twenty sources in
      the twins' batch leaf for leaf; K19 (both modes, at [1,024, 1,000, 3,
      2]) and K20 (on the study's last chunk) against their twins, and K1,
      K2, K3 and K7 at the largest chunk's B = 147 replicas
-     (``replica_axis``); (d)
+     (``replica_axis``), and K23 on the phase commit that took the most rows
+     in one more chunk of 147 replicas (``replica_axis``); (d)
      ``policy_monte_carlo`` at 1,024 replicas, seed 5, after the policy
      benchmark's spot move with every spot offering at interruption rate
      0.3: the same pins, with ``best_replica`` and ``expected_cost``
@@ -280,7 +283,7 @@ MID_CHURN = {"ticks": 4, "evicted_existing": [149, 201, 201, 201], "evicted_new"
 # the kernels each path runs (K4 packs the provisioning decode's planes; the
 # sweep's fetch has no big plane)
 PROVISIONING_KERNELS = ("it_capacity", "fill_priority", "req_merge", "pack_bool",
-                        "existing_intake", "existing_phase", "spread_quota")
+                        "existing_intake", "existing_phase", "spread_quota", "slot_commit")
 CHURN_KERNELS = PROVISIONING_KERNELS + ("repair_free", "repair_gather", "repair_scatter")
 POLICY_KERNELS = PROVISIONING_KERNELS + ("select_offerings",)
 # the JAX package's answers for phase 5 (a), measured on the CPU: evictions,
@@ -327,7 +330,8 @@ RELAX_WINDOW = {"mode": "relax", "iters": 12, "leftover": 82, "placed": 2418, "n
 RELAX_KERNELS = ("relax_cost", "simplex_pgd", "relax_round", "relax_materialize", "it_capacity",
                  "req_merge")
 CONSOLIDATION_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
-                         "existing_phase", "spread_quota", "sweep_lanes", "lane_finish")
+                         "existing_phase", "spread_quota", "sweep_lanes", "lane_finish",
+                         "slot_commit")
 # phase 8: the coalesced multi-tenant solve.  (a) eight headline-size tenants
 # of one shape bucket (8,192 slots each), one batch of the tenant plane; the
 # 50,000-pod tenant's solo answer is the JAX package's (EXPECTED_NODES,
@@ -337,7 +341,7 @@ TENANT_PODS = (50_000, 49_000, 48_000, 47_000, 46_000, 45_000, 44_000, 43_000)
 TENANT_PINS = {0: {"nodes": EXPECTED_NODES, "failed": 0, "n_next": EXPECTED_NODES}}
 # the kernels the batched scan launches (K4 packs each tenant's decode)
 TENANT_KERNELS = ("it_capacity", "fill_priority", "req_merge", "existing_intake",
-                  "existing_phase", "spread_quota")
+                  "existing_phase", "spread_quota", "slot_commit")
 # (b) churn ticks of the fused repair
 FUSED_TICKS = 3
 # (c) existing-node coalescing: EX_TENANT_PODS pods x MID_TYPES types into
@@ -480,8 +484,8 @@ def max_abs_err(got, want) -> float:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, montecarlo, objective, packbits,
-        perturb, relax, repair, reqmerge, spread,
+        capacity, classfinish, commit, consolidate, existing, fill, montecarlo, objective,
+        packbits, perturb, relax, repair, reqmerge, spread,
     )
     return {
         "it_capacity": capacity.launches, "fill_priority": fill.launches,
@@ -497,17 +501,17 @@ def launch_counts() -> dict:
         "class_finish": classfinish.launches, "relax_cost": relax.cost_launches,
         "simplex_pgd": relax.pgd_launches, "relax_round": relax.round_launches,
         "relax_materialize": relax.materialize_launches, "perturb_avail": perturb.launches,
-        "replica_finish": montecarlo.launches,
+        "replica_finish": montecarlo.launches, "slot_commit": commit.launches,
     }
 
 
 def reset_launches() -> None:
     from karpenter_core_tpu_torch.kernels import (
-        capacity, classfinish, consolidate, existing, fill, montecarlo, objective, packbits,
-        perturb, relax, repair, reqmerge, spread,
+        capacity, classfinish, commit, consolidate, existing, fill, montecarlo, objective,
+        packbits, perturb, relax, repair, reqmerge, spread,
     )
     for mod in (capacity, fill, reqmerge, packbits, spread, objective, classfinish, perturb,
-                montecarlo):
+                montecarlo, commit):
         mod.launches = 0
     existing.intake_launches = existing.phase_launches = 0
     consolidate.lanes_launches = consolidate.finish_launches = 0
@@ -656,6 +660,84 @@ def commit_bytes(ex, merge, zone_new, ct_ok, cls_ports, vol_add, per_pod, reques
         selected = int((assigned > 0).sum())
         moved += nbytes(per_pod) + selected * (nbytes(vol_add) // assigned.numel())
     return moved
+
+
+def captured_commit(run, phase_only=False):
+    """``run()`` with the scan's slot commit (K23) spied on: returns the
+    arguments of the call that committed the most rows (open rows that took
+    pods and fresh rows), of a phase's commits only with ``phase_only`` (one
+    pair of K1 planes where the committal block holds one a zone).  Counting
+    the rows reads the host once a call."""
+    from karpenter_core_tpu_torch.ops import solve as solve_ops
+
+    kernels = solve_ops.KERNELS
+    best = {"rows": -1, "args": None}
+
+    def spy(state, src, *rest):
+        out = kernels.slot_commit(state, src, *rest)
+        if not (phase_only and src.zone_idx is not None):
+            rows = int(((src.a > 0) | (src.fresh_t >= 0)).sum())
+            if rows > best["rows"]:
+                best.update(rows=rows, args=(state, src, *rest))
+        return out
+
+    solve_ops.KERNELS = kernels._replace(slot_commit=spy)
+    try:
+        run()
+    finally:
+        solve_ops.KERNELS = kernels
+    if best["args"] is None:
+        fail("slot_commit: the spied run made no commit")
+    return best["args"]
+
+
+def slot_commit_work(state, src, cls_ports, requests, tmpl_daemon, host_ports):
+    """(bytes, operations, shapes) of one K23 call on these inputs, as its
+    rows need them: every output plane written once (``ports`` only with
+    host ports on: off, it is handed back) and each row's source read once;
+    a kept row reads its old row of each of those planes; an open row that
+    took pods its old used, pod count, template and open flag (and ports),
+    its merged, ct (and, in a phase, zone) rows and its zone set's K1 bool
+    and int32 a type; a fresh row nothing old; the template planes and the
+    class vectors are read once.  Operations: a compare and an AND a type
+    and an FMA a resource of every row that took pods or opened."""
+    planes = [state.used, state.kmask, state.kdef, state.kneg, state.kgt, state.klt, state.zone,
+              state.ct, state.viable, state.pod_count, state.tmpl_id, state.open_]
+    if host_ports:
+        planes.append(state.ports)
+    fresh = src.fresh_t >= 0
+    took = (src.a > 0) & ~fresh
+    n_open, n_fresh = int(took.sum()), int(fresh.sum())
+    n_b, n, n_types = state.viable.shape
+    n_keep = n_b * n - n_open - n_fresh
+
+    def row(*tensors):  # bytes a row of [B, N, ...] planes
+        return nbytes(*tensors) // (n_b * n)
+
+    open_row = (row(state.used, state.pod_count, state.tmpl_id, state.open_, src.merged,
+                    src.ct_ok, src.zone_ok) + n_types * 5
+                + (row(state.ports) if host_ports else 0))
+    moved = (nbytes(*planes) + n_keep * row(*planes) + n_open * open_row
+             + nbytes(src.a, src.fresh_t, src.zone_idx, requests, tmpl_daemon, src.tmpl_merged,
+                      src.t_zone, src.t_ct, src.t_ok, src.t_cap)
+             + (nbytes(cls_ports) if host_ports else 0))
+    ops = (n_open + n_fresh) * (2 * n_types + 2 * state.used.shape[2])
+    shapes = {"B": n_b, "N": n, "I": n_types, "zone_sets": len(src.ok),
+              "site": "phase" if src.zone_idx is None else "committal",
+              "open_rows": n_open, "fresh_rows": n_fresh, "kept_rows": n_keep,
+              "host_ports": bool(host_ports),
+              "tenants_without_rows": int((~(took | fresh).any(dim=1)).sum())}
+    return moved, ops, shapes
+
+
+def slot_commit_line(records, axis, args) -> None:
+    """K23 on captured arguments, held exactly to its twin and timed, filed
+    under its record's ``axis``."""
+    from karpenter_core_tpu_torch.kernels import commit
+
+    moved, ops, shapes = slot_commit_work(*args)
+    axis_line(records, "slot_commit", axis, None, lambda: commit.slot_commit(*args),
+              lambda: commit.slot_commit_twin(*args), moved, ops, **shapes)
 
 
 def path_counts(results) -> dict:
@@ -1054,6 +1136,10 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
             stack = plain_stack
         del plain_stack
     coarse_sizes, coarse_out = search.passes[0]
+    # K23 at the lanes: the slot commit that took the most rows in a kernel
+    # rerun of the coarse pass
+    slot_commit_line(records, "lane_axis",
+                     captured_commit(lambda: consolidate_ops.run_lanes(prep, coarse_sizes)))
 
     # three lanes of the coarse pass alone: K8 for the one lane, its solo
     # solve_core through the kernels, K9 on its one-lane stack
@@ -2785,6 +2871,16 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     replica_fill_record(records, k1_args, pod_count, cls.count[0])
     del k1_args, pod_count
     torch.cuda.empty_cache()
+    # K23 at B = 147: the phase commit that took the most rows in one more
+    # chunk of the study's replicas
+    cls_b, sa_b = batch.repeat((cls, sa), largest)
+    sa_b = sa_b._replace(it_avail=avail[:largest].contiguous())
+    k23 = captured_commit(lambda: solve_ops.solve_core_batched(
+        cls_b, sa_b, n_slots, khb, n_passes=snapshot.scan_passes, features=ft), phase_only=True)
+    del cls_b, sa_b
+    slot_commit_line(records, "replica_axis", k23)
+    del k23
+    torch.cuda.empty_cache()
 
     # -- (d) the risk-weighted variants after the spot move --------------------
     provider, provisioners = build_provider(N_TYPES, N_PROVISIONERS)
@@ -3071,8 +3167,8 @@ def pipeline_path(records, path_launches) -> dict:
         fail(f"pipeline steady: the staging ring grew after the first tick ({first_bytes} -> "
              f"{last_bytes} bytes)")
     launches = deferred_b["launches"]
-    check_launched(launches, ("repair_free_inplace", "repair_scatter_inplace", "repair_gather"),
-                   "pipelined churn path")
+    check_launched(launches, ("repair_free_inplace", "repair_scatter_inplace", "repair_gather",
+                              "slot_commit"), "pipelined churn path")
     if launches["repair_free"] or launches["repair_scatter"]:
         fail(f"pipeline steady: K10 / K12 launched on the donating leg ({launches})")
     if serial_b["launches"]["repair_free_inplace"] or serial_b["launches"][
@@ -3207,7 +3303,7 @@ def main() -> None:
         fail("no CUDA device")
     from karpenter_core_tpu_torch import carry
     from karpenter_core_tpu_torch.kernels import (
-        build, capacity, classfinish, fill, packbits, reqmerge,
+        build, capacity, classfinish, commit, fill, packbits, reqmerge,
     )
     from karpenter_core_tpu_torch.models.columnar import PodIngest
     from karpenter_core_tpu_torch.ops import masks as mask_ops
@@ -3229,6 +3325,12 @@ def main() -> None:
 
     # -- 1. cold path --------------------------------------------------------
     solver, pods = build_inputs(N_PODS, N_TYPES, N_PROVISIONERS)
+
+    def fresh_ingest():
+        ingest = PodIngest()
+        ingest.add_all(pods)
+        return ingest
+
     reset_launches()
     solve_ops.host_syncs = 0
     runs = []
@@ -3402,6 +3504,16 @@ def main() -> None:
         nbytes(state.viable) + n_slots * ((n_types + 7) // 8),
         n_slots * n_types * 2,
     )
+    # K23 on the commit that took the most rows in one more warm solve
+    k23 = captured_commit(lambda: solver.solve(fresh_ingest()))
+    moved, ops, shapes = slot_commit_work(*k23)
+    record(
+        "slot_commit", "karpenter_core_tpu_torch/csrc/slot_commit.cu",
+        "karpenter_core_tpu/ops/solve.py:755", launches["slot_commit"],
+        lambda: commit.slot_commit(*k23), lambda: commit.slot_commit_twin(*k23), moved, ops,
+    )
+    records[-1]["shapes"] = shapes
+    del k23
 
     # extra cases: K1 with bounded keys (finite and infinite bounds) and a
     # zero-request class; K2 with warm-repair hole preferences
@@ -3473,7 +3585,8 @@ def main() -> None:
           "global stop; K17: an argmin, floors and a seeded stable sort with an audit; K18: "
           "a prefix over cells and a gather of slot rows; K19: a counter-based threefry draw "
           "and a threshold; K20: masked minima over offerings and sums in XLA's order; K22: "
-          "row copies into thirteen planes, two column copies and an add)",
+          "row copies into thirteen planes, two column copies and an add; K23: row selects "
+          "from three sources over thirteen planes, a compare of the K1 caps and an FMA)",
           flush=True)
     print(json.dumps({"chip_smoke_total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

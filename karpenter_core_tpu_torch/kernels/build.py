@@ -11,8 +11,8 @@ No ``--use_fast_math``: the capacity kernels' divides must round to nearest
 exactly as the reference does.  nvcc still contracts ``a * b + c`` into an
 FMA by default, so the sources whose float arithmetic must round as the
 reference's does (K6's ``used + a * req``, K7's water-fill, K10's eviction
-free, K13's scores, the relax family's K14-K18) spell it with the ``__f*_rn``
-intrinsics.  Libraries land in
+free, K13's scores, the relax family's K14-K18, K23's slot commit) spell it
+with the ``__f*_rn`` intrinsics.  Libraries land in
 ``karpenter_core_tpu_torch/_build/`` (git-ignored), named by a hash of the
 source and the headers, so an edited source or header rebuilds and a stale
 library is never loaded.
@@ -47,7 +47,7 @@ SOURCES = ("it_capacity", "fill_priority", "req_merge", "pack_bool", "existing_i
            "existing_phase", "spread_quota", "sweep_lanes", "lane_finish", "repair_free",
            "repair_gather", "repair_scatter", "select_offerings", "class_finish", "relax_cost",
            "simplex_pgd", "relax_round", "relax_materialize", "perturb_avail",
-           "replica_finish")
+           "replica_finish", "slot_commit")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,7 +9,7 @@ over E existing nodes and N node slots x I instance types — then records
 topology counts.  Without existing nodes the existing-node planes are one
 closed dummy row.
 
-Device work goes through seven hand-written CUDA kernels (``kernels/``):
+Device work goes through eight hand-written CUDA kernels (``kernels/``):
 
   K1 ``it_capacity``      viability + per-type capacity + row max
   K2 ``fill``             priority fill (stable sort + exclusive scan)
@@ -23,6 +23,9 @@ Device work goes through seven hand-written CUDA kernels (``kernels/``):
                           launch; or the caps and priorities alone, for a
                           fill with hole preferences), and the state commit
   K7 ``spread_quota``     the zone-spread quota rounds (water-fill)
+  K23 ``slot_commit``     the new-node slot state after a phase's or a
+                          committal block's pods land (open and fresh slots
+                          in one launch)
 
 A warm-start repair (``solver.incremental``) resumes the scan from a
 previous solve's final carry (``WarmCarry``) with only the delta pods
@@ -75,6 +78,7 @@ import torch
 from karpenter_core_tpu_torch.kernels import batch
 from karpenter_core_tpu_torch.kernels import capacity as k1
 from karpenter_core_tpu_torch.kernels import classfinish as k15
+from karpenter_core_tpu_torch.kernels import commit as k23
 from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import fill as k2
 from karpenter_core_tpu_torch.kernels import packbits as k4
@@ -83,7 +87,6 @@ from karpenter_core_tpu_torch.kernels import reqmerge as k3
 from karpenter_core_tpu_torch.kernels import spread as k7
 from karpenter_core_tpu_torch.kernels.capacity import BIG, INT32_MAX, UNLIMITED
 from karpenter_core_tpu_torch.kernels.existing import ExistingState
-from karpenter_core_tpu_torch.kernels.fp32 import fma_f32
 from karpenter_core_tpu_torch.models.snapshot import EncodedSnapshot
 from karpenter_core_tpu_torch.ops import masks as mask_ops
 
@@ -234,18 +237,21 @@ class Kernels(NamedTuple):
     scatter_window: object
     existing_mask_fill: object
     req_compat: object
+    slot_commit: object
 
 
 KERNELS = Kernels(k1.it_capacity, k2.fill_by_priority, k3.merge_compat, k4.pack_bool,
                   k56.existing_intake, k56.existing_mask, k56.existing_commit,
                   k7.spread_quota, k1012.repair_free, k1012.gather_window,
-                  k1012.scatter_window, k56.existing_mask_fill, k3.req_compat)
+                  k1012.scatter_window, k56.existing_mask_fill, k3.req_compat,
+                  k23.slot_commit)
 # the twins of the scan's kernels take the tenant axis as their wrappers do
 PLAIN = Kernels(k1.it_capacity_twin, k2.fill_by_priority_twin,
                 k3.merge_compat_twin, k4.pack_bool_plain, k56.existing_intake_twin,
                 k56.existing_mask_twin, k56.existing_commit_twin, k7.spread_quota_twin,
                 k1012.repair_free_plain, k1012.gather_window_plain,
-                k1012.scatter_window_plain, k56.existing_mask_fill_twin, k3.req_compat_twin)
+                k1012.scatter_window_plain, k56.existing_mask_fill_twin, k3.req_compat_twin,
+                k23.slot_commit_twin)
 
 
 class Statics(NamedTuple):
@@ -369,21 +375,6 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, at.expand((-1, 1) + tuple(x.shape[2:]))).squeeze(1)
 
 
-def _rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[b, idx[b, n]]``: per-tenant rows of ``x`` [B, T, ...] named by
-    ``idx`` [B, N], as [B, N, ...] (one gather)."""
-    at = idx.long().view(tuple(idx.shape) + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, at.expand(tuple(idx.shape) + tuple(x.shape[2:])))
-
-
-def _slot_used(base: torch.Tensor, assigned: torch.Tensor, requests: torch.Tensor):
-    """f32[B, N, R] = ``base + assigned * requests`` of a slot commit, one
-    fused multiply-add rounded once: the reference's jitted solve contracts
-    each slot commit (open and fresh slots, in the phases and the committal
-    block) into an FMA on the CPU, as it does the existing-node commit."""
-    return fma_f32(assigned[..., None].to(F32), requests[:, None, :], base)
-
-
 def _add_row(x: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """``x[b, idx[b]] += delta[b]`` for every tenant (the reference's
     ``.at[t].add``): one add per tenant, every other row untouched."""
@@ -411,6 +402,13 @@ def _select(on: torch.Tensor, new, old):
         return torch.where(on.view((-1,) + (1,) * (new.dim() - 1)), new, old)
     parts = [_select(on, a, b) for a, b in zip(new, old)]
     return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
+
+
+def _select_committed(on: torch.Tensor, out: tuple, old: tuple) -> tuple:
+    """``_select`` of a phase's or committal block's outputs whose slot state
+    K23 already kept for the tenants that skip it (``k23.keep_skipped``;
+    ``n_next`` too): only the rest is selected here."""
+    return (out[0],) + _select(on, tuple(out[1:]), tuple(old[1:]))
 
 
 def _cls_req(cls) -> mask_ops.ReqTensor:
@@ -529,11 +527,13 @@ def _phase_existing(ex, prep, cls, quota, zone_restrict, k: Kernels, extra_elig=
 
 def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_cap_vec,
            fresh_host_cap, remaining, extra_elig=None, max_new_nodes=None,
-           ft=ALL_FEATURES, pref=None):
+           ft=ALL_FEATURES, pref=None, on=None):
     """Place up to ``quota`` pods of the class on slots whose zone mask meets
     ``zone_restrict`` — open slots first (emptiest first), then fresh slots
-    from the first viable template.  Returns (state, assigned[B, N], placed,
-    remaining)."""
+    from the first viable template — and commit both in one K23 launch.
+    ``on`` [B] (None: every tenant) names the tenants the phase runs for:
+    the others keep their slot state and ``n_next``.  Returns (state,
+    assigned[B, N], placed, remaining)."""
     k = statics.k
     n_slots = state.used.shape[1]
     dev = state.used.device
@@ -567,22 +567,6 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     priority = torch.where(cap_n > 0, priority, INT32_MAX)
     assigned = _fill_with_pref(k, quota, cap_n, priority, pref)
     placed_existing = _isum(assigned, dim=-1)
-
-    sel = (assigned > 0)[..., None]
-    used = _slot_used(state.used, assigned, cls.requests)
-    kmask = torch.where(sel[..., None], merged.mask, state.kmask)
-    kdef = torch.where(sel, merged.defined, state.kdef)
-    kneg = torch.where(sel, merged.negative, state.kneg)
-    kgt = torch.where(sel, merged.gt, state.kgt)
-    klt = torch.where(sel, merged.lt, state.klt)
-    new_zone = torch.where(sel, zone_ok, state.zone)
-    new_ct = torch.where(sel, ct_ok, state.ct)
-    viable = torch.where(sel, it_ok & (cap_ni >= assigned[..., None]), state.viable)
-    ports_plane = (
-        torch.where(sel, state.ports | cls.ports[:, None, :], state.ports)
-        if ft.host_ports else state.ports
-    )
-    pod_count = state.pod_count + assigned
 
     # -- open fresh nodes (scheduler.go:192-217) ------------------------------
     rem = quota - placed_existing
@@ -639,34 +623,20 @@ def _phase(state: NodeState, cls, statics: Statics, quota, zone_restrict, host_c
     )
     placed_new = _isum(a_new, dim=-1)
 
-    seln = is_new[..., None]
-    used = torch.where(
-        seln,
-        _slot_used(_take(statics.tmpl_daemon, t_star)[:, None, :], a_new, cls.requests),
-        used,
-    )
-    kmask = torch.where(seln[..., None], _take(tmpl_merged.mask, t_star)[:, None], kmask)
-    kdef = torch.where(seln, _take(tmpl_merged.defined, t_star)[:, None], kdef)
-    kneg = torch.where(seln, _take(tmpl_merged.negative, t_star)[:, None], kneg)
-    kgt = torch.where(seln, _take(tmpl_merged.gt, t_star)[:, None], kgt)
-    klt = torch.where(seln, _take(tmpl_merged.lt, t_star)[:, None], klt)
-    new_zone = torch.where(seln, _take(t_zone, t_star)[:, None, :], new_zone)
-    new_ct = torch.where(seln, _take(t_ct, t_star)[:, None, :], new_ct)
-    fresh_viable = _take(t_it_ok, t_star)[:, None, :] & (
-        _take(t_cap_ti, t_star)[:, None, :] >= a_new[..., None])
-    viable = torch.where(seln, fresh_viable, viable)
-    if ft.host_ports:
-        ports_plane = torch.where(seln, (a_new > 0)[..., None] & cls.ports[:, None, :],
-                                  ports_plane)
-    pod_count = torch.where(is_new, a_new, pod_count)
-    tmpl_id = torch.where(is_new, _col(t_star.to(I32)), state.tmpl_id)
-    open_ = state.open_ | is_new
+    # -- the commit (K23): the open slots that took pods and the fresh slots
+    # (disjoint: fresh slots lie at or past n_next, where no slot is open)
+    a_all = assigned + a_new
+    src = k23.SlotSource(
+        a_all, torch.where(is_new, _col(t_star.to(I32)), -1), None, merged, tmpl_merged,
+        zone_ok, t_zone, ct_ok, t_ct, (it_ok,), (cap_ni,), (t_it_ok,), (t_cap_ti,))
+    planes = k.slot_commit(state, k23.keep_skipped(src, on), cls.ports, cls.requests,
+                           statics.tmpl_daemon, ft.host_ports)
     n_next = state.n_next + n_new
+    if on is not None:
+        n_next = torch.where(on, n_next, state.n_next)
 
     remaining = _add_row(remaining, t_star, _col(-n_new.to(F32)) * max_cap_star)
-    new_state = NodeState(used, kmask, kdef, kneg, kgt, klt, new_zone, new_ct, viable,
-                          ports_plane, pod_count, tmpl_id, open_, n_next)
-    return new_state, assigned + a_new, placed_existing + placed_new, remaining
+    return NodeState(*planes, n_next), a_all, placed_existing + placed_new, remaining
 
 
 def _zone_counts(counts: torch.Tensor, zone_i: torch.Tensor) -> torch.Tensor:
@@ -830,9 +800,10 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         state_o, a_new, placed_new, rem_o = _phase(
             state, cls, statics, q_new, restrict, host_cap_new, fresh_host_cap, remaining,
             extra_elig=extra_new, max_new_nodes=max_new_nodes, ft=ft, pref=pref_new,
+            on=None if all_on else on,
         )
         out = (state_o, ex_o, a_new, a_ex, placed_ex + placed_new, rem_o)
-        return out if all_on else _select(on, out, skipped())
+        return out if all_on else _select_committed(on, out, skipped())
 
     def committal_block(quota_z, cap_total):
         """All zone-committal phases of one family (zone spread quotas /
@@ -884,11 +855,12 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         zex = zeros_ex
         taken_new = torch.zeros((n_b, n_new_slots), dtype=torch.bool, device=dev)
         a_open_acc = zeros_new
-        zopen = zeros_new
+        # the zone each slot took pods in, open or fresh (a slot takes pods
+        # in one zone at most; fresh slots were not open at the start)
+        zrow = zeros_new
         fresh_t = torch.full((n_b, n_new_slots), -1, dtype=I32, device=dev)
         fresh_a = zeros_new
-        fresh_z = zeros_new
-        fresh_viable = torch.zeros_like(state_i.viable)
+        t_ok_z, t_cap_z = [], []
         n_next = state_i.n_next
         placed = zero
         slot_idx = _ar(n_new_slots, dev)[None, :]
@@ -915,7 +887,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             took_n = a_op > 0
             taken_new = taken_new | took_n
             a_open_acc = a_open_acc + a_op
-            zopen = torch.where(took_n, z, zopen).to(I32)
+            zrow = torch.where(took_n, z, zrow).to(I32)
             # then fresh slots from the first viable template for the zone
             rem_pods = q2 - placed_op
             within = (
@@ -925,6 +897,8 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
                 statics, statics.tmpl_it & within, cls, tmpl_merged,
                 _onehot_rows(n_b, n_tmpl, n_zones, z, dev), t_ct, statics.tmpl_daemon,
             )
+            t_ok_z.append(t_it_ok)
+            t_cap_z.append(t_cap_ti)
             t_viable = cls.tol & tmpl_key_ok & t_zone_cls[..., z] & t_ct_any & (t_cap > 0)
             t_star = _argmax_first(t_viable)
             t_ok = _take(t_viable, t_star)
@@ -958,10 +932,7 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
             )
             fresh_t = torch.where(is_new, _col(t_star.to(I32)), fresh_t)
             fresh_a = fresh_a + a_fr
-            fresh_z = torch.where(is_new, z, fresh_z).to(I32)
-            fv_row = _take(t_it_ok, t_star)[:, None, :] & (
-                _take(t_cap_ti, t_star)[:, None, :] >= a_fr[..., None])
-            fresh_viable = torch.where(is_new[..., None], fv_row, fresh_viable)
+            zrow = torch.where(is_new, z, zrow).to(I32)
             rem = _add_row(rem, t_star, _col(-n_new.to(F32)) * max_cap_star)
             n_next = n_next + n_new
             placed = placed + placed_ex + placed_op + _isum(a_fr, dim=-1)
@@ -970,54 +941,18 @@ def _class_step(statics: Statics, ex_static: ExistingStatic, n_zones: int, carry
         zar = torch.arange(n_zones, device=dev)
         zhot_e = (zar == zex[..., None]) & (a_ex_acc > 0)[..., None]
         ex_o = _commit_existing(k, ex_i, ex_prep, cls, a_ex_acc, zhot_e, ft)
-        took_o = a_open_acc > 0
-        is_fresh = fresh_t >= 0
-        tmpl_idx = torch.clamp(fresh_t, min=0).long()
-        sel_o = took_o[..., None]
-        sel_f = is_fresh[..., None]
-        zhot_o = (zar == zopen[..., None]) & sel_o
-        zhot_f = (zar == fresh_z[..., None]) & sel_f
-        used = _slot_used(state_i.used, a_open_acc, cls.requests)
-        used = torch.where(
-            sel_f, _slot_used(_rows_at(statics.tmpl_daemon, tmpl_idx), fresh_a, cls.requests),
-            used,
-        )
-        kmask = torch.where(sel_o[..., None], merged.mask, state_i.kmask)
-        kmask = torch.where(sel_f[..., None], _rows_at(tmpl_merged.mask, tmpl_idx), kmask)
-        kdef = torch.where(sel_o, merged.defined, state_i.kdef)
-        kdef = torch.where(sel_f, _rows_at(tmpl_merged.defined, tmpl_idx), kdef)
-        kneg = torch.where(sel_o, merged.negative, state_i.kneg)
-        kneg = torch.where(sel_f, _rows_at(tmpl_merged.negative, tmpl_idx), kneg)
-        kgt = torch.where(sel_o, merged.gt, state_i.kgt)
-        kgt = torch.where(sel_f, _rows_at(tmpl_merged.gt, tmpl_idx), kgt)
-        klt = torch.where(sel_o, merged.lt, state_i.klt)
-        klt = torch.where(sel_f, _rows_at(tmpl_merged.lt, tmpl_idx), klt)
-        zone = torch.where(sel_o, zhot_o, state_i.zone)
-        zone = torch.where(sel_f, zhot_f, zone)
-        ct = torch.where(sel_o, ct_ok, state_i.ct)
-        ct = torch.where(sel_f, _rows_at(t_ct, tmpl_idx), ct)
-        # the reference's v_open & (cap_ni >= a) — the zone's masked capacity
-        # equals cap_ni wherever v_open holds
-        v_open, c_open = viable_z[0], capm_z[0]
-        for z in range(1, n_zones):
-            at_z = (zopen == z)[..., None]
-            v_open = torch.where(at_z, viable_z[z], v_open)
-            c_open = torch.where(at_z, capm_z[z], c_open)
-        viable = torch.where(sel_o, v_open & (c_open >= a_open_acc[..., None]), state_i.viable)
-        viable = torch.where(sel_f, fresh_viable, viable)
-        if ft.host_ports:
-            ports_pl = torch.where(sel_o, state_i.ports | cls.ports[:, None, :], state_i.ports)
-            ports_pl = torch.where(sel_f, (fresh_a > 0)[..., None] & cls.ports[:, None, :],
-                                   ports_pl)
-        else:
-            ports_pl = state_i.ports
-        pod_count = state_i.pod_count + a_open_acc
-        pod_count = torch.where(is_fresh, fresh_a, pod_count)
-        tmpl_id = torch.where(is_fresh, tmpl_idx.to(I32), state_i.tmpl_id)
-        state_o = NodeState(used, kmask, kdef, kneg, kgt, klt, zone, ct, viable, ports_pl,
-                            pod_count, tmpl_id, state_i.open_ | is_fresh, n_next)
+        # the slots (K23): the open ones that took pods and the fresh ones,
+        # each row's zone picking its K1 planes and its one-hot zone mask
+        src = k23.SlotSource(
+            a_open_acc + fresh_a, fresh_t, zrow, merged, tmpl_merged, None, None, ct_ok, t_ct,
+            tuple(viable_z), tuple(capm_z), tuple(t_ok_z), tuple(t_cap_z))
+        planes = k.slot_commit(state_i, k23.keep_skipped(src, None if all_on else on),
+                               cls.ports, cls.requests, statics.tmpl_daemon, ft.host_ports)
+        if not all_on:
+            n_next = torch.where(on, n_next, state_i.n_next)
+        state_o = NodeState(*planes, n_next)
         out = (state_o, ex_o, a_open_acc + fresh_a, a_ex_acc, placed, rem)
-        return out if all_on else _select(on, out, skipped())
+        return out if all_on else _select_committed(on, out, skipped())
 
     # zones some template can serve for this class, or where an eligible
     # existing node with intake left sits

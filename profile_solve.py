@@ -19,7 +19,11 @@ one JSON object with:
     single calls include;
   - every kind of device copy and memset, with its count (a device-to-host
     copy is a point where the host waited for the device);
-  - the ten device operations that took the most device time.
+  - the ten device operations that took the most device time, by their whole
+    kernel names, and, with ``--montecarlo``, the ten torch operators whose
+    kernels took the most, each with the input shapes it ran on
+    (``record_shapes`` adds host work to every op, so the other profiles,
+    whose walls and busy shares it would move, are taken without it).
 
 With ``--consolidation`` the profiled call is instead a warm multi-node
 consolidation of that 5,000-node cluster (``CudaConsolidationSearch.
@@ -117,6 +121,7 @@ PORT_KERNELS = {
     "perturb_avail_kernel": "perturb_avail",
     "replica_finish_kernel": "replica_finish",
     "replica_rank_kernel": "replica_finish (rank)",
+    "slot_commit_kernel": "slot_commit",
 }
 
 
@@ -159,9 +164,25 @@ def device_summary(prof) -> dict:
         "port_kernels": kernels,
         "copies": copies,
         "top_device_ops": [
-            {"op": e.key[:80], "count": e.count, "device_us": _device_us(e)} for e in top
+            {"op": e.key, "count": e.count, "device_us": _device_us(e)} for e in top
         ],
+        "top_host_ops": top_host_ops(prof),
     }
+
+
+def top_host_ops(prof) -> list:
+    """The ten torch operators (by name and input shapes) whose own kernels
+    took the most device time; empty when the profile traced no CPU side or
+    recorded no shapes."""
+    ops = [
+        e for e in prof.key_averages(group_by_input_shape=True)
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
+        and getattr(e, "input_shapes", None)
+    ]
+    top = sorted(ops, key=_device_us, reverse=True)[:10]
+    return [{"op": e.key, "input_shapes": [list(s) if isinstance(s, (list, tuple)) else s
+                                           for s in e.input_shapes],
+             "count": e.count, "device_us": _device_us(e)} for e in top]
 
 
 def profile_consolidation(prof_factory, smi: str) -> tuple:
@@ -401,7 +422,8 @@ def main() -> None:
                 lambda: profile(activities=[ProfilerActivity.CUDA]), smi.stdout.strip())
         elif args.montecarlo:
             prof, report = profile_montecarlo(
-                lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                record_shapes=True),
                 smi.stdout.strip())
         elif args.tenants:
             prof, report = profile_tenants(

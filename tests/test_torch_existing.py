@@ -54,6 +54,7 @@ import karpenter_core_tpu_torch.testing as ttesting
 from karpenter_core_tpu.ops import solve as jsolve
 from karpenter_core_tpu.solver.tpu import TPUSolver
 from karpenter_core_tpu.ops import masks as jmasks
+from karpenter_core_tpu_torch.kernels import commit as k23
 from karpenter_core_tpu_torch.kernels import existing as k56
 from karpenter_core_tpu_torch.kernels import reqmerge as k3
 from karpenter_core_tpu_torch.kernels import spread as k7
@@ -418,8 +419,8 @@ def test_torch_slot_commit_non_binary_requests_match_reference(cpu, memory, seed
     both whole solves: every leaf bit for bit.  Pods of two classes share
     new slots, so a slot's usage is ``used + a * req`` over a usage that is
     not 0.  The reference's jitted scan contracts each slot commit into one
-    FMA, and the port's ``_slot_used`` takes one too; on these inputs a
-    commit that rounds twice gives other floats.  The first case tells the
+    FMA, and the port's slot commit (K23's twin, ``kernels.commit``) takes one
+    too; on these inputs a commit that rounds twice gives other floats.  The first case tells the
     phases' open and fresh slots and the committal block's fresh slots
     apart from two roundings, the second the committal block's open slots."""
     solver, pods = workloads.build_inputs(700, 50, 5, device="cpu")
@@ -443,10 +444,10 @@ def test_torch_slot_commit_non_binary_requests_match_reference(cpu, memory, seed
     assert ((np.asarray(jout.assign) > 0).sum(axis=0) >= 2).any()  # shared slots
     _assert_leaves_equal(jout, solver.run_prepared(tprep), "slot commit")
 
-    def rounded_twice(base, assigned, requests):
-        return base + assigned[..., None].to(torch.float32) * requests[:, None, :]
+    def rounded_twice(a, b, c):
+        return a * b + c  # float32: the product rounded, then the sum
 
-    monkeypatch.setattr(tsolve, "_slot_used", rounded_twice)
+    monkeypatch.setattr(k23, "fma_f32", rounded_twice)
     twice = solver.run_prepared(tprep).state.used.numpy()
     assert (twice != np.asarray(jout.state.used)).any()
 

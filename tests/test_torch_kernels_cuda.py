@@ -19,6 +19,7 @@ from karpenter_core_tpu_torch.kernels import (
     batch,
     capacity,
     classfinish,
+    commit,
     consolidate,
     existing,
     fill,
@@ -1124,3 +1125,103 @@ def test_class_planes_with_the_class_axis_match_plain(card, n_pods, n_types):
         launched = (capacity.launches - k1, reqmerge.launches - k3)
         assert launched == ((1, 1) if use else (0, 0))
     _equal(planes[True], planes[False])
+
+
+# -- K23: the slot commit --------------------------------------------------------
+
+
+def _slot_commit_case(rng, dev, n_b, n, n_types, site, host_ports, skip, t=5, k=8, v=9, z=3,
+                      ct=2, p=4, r=3):
+    """A random slot state [B, N, ...] and the sources of one commit: open
+    rows that took pods below each tenant's n_next, a run of fresh rows from
+    random templates past it (one of them given no pods), K1 planes with
+    caps around the pod counts, one zone set (a phase) or Z with a zone
+    index a row (the committal block), and with ``skip`` some tenants off
+    (every row of theirs kept, as ``commit.keep_skipped`` gives them)."""
+    def b(*shape, p_=0.5):
+        return torch.as_tensor(rng.random(shape) < p_).to(dev)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+    def req(rows):
+        return mask_ops.ReqTensor(*(x.reshape((n_b, rows) + x.shape[1:])
+                                    for x in _req(rng, n_b * rows, k, v, True, dev)))
+
+    node = req(n)
+    state = solve_ops.NodeState(
+        f32(rng.integers(0, 64, (n_b, n, r)) * 0.1), node.mask, node.defined, node.negative,
+        node.gt, node.lt, b(n_b, n, z), b(n_b, n, ct), b(n_b, n, n_types), b(n_b, n, p, p_=0.2),
+        i32(rng.integers(0, 30, (n_b, n))), i32(rng.integers(0, t, (n_b, n))),
+        b(n_b, n, p_=0.6), i32(np.zeros(n_b)))
+    a = np.where(rng.random((n_b, n)) < 0.3, rng.integers(1, 7, (n_b, n)), 0)
+    fresh_t = np.full((n_b, n), -1)
+    for bi in range(n_b):
+        start = int(rng.integers(0, n))
+        stop = min(n, start + int(rng.integers(1, max(2, n // 4))))
+        fresh_t[bi, start:stop] = rng.integers(0, t, stop - start)
+        a[bi, start:stop] = rng.integers(1, 9, stop - start)
+        a[bi, start] = 0  # a fresh row given no pods
+    n_vz = 1 if site == "phase" else z
+    src = commit.SlotSource(
+        i32(a), i32(fresh_t), i32(rng.integers(0, z, (n_b, n))) if site == "committal" else None,
+        req(n), req(t), b(n_b, n, z) if site == "phase" else None,
+        b(n_b, t, z) if site == "phase" else None, b(n_b, n, ct), b(n_b, t, ct),
+        tuple(b(n_b, n, n_types, p_=0.7) for _ in range(n_vz)),
+        tuple(i32(rng.integers(-1, 9, (n_b, n, n_types))) for _ in range(n_vz)),
+        tuple(b(n_b, t, n_types, p_=0.7) for _ in range(n_vz)),
+        tuple(i32(rng.integers(-1, 9, (n_b, t, n_types))) for _ in range(n_vz)))
+    on = b(n_b, p_=0.5) if skip else None
+    if skip:
+        on[0], on[-1] = True, False
+    return (state, commit.keep_skipped(src, on), b(n_b, p, p_=0.4),
+            f32((rng.integers(1, 20, (n_b, r)) * 0.1)), f32(rng.integers(1, 20, (n_b, t, r)) * 0.1),
+            host_ports)
+
+
+def _misaligned(x):
+    """A copy of ``x`` one element into a larger buffer: contiguous, on no
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("site", ["phase", "committal"])
+@pytest.mark.parametrize("n_b,n,n_types,host_ports,skip", [
+    (1, 8192, 1000, True, False),     # the cold path's shape; I off the 16-byte vector
+    (1, 8192, 1000, False, False),
+    (8, 1024, 1000, True, False),     # eight tenants
+    (8, 1024, 1024, False, False),    # I a multiple of 16
+    (24, 512, 1000, True, True),      # a replica chunk, some replicas skipped
+    (24, 512, 1000, False, True),
+    (3, 77, 13, True, True),          # rows narrower than one vector
+])
+def test_slot_commit_matches_plain(card, site, n_b, n, n_types, host_ports, skip):
+    rng = np.random.default_rng(n_b * 1000 + n + n_types + host_ports + 7 * skip)
+    args = _slot_commit_case(rng, card, n_b, n, n_types, site, host_ports, skip)
+    before = commit.launches
+    got = commit.slot_commit(*args)
+    assert commit.launches == before + 1
+    want = commit.slot_commit_twin(*args)
+    _equal(got, want)
+    if not host_ports:  # the ports plane handed back as it is, by both
+        assert got[9] is args[0].ports and want[9] is args[0].ports
+    fresh = args[1].fresh_t >= 0
+    assert bool(fresh.any()) and bool(((args[1].a > 0) & ~fresh).any())
+    if skip:  # the last tenant is off: every plane of its rows is its input
+        for new, old in zip(got, args[0]):
+            assert torch.equal(new[-1], old[-1])
+
+
+@pytest.mark.parametrize("site", ["phase", "committal"])
+def test_slot_commit_misaligned_planes_match_plain(card, site):
+    """Every plane on no 16-byte boundary: the viable rows go byte by byte."""
+    rng = np.random.default_rng(23)
+    state, src, *rest = _slot_commit_case(rng, card, 2, 700, 1000, site, True, False)
+    state, src, rest = batch.tree_map(_misaligned, (state, src, tuple(rest)))
+    _equal(commit.slot_commit(state, src, *rest), commit.slot_commit_twin(state, src, *rest))
