@@ -23,7 +23,9 @@ in ``karpenter_core_tpu_torch/csrc`` (one nvcc per source, all at once), then:
   2. kernels K1-K4, K15 and K23 — each against its plain twin on the card,
      on inputs taken from the cold path's final state and encode (their real
      shapes; K23 on the arguments of the commit that took the most rows in
-     a further warm solve), plus a small bounded-keys case for K1, a hole-preference case
+     a further warm solve, written in place into a clone of that commit's
+     state, restored before each timed call, while its twin reads the
+     state as it was), plus a small bounded-keys case for K1, a hole-preference case
      for K2, K2 on a sorted input (the same caps with index priorities, as
      the existing-node fills give it: ``sorted_input`` in its record) and
      K2's multi-block path at N = 32,768 (the main path's plane four times
@@ -172,8 +174,9 @@ in ``karpenter_core_tpu_torch/csrc`` (one nvcc per source, all at once), then:
      the twins' batch leaf for leaf; K19 (both modes, at [1,024, 1,000, 3,
      2]) and K20 (on the study's last chunk) against their twins, and K1,
      K2, K3 and K7 at the largest chunk's B = 147 replicas
-     (``replica_axis``), and K23 on the phase commit that took the most rows
-     in one more chunk of 147 replicas (``replica_axis``); (d)
+     (``replica_axis``), and K23 on the phase commits that took the most
+     and the fewest rows in one more chunk of 147 replicas (``replica_axis``
+     and its ``fewest_rows`` entry); (d)
      ``policy_monte_carlo`` at 1,024 replicas, seed 5, after the policy
      benchmark's spot move with every spot offering at interruption rate
      0.3: the same pins, with ``best_replica`` and ``expected_cost``
@@ -388,14 +391,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of one call, by CUDA events, after a warm-up."""
+def time_ms(fn, reps: int = 20, reset=None) -> float:
+    """Median milliseconds of one call, by CUDA events, after a warm-up;
+    ``reset()`` (an in-place kernel's inputs restored) runs before each
+    call, outside its events."""
+    reset = reset or (lambda: None)
+    reset()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        reset()
         start.record()
         fn()
         end.record()
@@ -420,14 +428,17 @@ def sleep_cycles_per_ms() -> float:
     return _CYCLES_PER_MS[0]
 
 
-def device_ms(fn, wall_ms: float, reps: int = 20):
+def device_ms(fn, wall_ms: float, reps: int = 20, reset=None):
     """Median device milliseconds of one call, host time excluded: ``reps``
     calls, each between its own pair of CUDA events, queued behind a
     ``torch.cuda._sleep`` long enough (twice the calls' wall time) that the
     host has enqueued them all before the card starts.  That is checked: an
     event recorded right after the sleep must still be pending once the
     last call is queued, else the sleep is lengthened fourfold and the calls
-    run again (three tries).  Returns (ms, queued)."""
+    run again (three tries).  ``reset()`` runs before each call, between
+    its events and the previous call's.  Returns (ms, queued)."""
+    reset = reset or (lambda: None)
+    reset()
     fn()
     torch.cuda.synchronize()
     sleep_ms = 2.0 * reps * wall_ms + 1.0
@@ -438,6 +449,7 @@ def device_ms(fn, wall_ms: float, reps: int = 20):
         torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
         gate.record()
         for start, end in pairs:
+            reset()
             start.record()
             fn()
             end.record()
@@ -579,17 +591,21 @@ K1_WORK = {}
 
 
 def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_fn, moved, ops,
-                  library_fn=None, plain_reps=20):
+                  library_fn=None, plain_reps=20, reset=None):
     """Hold one kernel against its plain twin (exactly), time both (and the
     one PyTorch call that computes the same function, where there is one),
-    and append the kernel's record; returns the kernel's outputs."""
+    and append the kernel's record; returns the kernel's outputs.
+    ``reset()`` restores an in-place kernel's operands before each of its
+    calls, outside the timed region."""
+    if reset is not None:
+        reset()
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err != 0.0:
         fail(f"{name}: kernel differs from its plain twin (max_abs_err {err})")
-    wall = time_ms(kernel_fn)
-    dev_ms, queued = device_ms(kernel_fn, wall)
+    wall = time_ms(kernel_fn, reset=reset)
+    dev_ms, queued = device_ms(kernel_fn, wall, reset=reset)
     rec = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches_n, "max_abs_err": err,
@@ -613,21 +629,23 @@ def record_kernel(records, name, source, replaces, launches_n, kernel_fn, plain_
 
 
 def axis_line(records, name, axis, entry, kernel_fn, plain_fn, moved, ops, plain_reps=3,
-              timed=False, **extra):
+              timed=False, reset=None, **extra):
     """Hold one more call of kernel ``name`` against its twin (exactly), time
-    it as the kernel line's calls are (``ms``, ``device_ms``, ``plain_ms``),
-    bound it from ``moved`` bytes and ``ops``, and file it under the kernel
-    record's ``axis`` (``entry`` names it there, or None for the axis
-    itself), with the seconds the line took as ``record_s`` when ``timed``;
-    returns the kernel's outputs."""
+    it as the kernel line's calls are (``ms``, ``device_ms``, ``plain_ms``;
+    ``reset`` as in ``record_kernel``), bound it from ``moved`` bytes and
+    ``ops``, and file it under the kernel record's ``axis`` (``entry`` names
+    it there, or None for the axis itself), with the seconds the line took
+    as ``record_s`` when ``timed``; returns the kernel's outputs."""
     t0 = time.perf_counter()
+    if reset is not None:
+        reset()
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err != 0.0:
         fail(f"{name} {axis} {entry or ''}: kernel differs from its twin (max_abs_err {err})")
-    wall = time_ms(kernel_fn)
-    dev_ms, queued = device_ms(kernel_fn, wall)
+    wall = time_ms(kernel_fn, reset=reset)
+    dev_ms, queued = device_ms(kernel_fn, wall, reset=reset)
     rec = {**extra, "max_abs_err": err, "ms": wall, "device_ms": dev_ms,
            "plain_ms": time_ms(plain_fn, plain_reps), **bound(moved, ops)}
     if not queued:
@@ -662,45 +680,75 @@ def commit_bytes(ex, merge, zone_new, ct_ok, cls_ports, vol_add, per_pod, reques
     return moved
 
 
-def captured_commit(run, phase_only=False):
+def captured_commits(run, phase_only=False) -> dict:
     """``run()`` with the scan's slot commit (K23) spied on: returns the
     arguments of the call that committed the most rows (open rows that took
-    pods and fresh rows), of a phase's commits only with ``phase_only`` (one
-    pair of K1 planes where the committal block holds one a zone).  Counting
-    the rows reads the host once a call."""
+    pods and fresh rows) under ``"most"`` and of the call that committed the
+    fewest under ``"fewest"``, of a phase's commits only with ``phase_only``
+    (one pair of K1 planes where the committal block holds one a zone).
+    K23 writes into the state it is given, so a kept call's state is cloned
+    before the kernel runs.  Counting the rows reads the host once a call."""
     from karpenter_core_tpu_torch.ops import solve as solve_ops
 
     kernels = solve_ops.KERNELS
-    best = {"rows": -1, "args": None}
+    best = {"most": (-1, None), "fewest": (None, None)}
 
     def spy(state, src, *rest):
-        out = kernels.slot_commit(state, src, *rest)
         if not (phase_only and src.zone_idx is not None):
             rows = int(((src.a > 0) | (src.fresh_t >= 0)).sum())
-            if rows > best["rows"]:
-                best.update(rows=rows, args=(state, src, *rest))
-        return out
+            most, fewest = best["most"][0], best["fewest"][0]
+            if rows > most or fewest is None or rows < fewest:
+                kept = (clone_tree(state), src, *rest)
+                if rows > most:
+                    best["most"] = (rows, kept)
+                if fewest is None or rows < fewest:
+                    best["fewest"] = (rows, kept)
+        return kernels.slot_commit(state, src, *rest)
 
     solve_ops.KERNELS = kernels._replace(slot_commit=spy)
     try:
         run()
     finally:
         solve_ops.KERNELS = kernels
-    if best["args"] is None:
+    if best["most"][1] is None:
         fail("slot_commit: the spied run made no commit")
-    return best["args"]
+    return {key: args for key, (_, args) in best.items()}
+
+
+def commit_calls(args, in_place=True) -> tuple:
+    """(kernel, twin, reset) of K23 on captured arguments: the kernel writes
+    into a clone of the captured state (and must return that clone's own
+    tensors, unless ``in_place`` is false), which ``reset`` restores from
+    the capture; the twin reads the capture itself, which nothing writes."""
+    from karpenter_core_tpu_torch.kernels import commit
+
+    state, src, *rest = args
+    work = clone_tree(state)
+
+    def kernel():
+        out = commit.slot_commit(work, src, *rest)
+        if in_place and any(o is not w for o, w in zip(out, work)):
+            fail("slot_commit: the kernel returned other tensors than the state's own")
+        return out
+
+    def reset():
+        for w, s in zip(work, state):
+            w.copy_(s)
+
+    return kernel, lambda: commit.slot_commit_twin(state, src, *rest), reset
 
 
 def slot_commit_work(state, src, cls_ports, requests, tmpl_daemon, host_ports):
     """(bytes, operations, shapes) of one K23 call on these inputs, as its
-    rows need them: every output plane written once (``ports`` only with
-    host ports on: off, it is handed back) and each row's source read once;
-    a kept row reads its old row of each of those planes; an open row that
-    took pods its old used, pod count, template and open flag (and ports),
-    its merged, ct (and, in a phase, zone) rows and its zone set's K1 bool
-    and int32 a type; a fresh row nothing old; the template planes and the
-    class vectors are read once.  Operations: a compare and an AND a type
-    and an FMA a resource of every row that took pods or opened."""
+    rows need them.  Every row's source is read (``a``, ``fresh_t`` and, in
+    the committal block, ``zone_idx``); a kept row costs nothing more.  An
+    open row that took pods reads its old used, pod count (and ports), its
+    merged, ct (and, in a phase, zone) rows and its zone set's K1 bool and
+    int32 a type, and writes its row of every plane but the template and
+    open flags; a fresh row reads nothing old and writes its row of every
+    plane; the template planes and the class vectors are read once.
+    Operations: a compare and an AND a type and an FMA a resource of every
+    row that took pods or opened."""
     planes = [state.used, state.kmask, state.kdef, state.kneg, state.kgt, state.klt, state.zone,
               state.ct, state.viable, state.pod_count, state.tmpl_id, state.open_]
     if host_ports:
@@ -714,12 +762,13 @@ def slot_commit_work(state, src, cls_ports, requests, tmpl_daemon, host_ports):
     def row(*tensors):  # bytes a row of [B, N, ...] planes
         return nbytes(*tensors) // (n_b * n)
 
-    open_row = (row(state.used, state.pod_count, state.tmpl_id, state.open_, src.merged,
-                    src.ct_ok, src.zone_ok) + n_types * 5
-                + (row(state.ports) if host_ports else 0))
-    moved = (nbytes(*planes) + n_keep * row(*planes) + n_open * open_row
-             + nbytes(src.a, src.fresh_t, src.zone_idx, requests, tmpl_daemon, src.tmpl_merged,
-                      src.t_zone, src.t_ct, src.t_ok, src.t_cap)
+    open_read = (row(state.used, state.pod_count, src.merged, src.ct_ok, src.zone_ok)
+                 + n_types * 5 + (row(state.ports) if host_ports else 0))
+    open_write = row(*planes) - row(state.tmpl_id, state.open_)
+    moved = (nbytes(src.a, src.fresh_t, src.zone_idx) + n_open * (open_read + open_write)
+             + n_fresh * row(*planes)
+             + nbytes(requests, tmpl_daemon, src.tmpl_merged, src.t_zone, src.t_ct, src.t_ok,
+                      src.t_cap)
              + (nbytes(cls_ports) if host_ports else 0))
     ops = (n_open + n_fresh) * (2 * n_types + 2 * state.used.shape[2])
     shapes = {"B": n_b, "N": n, "I": n_types, "zone_sets": len(src.ok),
@@ -730,14 +779,14 @@ def slot_commit_work(state, src, cls_ports, requests, tmpl_daemon, host_ports):
     return moved, ops, shapes
 
 
-def slot_commit_line(records, axis, args) -> None:
-    """K23 on captured arguments, held exactly to its twin and timed, filed
-    under its record's ``axis``."""
-    from karpenter_core_tpu_torch.kernels import commit
-
+def slot_commit_line(records, axis, args, entry=None) -> None:
+    """K23 on captured arguments, held exactly to its twin and timed (the
+    kernel on a clone of the captured state, restored before each call),
+    filed under its record's ``axis`` (and ``entry``)."""
     moved, ops, shapes = slot_commit_work(*args)
-    axis_line(records, "slot_commit", axis, None, lambda: commit.slot_commit(*args),
-              lambda: commit.slot_commit_twin(*args), moved, ops, **shapes)
+    kernel, twin, reset = commit_calls(args)
+    axis_line(records, "slot_commit", axis, entry, kernel, twin, moved, ops, reset=reset,
+              **shapes)
 
 
 def path_counts(results) -> dict:
@@ -1139,7 +1188,7 @@ def consolidation_path(records, mid_cluster, cluster, cold_launches, existing_la
     # K23 at the lanes: the slot commit that took the most rows in a kernel
     # rerun of the coarse pass
     slot_commit_line(records, "lane_axis",
-                     captured_commit(lambda: consolidate_ops.run_lanes(prep, coarse_sizes)))
+                     captured_commits(lambda: consolidate_ops.run_lanes(prep, coarse_sizes))["most"])
 
     # three lanes of the coarse pass alone: K8 for the one lane, its solo
     # solve_core through the kernels, K9 on its one-lane stack
@@ -2871,14 +2920,15 @@ def whatif_path(records, path_launches, solver, pods, solo_out, crossed_launches
     replica_fill_record(records, k1_args, pod_count, cls.count[0])
     del k1_args, pod_count
     torch.cuda.empty_cache()
-    # K23 at B = 147: the phase commit that took the most rows in one more
-    # chunk of the study's replicas
+    # K23 at B = 147: the phase commits that took the most and the fewest
+    # rows in one more chunk of the study's replicas
     cls_b, sa_b = batch.repeat((cls, sa), largest)
     sa_b = sa_b._replace(it_avail=avail[:largest].contiguous())
-    k23 = captured_commit(lambda: solve_ops.solve_core_batched(
+    k23 = captured_commits(lambda: solve_ops.solve_core_batched(
         cls_b, sa_b, n_slots, khb, n_passes=snapshot.scan_passes, features=ft), phase_only=True)
     del cls_b, sa_b
-    slot_commit_line(records, "replica_axis", k23)
+    slot_commit_line(records, "replica_axis", k23["most"])
+    slot_commit_line(records, "replica_axis", k23["fewest"], "fewest_rows")
     del k23
     torch.cuda.empty_cache()
 
@@ -3505,15 +3555,16 @@ def main() -> None:
         n_slots * n_types * 2,
     )
     # K23 on the commit that took the most rows in one more warm solve
-    k23 = captured_commit(lambda: solver.solve(fresh_ingest()))
+    k23 = captured_commits(lambda: solver.solve(fresh_ingest()))["most"]
     moved, ops, shapes = slot_commit_work(*k23)
+    k23_kernel, k23_twin, k23_reset = commit_calls(k23)
     record(
         "slot_commit", "karpenter_core_tpu_torch/csrc/slot_commit.cu",
         "karpenter_core_tpu/ops/solve.py:755", launches["slot_commit"],
-        lambda: commit.slot_commit(*k23), lambda: commit.slot_commit_twin(*k23), moved, ops,
+        k23_kernel, k23_twin, moved, ops, reset=k23_reset,
     )
     records[-1]["shapes"] = shapes
-    del k23
+    del k23, k23_kernel, k23_twin, k23_reset
 
     # extra cases: K1 with bounded keys (finite and infinite bounds) and a
     # zero-request class; K2 with warm-repair hole preferences

@@ -1,23 +1,34 @@
 """K23: the slot commit of a placement phase or a zone-committal block.
 
 ``slot_commit(state, src, cls_ports, requests, tmpl_daemon, host_ports)``
-returns the new-node slot planes after a fill's pods land, in
+commits a fill's pods into the new-node slot planes IN PLACE: it writes
+into ``state``'s own planes and returns those same tensors, in
 ``NodeState``'s order without ``n_next`` (used, kmask, kdef, kneg, kgt, klt,
 zone, ct, viable, ports, pod_count, tmpl_id, open_).  It replaces the
 commits of ``_phase`` (karpenter_core_tpu/ops/solve.py:755-772, the open
 slots, and :851-870, the fresh slots) and of the fused committal block's
 one-shot commit (:1325-1360).  Every row is fresh (``src.fresh_t >= 0``: a
 slot opened from that template), open (otherwise ``src.a > 0``) or kept, and
-a tenant a phase skips has every row kept (``keep_skipped``).  ``SlotSource`` says what each kind of row takes;
+a tenant a phase skips has every row kept (``keep_skipped``).  A kept row is
+neither read nor written; ``SlotSource`` says what the other rows take.
 ``src.zone_idx`` is given by the committal block alone, where each row's
 zone picks its K1 planes (one pair a zone) and its one-hot zone mask.  With
-host ports off the input ``ports`` plane is returned as it is, by the kernel
-and the twin alike.
+host ports off the ``ports`` plane is returned as it is.
 
-``slot_commit_twin`` is the glue ``ops/solve.py`` ran before the kernel,
-moved here: the CPU path and the kernel's oracle on the card, its
-``used + a * req`` one float32 FMA (``fp32.fma_f32``) as XLA's CPU code
-contracts the slot commits in the reference's jitted solve.  The CUDA
+The caller owns the state it passes: the scan commits into its carry
+(``ops.solve``), and a warm carry that is not donated is cloned once at the
+solve's entry.  The wrapper raises, on the card and on the CPU alike, when
+a state plane it writes is not contiguous (an expanded, stride-0 plane or
+one that overlaps itself) or shares storage with a source plane.
+
+``slot_commit_twin`` is the pure version: the glue ``ops/solve.py`` ran
+before the kernel, moved here, returning new tensors.  On the CPU the
+wrapper runs it and copies its result into the state planes (``copy_``), so
+the CPU tests see the aliasing the card does; on the card it is the
+kernel's oracle.  Its ``used + a * req`` is one float32 FMA
+(``fp32.fma_f32``) as XLA's CPU code contracts the slot commits in the
+reference's jitted solve, on the rows that took pods (a kept row's
+``fma(0, req, used)`` in the reference equals its ``used``).  The CUDA
 source is ``csrc/slot_commit.cu``.  Every operand carries the leading
 tenant axis B (a solo solve is B = 1).
 """
@@ -36,6 +47,9 @@ from karpenter_core_tpu_torch.ops import masks as mask_ops
 launches = 0  # kernel launches (CUDA path only)
 
 MAX_ZONE_SETS = 32  # the kernel's table of K1 plane pairs
+# the state planes K23 commits into, in its output order (``NodeState``'s)
+NODE_PLANES = ("used", "kmask", "kdef", "kneg", "kgt", "klt", "zone", "ct", "viable", "ports",
+               "pod_count", "tmpl_id", "open_")
 
 
 class SlotSource(NamedTuple):
@@ -76,8 +90,7 @@ def _by_zone(planes, zone_idx, rows):
 def keep_skipped(src: SlotSource, on: Optional[torch.Tensor]) -> SlotSource:
     """``src`` with every row of a tenant whose ``on[b]`` is false kept (no
     pods, no template; None: every tenant on): vmap's select for a phase
-    some tenants skip, whose kept rows K23 copies (``used`` as
-    ``fma(0, req, used)``, equal to it)."""
+    some tenants skip, whose kept rows K23 leaves as they are."""
     if on is None:
         return src
     col = on[:, None]
@@ -94,7 +107,7 @@ def slot_commit_twin(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
     seln = fresh[..., None]
     a_f = a[..., None].to(torch.float32)
     req = requests[:, None, :]
-    used = fma_f32(a_f, req, state.used)
+    used = torch.where(sel, fma_f32(a_f, req, state.used), state.used)
     used = torch.where(seln, fma_f32(a_f, req, _rows_at(tmpl_daemon, tmpl_idx)), used)
     planes = []
     for name, m, t in zip(("kmask", "kdef", "kneg", "kgt", "klt"), src.merged, src.tmpl_merged):
@@ -125,17 +138,63 @@ def slot_commit_twin(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
     return (used, *planes, zone, ct, viable, ports, pod_count, tmpl_id, open_)
 
 
+def _sources(src: SlotSource, cls_ports, requests, tmpl_daemon) -> tuple:
+    """(name, tensor) of every operand K23 reads besides the state."""
+    named = [("a", src.a), ("fresh_t", src.fresh_t), ("zone_idx", src.zone_idx),
+             ("zone_ok", src.zone_ok), ("t_zone", src.t_zone), ("ct_ok", src.ct_ok),
+             ("t_ct", src.t_ct), ("cls_ports", cls_ports), ("requests", requests),
+             ("tmpl_daemon", tmpl_daemon)]
+    for label, req in (("merged", src.merged), ("tmpl_merged", src.tmpl_merged)):
+        named += [(f"{label}.{f}", t) for f, t in zip(req._fields, req)]
+    for label in ("ok", "cap", "t_ok", "t_cap"):
+        named += [(f"{label}[{z}]", t) for z, t in enumerate(getattr(src, label))]
+    return tuple((name, t) for name, t in named if t is not None)
+
+
+def check_in_place(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
+                   host_ports: bool) -> None:
+    """Raise unless K23 can write ``state``'s planes in place: each plane it
+    writes is contiguous (no zero stride, no overlap with itself) and no
+    source shares its storage."""
+    names = NODE_PLANES if host_ports else tuple(n for n in NODE_PLANES if n != "ports")
+    owned = {}
+    for name in names:
+        t = getattr(state, name)
+        if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+            raise ValueError(f"slot_commit: state plane {name} is expanded (a zero stride); "
+                             "K23 writes it in place")
+        if not t.is_contiguous():
+            raise ValueError(f"slot_commit: state plane {name} is not contiguous; K23 writes it "
+                             "in place")
+        if t.numel():
+            owned[t.untyped_storage().data_ptr()] = name
+    for name, t in _sources(src, cls_ports, requests, tmpl_daemon):
+        hit = owned.get(t.untyped_storage().data_ptr()) if t.numel() else None
+        if hit is not None:
+            raise ValueError(f"slot_commit: source {name} shares storage with state plane {hit}, "
+                             "which K23 writes in place")
+
+
 def slot_commit(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
                 host_ports: bool) -> tuple:
-    """K23 wrapper: the twin for CPU tensors, the CUDA kernel for CUDA
-    tensors (no fallback between them); one launch a commit site."""
+    """K23 wrapper: the commit written into ``state``'s planes, which it
+    returns (module doc).  CPU tensors take the twin and ``copy_``, CUDA
+    tensors the kernel (no fallback between them); one launch a commit
+    site."""
+    check_in_place(state, src, cls_ports, requests, tmpl_daemon, host_ports)
+    planes = tuple(getattr(state, name) for name in NODE_PLANES)
     if state.used.device.type != "cuda":
-        return slot_commit_twin(state, src, cls_ports, requests, tmpl_daemon, host_ports)
-    return _slot_commit_cuda(state, src, cls_ports, requests, tmpl_daemon, host_ports)
+        out = slot_commit_twin(state, src, cls_ports, requests, tmpl_daemon, host_ports)
+        for dst, val in zip(planes, out):
+            if val is not dst:
+                dst.copy_(val)
+        return planes
+    _slot_commit_cuda(state, src, cls_ports, requests, tmpl_daemon, host_ports)
+    return planes
 
 
 def _slot_commit_cuda(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
-                      host_ports: bool) -> tuple:
+                      host_ports: bool) -> None:
     global launches
     dev = state.used.device
     n_b, n, n_res = state.used.shape
@@ -191,10 +250,6 @@ def _slot_commit_cuda(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
                    ("t_zone", src.t_zone, b, (n_b, n_tmpl, n_zones))]
     for name, t, dt, shape in checks:
         build.check_input(name, t, dt, shape, dev)
-    outs = [torch.empty(shape, dtype=dt, device=dev) for name, _, dt, shape in state_planes
-            if name != "ports" or host_ports]
-    if not host_ports:
-        outs.insert(9, state.ports)  # handed back as it is: the kernel writes no ports plane
 
     def table(planes):
         return (ctypes.c_void_p * n_vz)(*(p.data_ptr() for p in planes))
@@ -204,16 +259,16 @@ def _slot_commit_cuda(state, src: SlotSource, cls_ports, requests, tmpl_daemon,
 
     fn = build.function("slot_commit", "kc_slot_commit",
                         [ctypes.c_int] * 12 + [ctypes.c_void_p] * 30
-                        + [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p] * 17)
+                        + [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p] * 4)
     rc = fn(n_b, n, n_tmpl, n_res, n_keys, n_words, n_zones, n_ct, n_ports, n_types, n_vz,
-            int(by_index), *(t.data_ptr() for _, t, _, _ in state_planes),
+            int(by_index),
+            *(t.data_ptr() if name != "ports" or host_ports else 0
+              for name, t, _, _ in state_planes),
             src.a.data_ptr(), src.fresh_t.data_ptr(), opt(src.zone_idx),
             *(t.data_ptr() for t in src.merged), *(t.data_ptr() for t in src.tmpl_merged),
             opt(src.zone_ok), opt(src.t_zone), src.ct_ok.data_ptr(), src.t_ct.data_ptr(),
             table(src.ok), table(src.cap), table(src.t_ok), table(src.t_cap),
             cls_ports.data_ptr(), requests.data_ptr(), tmpl_daemon.data_ptr(),
-            *(t.data_ptr() if host_ports or i != 9 else 0 for i, t in enumerate(outs)),
             build.stream(dev))
     build.check(rc, "slot_commit")
     launches += 1
-    return tuple(outs)

@@ -396,8 +396,12 @@ def _sync_positive(x: torch.Tensor):
 def _select(on: torch.Tensor, new, old):
     """Per tenant, ``new`` where ``on[b]`` else ``old``, leaf for leaf over
     nested tuples: vmap's select for a ``lax.cond`` whose predicate differs
-    between tenants (no kernel writes a tensor it was given, so ``old`` is
-    intact)."""
+    between tenants.  A leaf that is the same tensor in both was committed
+    in place (K23 into the slot planes, the rows of a tenant that is off
+    kept as they were) and is taken as it is; every other leaf is new, so
+    ``old`` is intact."""
+    if new is old:
+        return new
     if isinstance(new, torch.Tensor):
         return torch.where(on.view((-1,) + (1,) * (new.dim() - 1)), new, old)
     parts = [_select(on, a, b) for a, b in zip(new, old)]
@@ -407,7 +411,9 @@ def _select(on: torch.Tensor, new, old):
 def _select_committed(on: torch.Tensor, out: tuple, old: tuple) -> tuple:
     """``_select`` of a phase's or committal block's outputs whose slot state
     K23 already kept for the tenants that skip it (``k23.keep_skipped``;
-    ``n_next`` too): only the rest is selected here."""
+    ``n_next`` too): only the rest is selected here.  Under the kernels the
+    slot planes of ``out`` and ``old`` are the same tensors, committed in
+    place."""
     return (out[0],) + _select(on, tuple(out[1:]), tuple(old[1:]))
 
 
@@ -1080,6 +1086,7 @@ def solve_core(
     use_kernels: bool = True,
     warm_carry: Optional[WarmCarry] = None,
     repair_plan: Optional[RepairPlan] = None,
+    donate_carry: bool = False,
 ) -> SolveOutputs:
     """Scan the classes ``n_passes`` times: over empty slots (the cold
     solve), or resumed from a previous solve's final carry.
@@ -1098,7 +1105,12 @@ def solve_core(
     the delta pods.  ``existing_static`` defaults to the empty planes.
     ``repair_plan`` (warm path only) threads the freed-hole preferences into
     every fill and the out-of-window bases into the zone derivations.
-    Nothing given is written into.
+
+    The scan commits each phase into its carry's slot planes in place (K23).
+    A ``warm_carry`` the caller donates (``donate_carry=True``) is that
+    carry: its slot planes are written, and the caller must not read it
+    again.  Otherwise its slot planes are cloned once at entry, and nothing
+    given is written into.
 
     This is ``solve_core_batched`` at one tenant: every leaf gains a leading
     axis of 1 on the way in and loses it on the way out."""
@@ -1106,7 +1118,7 @@ def solve_core(
         batch.add_axis(class_tensors), batch.add_axis(statics_arrays), n_slots, key_has_bounds,
         batch.add_axis(existing_state), batch.add_axis(existing_static), n_passes=n_passes,
         features=features, use_kernels=use_kernels, warm_carry=batch.add_axis(warm_carry),
-        repair_plan=batch.add_axis(repair_plan),
+        repair_plan=batch.add_axis(repair_plan), donate_carry=donate_carry,
     )
     return batch.drop_axis(out)
 
@@ -1123,6 +1135,7 @@ def solve_core_batched(
     use_kernels: bool = True,
     warm_carry: Optional[WarmCarry] = None,
     repair_plan: Optional[RepairPlan] = None,
+    donate_carry: bool = False,
 ) -> SolveOutputs:
     """``solve_core`` over B tenants at once: every leaf of every argument
     (and of the outputs) carries a leading tenant axis B, the reference's
@@ -1154,6 +1167,8 @@ def solve_core_batched(
     if warm_carry is not None:
         wc = WarmCarry(*warm_carry)
         state = NodeState(*wc.state)
+        if not donate_carry:  # the scan commits into the slot planes (K23)
+            state = NodeState(*(t.clone(memory_format=torch.contiguous_format) for t in state))
         existing_state = wc.ex_state
         if existing_static is None:
             existing_static = batch.repeat(empty_existing_static(
@@ -1180,9 +1195,10 @@ def _cold_carry(statics: Statics, n_b: int, n_slots: int, width: int, n_ports: i
     n_it = statics.it_alloc.shape[1]
     n_ct = statics.tmpl_ct.shape[-1]
     g1 = statics.grp_skew.shape[-1]
+    # a copy of the cached constant always (K23 commits into the carry)
     kmask0 = mask_ops.const_words("full", width, dev).expand(
         n_b, n_slots, n_keys, mask_ops.words_for(width)
-    ).contiguous()
+    ).clone(memory_format=torch.contiguous_format)
     state = NodeState(
         used=torch.zeros((n_b, n_slots, n_res), dtype=F32, device=dev),
         kmask=kmask0,

@@ -395,10 +395,11 @@ class BatchCoalescer:
         elif has_ex:
             ex_state = stack(p.ex_state for p in preps)
             ex_static = stack(p.ex_static for p in preps)
+        # the stacked carry is the batch's own copy: the scan commits into it
         outs = solve_ops.solve_core_batched(
             cls, statics, n_slots, p0.key_has_bounds, ex_state, ex_static,
             n_passes=p0.n_passes, features=compilecache.snap_features(p0.features),
-            warm_carry=warm_carry, repair_plan=repair_plan)
+            warm_carry=warm_carry, repair_plan=repair_plan, donate_carry=True)
         # per-tenant slices of the stacked device outputs (each a contiguous
         # view; decode fetches through K4 tenant by tenant)
         return [batch.tree_map(lambda a, i=i: a[i], outs) for i in range(len(preps))]

@@ -719,13 +719,15 @@ class CudaSolver:
         A warm dispatch donates its carry when ``donate_carry`` says so (None:
         ``utils.pipeline.donation_enabled()``); an enabled policy forces
         donation off, since its decode reads the final state planes on the
-        card after the dispatch.  The caller of a donating dispatch must not
-        read ``warm_carry`` again.  The scan itself writes into no tensor it
-        is given; the carry is consumed in place around it, by K21 before
-        the dispatch and K22 after it (``solver.incremental``), so here
-        donation is the caller's contract and the ledger
-        (``pipeline.record_donation``)."""
+        card after the dispatch.  The decision is the ledger's
+        (``pipeline.record_donation``) and ``solve_core``'s: the scan
+        commits into a donated carry's slot planes in place (K23), and
+        clones a carry that is not donated once at entry.  The carry is
+        consumed in place around the scan too, by K21 before the dispatch
+        and K22 after it (``solver.incremental``).  The caller of a donating
+        dispatch must not read ``warm_carry`` again."""
         cls = prep_classes(prep, count)
+        donate = False
         if warm_carry is not None:
             donate = pipeline_mod.donation_enabled() if donate_carry is None else donate_carry
             if self.policy is not None and getattr(self.policy, "enabled", False):
@@ -753,6 +755,7 @@ class CudaSolver:
             None if warm_carry is not None else prep.ex_state, prep.ex_static,
             n_passes=prep.n_passes, features=compilecache.snap_features(prep.features),
             use_kernels=self.use_kernels, warm_carry=warm_carry, repair_plan=repair_plan,
+            donate_carry=bool(donate),
         )
 
     @classmethod

@@ -76,7 +76,9 @@ that backlog at 1,024 replicas, spot offerings interrupted at rate 0.3
 (replicas a chunk, each chunk's host reads), the peak device memory, the
 busy share and each kernel's device time, K19 and K20 included, with K1's
 device time a launch and K20's a call (its rank and its study kernel) on
-lines of their own.
+lines of their own, and K23's device total with its least and most device
+time in one launch (every kernel's launches carry both in
+``port_kernels``).
 
 ``--trace`` also writes the Chrome trace.  Needs one card; refuses to run
 without one.
@@ -149,6 +151,9 @@ def device_summary(prof) -> dict:
                 rec = kernels.setdefault(name, {"launches": 0, "device_us": 0.0})
                 rec["launches"] += evt.count
                 rec["device_us"] += _device_us(evt)
+    for name, (least, most) in launch_spread(prof).items():
+        if name in kernels:
+            kernels[name]["device_us_min"], kernels[name]["device_us_max"] = least, most
     for rec in kernels.values():
         rec["device_us_per_launch"] = rec["device_us"] / max(rec["launches"], 1)
     copies = {}
@@ -168,6 +173,24 @@ def device_summary(prof) -> dict:
         ],
         "top_host_ops": top_host_ops(prof),
     }
+
+
+def launch_spread(prof) -> dict:
+    """Each port kernel's least and most device microseconds in one launch,
+    over the profile's single device events (a kernel whose launches do
+    unequal work, as K23's commits of few rows and of many, shows both)."""
+    spread = {}
+    for evt in prof.events():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        us = _device_us(evt)
+        if us <= 0:
+            continue
+        for prefix, name in PORT_KERNELS.items():
+            if prefix in evt.key:
+                least, most = spread.get(name, (us, us))
+                spread[name] = (min(least, us), max(most, us))
+    return spread
 
 
 def top_host_ops(prof) -> list:
@@ -356,6 +379,7 @@ def profile_montecarlo(prof_factory, smi: str) -> tuple:
     d2h = sum(rec["count"] for key, rec in summary["copies"].items() if "DtoH" in key)
     kern = summary["port_kernels"]
     k20 = [kern.get(k, {}) for k in ("replica_finish", "replica_finish (rank)")]
+    k23 = kern.get("slot_commit", {})
     return prof, {
         "card": smi, "path": "montecarlo", "replicas": 1024, "wall_s": wall,
         # K1's launches span the chunks' sizes (147 and 142 replicas); K20's
@@ -364,6 +388,9 @@ def profile_montecarlo(prof_factory, smi: str) -> tuple:
             "device_us_per_launch"),
         "replica_finish_device_us_per_call": sum(k.get("device_us", 0.0) for k in k20)
         / max(k20[0].get("launches", 0), 1),
+        # K23's study: its total, and its lightest and heaviest commit
+        "slot_commit_device_us": {key: k23.get(key) for key in (
+            "launches", "device_us", "device_us_min", "device_us_max")},
         "replicas_per_chunk": [c[0] for c in chunks],
         "host_syncs_per_chunk": [c[1] for c in chunks], "device_to_host_copies": d2h,
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),

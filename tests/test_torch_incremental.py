@@ -429,7 +429,8 @@ def test_warm_solve_core_matches_reference(anchor, windowed, monkeypatch):
                                             repair_plan=jplan, n_slots=slots,
                                             donate_carry=False))
     before = _snapshot(trun)
-    tout = a.solver.run_prepared(a.prep, count=a.counts, warm_carry=trun, repair_plan=tplan)
+    tout = a.solver.run_prepared(a.prep, count=a.counts, warm_carry=trun, repair_plan=tplan,
+                                 donate_carry=False)
     _assert_leaves_equal(jout, tout, f"warm solve_core (windowed={windowed})")
     _assert_carry_equal(before, trun, "the warm solve's input carry")
     placed = int(tout.assign.sum() + tout.assign_existing.sum())

@@ -1191,6 +1191,23 @@ def _misaligned(x):
     return view
 
 
+def _commit_on_clone(state, *rest, copy=torch.clone):
+    """K23 on a copy of ``state`` (it commits in place; ``copy`` makes each
+    plane's), checked to return the copy's own planes; returns (the copy's
+    planes, the copy)."""
+    work = batch.tree_map(copy, state)
+    before = commit.launches
+    got = commit.slot_commit(work, *rest)
+    assert commit.launches == before + 1
+    assert all(g is w for g, w in zip(got, work))
+    return got, work
+
+
+def _bits(x):
+    """``x`` with float planes as their int32 bits (exact comparison)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 @pytest.mark.parametrize("site", ["phase", "committal"])
 @pytest.mark.parametrize("n_b,n,n_types,host_ports,skip", [
     (1, 8192, 1000, True, False),     # the cold path's shape; I off the 16-byte vector
@@ -1204,18 +1221,17 @@ def _misaligned(x):
 def test_slot_commit_matches_plain(card, site, n_b, n, n_types, host_ports, skip):
     rng = np.random.default_rng(n_b * 1000 + n + n_types + host_ports + 7 * skip)
     args = _slot_commit_case(rng, card, n_b, n, n_types, site, host_ports, skip)
-    before = commit.launches
-    got = commit.slot_commit(*args)
-    assert commit.launches == before + 1
+    state = args[0]
+    got, work = _commit_on_clone(*args)
     want = commit.slot_commit_twin(*args)
     _equal(got, want)
     if not host_ports:  # the ports plane handed back as it is, by both
-        assert got[9] is args[0].ports and want[9] is args[0].ports
+        assert got[9] is work.ports and want[9] is state.ports
     fresh = args[1].fresh_t >= 0
     assert bool(fresh.any()) and bool(((args[1].a > 0) & ~fresh).any())
     if skip:  # the last tenant is off: every plane of its rows is its input
-        for new, old in zip(got, args[0]):
-            assert torch.equal(new[-1], old[-1])
+        for new, old in zip(got, state):
+            assert torch.equal(_bits(new[-1]), _bits(old[-1]))
 
 
 @pytest.mark.parametrize("site", ["phase", "committal"])
@@ -1224,4 +1240,47 @@ def test_slot_commit_misaligned_planes_match_plain(card, site):
     rng = np.random.default_rng(23)
     state, src, *rest = _slot_commit_case(rng, card, 2, 700, 1000, site, True, False)
     state, src, rest = batch.tree_map(_misaligned, (state, src, tuple(rest)))
-    _equal(commit.slot_commit(state, src, *rest), commit.slot_commit_twin(state, src, *rest))
+    got, _ = _commit_on_clone(state, src, *rest, copy=_misaligned)
+    _equal(got, commit.slot_commit_twin(state, src, *rest))
+
+
+@pytest.mark.parametrize("site", ["phase", "committal"])
+@pytest.mark.parametrize("host_ports", [False, True])
+def test_slot_commit_of_kept_rows_leaves_every_byte(card, site, host_ports):
+    """A commit whose every row is kept (no pods, no template) writes
+    nothing: every byte of every plane is as it was."""
+    rng = np.random.default_rng(31 + host_ports)
+    state, src, *rest = _slot_commit_case(rng, card, 24, 512, 1000, site, host_ports, False)
+    src = src._replace(a=torch.zeros_like(src.a), fresh_t=torch.full_like(src.fresh_t, -1))
+    got, _ = _commit_on_clone(state, src, *rest)
+    for new, old in zip(got, state):
+        assert torch.equal(_bits(new), _bits(old))
+    _equal(got, commit.slot_commit_twin(state, src, *rest))
+
+
+@pytest.mark.parametrize("site", ["phase", "committal"])
+@pytest.mark.parametrize("n_types", [1000, 700])
+@pytest.mark.parametrize("start,length", [(0, 1), (1, 1), (0, 33), (1, 33), (2, 33), (3, 33),
+                                          (5, 200)])
+def test_slot_commit_fresh_runs_match_plain(card, site, n_types, start, length):
+    """Runs of fresh rows as ``_phase`` opens them (one template and pod
+    count, the last row with the rest; one zone in the committal block),
+    starting at each 16-byte phase a row of I = 1,000 or 700 bytes takes,
+    one row long to past a tile, beside open and kept rows."""
+    rng = np.random.default_rng(start * 1000 + length + n_types)
+    n_b, n = 3, 300
+    state, src, *rest = _slot_commit_case(rng, card, n_b, n, n_types, site, True, False)
+    a = src.a.clone()  # the rows outside the runs open (a > 0) or kept
+    fresh_t = torch.full_like(src.fresh_t, -1)
+    for bi in range(n_b):
+        s = start + 7 * bi
+        fresh_t[bi, s:s + length] = bi % 5
+        a[bi, s:s + length] = 3 + bi
+        a[bi, s + length - 1] = 1 + bi % 3  # the last row takes the rest
+    src = src._replace(a=a, fresh_t=fresh_t)
+    if site == "committal":
+        zone_idx = src.zone_idx.clone()
+        zone_idx[fresh_t >= 0] = 1
+        src = src._replace(zone_idx=zone_idx)
+    got, _ = _commit_on_clone(state, src, *rest)
+    _equal(got, commit.slot_commit_twin(state, src, *rest))

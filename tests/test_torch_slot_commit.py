@@ -16,6 +16,16 @@ Two levels, each with no tolerance (ints and bools exact, f32 bit for bit):
   zone-spread mix (B = 3, one tenant holding no pod of the spread classes,
   so the committal block and K23 run with that tenant off) against the
   reference's ``batched_solve_callable`` (``jax.vmap`` of the solve body).
+
+K23 commits in place, and the CPU wrapper copies the twin's result into
+the state it is given, so the ownership of the carry is held here too: the
+wrapper returns the state's own planes and leaves kept rows as they were,
+two commits in place equal two twin commits, it refuses an expanded or
+aliased state plane, a warm carry that is not donated comes out of a solve
+bit for bit as it went in (a donated one is written), and coalesced tenants
+whose class counts differ still match the reference, with every row of a
+tenant that holds no pod of the class kept in each commit and the carry's
+slot planes never copied by the class skip's select.
 """
 
 import functools
@@ -37,7 +47,13 @@ from karpenter_core_tpu_torch.ops import masks as tmasks
 from karpenter_core_tpu_torch.ops import solve as tsolve
 from karpenter_core_tpu_torch.testing import workloads
 from test_torch_existing import _reference_inputs
+from test_torch_kernels_cuda import _slot_commit_case
 from test_torch_solve import _assert_same
+from test_torch_tenant_batch import N_SLOTS as TENANT_SLOTS
+from test_torch_tenant_batch import _port, _slice_np, _stack, _tenants
+
+from karpenter_core_tpu_torch.models.columnar import PodIngest
+from karpenter_core_tpu_torch.relax import solve as trelax
 
 # both packages' slot and feature histories start empty for this module and
 # are put back after it (tests/torch_history.py)
@@ -132,7 +148,9 @@ def _phase_case(host_ports: bool, seed: int, n_b: int = 2):
 
 def _port_phase(case, ft, on=None):
     """The port's ``_phase`` (K23's twin on the CPU) over the case's tenants
-    stacked: class c's row (its mask packed) against every tenant's state."""
+    stacked: class c's row (its mask packed) against every tenant's state.
+    K23 commits in place, so the phase runs on a clone and the input state
+    comes back as it was."""
     cls, sa, khb, c, states, restrict, quota, width = case
     n_b = len(states)
     unlimited = int(jsolve.UNLIMITED)
@@ -145,7 +163,7 @@ def _port_phase(case, ft, on=None):
     state = tsolve.NodeState(*(torch.as_tensor(np.stack([s[j] for s in states]))
                                for j in range(14)))
     out = tsolve._phase(
-        state, row, statics, torch.full((n_b,), int(quota), dtype=torch.int32),
+        tsolve.NodeState(*(t.clone() for t in state)), row, statics, torch.full((n_b,), int(quota), dtype=torch.int32),
         torch.as_tensor(np.stack(restrict)),
         torch.full((n_b, N_SLOTS), unlimited, dtype=torch.int32),
         torch.full((n_b,), unlimited, dtype=torch.int32),
@@ -258,3 +276,163 @@ def test_committal_commit_matches_reference_with_a_skipped_tenant(monkeypatch):
     plain = tsolve.solve_core_batched(tc, ts, n_slots, tk, n_passes=n_passes, features=tuple(ft),
                                       use_kernels=False)
     _assert_same(got, plain, "zone-spread mix, B = 3, twins")
+
+
+# -- the in-place commit and the ownership of the carry -------------------------
+
+
+def _clone(state):
+    return batch.tree_map(torch.clone, state)
+
+
+def _bits(x):
+    """``x`` with float planes as their int32 bits (exact comparison)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bits(got, want, label):
+    for name, g, w in zip(tsolve.NodeState._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{label}: {name}"
+        assert torch.equal(_bits(g), _bits(w)), f"{label}: {name}"
+
+
+@pytest.mark.parametrize("site", ["phase", "committal"])
+@pytest.mark.parametrize("host_ports", [False, True])
+def test_slot_commit_writes_the_state_in_place(site, host_ports):
+    """The wrapper returns the state's own planes, holding the twin's
+    commit; a kept row keeps its values, every plane its storage."""
+    rng = np.random.default_rng(11 + host_ports)
+    state, src, *rest = _slot_commit_case(rng, "cpu", 3, 77, 13, site, host_ports, True)
+    before = _clone(state)
+    ptrs = [t.data_ptr() for t in state]
+    got = k23.slot_commit(state, src, *rest)
+    assert all(g is s for g, s in zip(got, state))
+    assert [t.data_ptr() for t in state] == ptrs
+    _same_bits(got, k23.slot_commit_twin(before, src, *rest), "in place against the twin")
+    kept = (src.a <= 0) & (src.fresh_t < 0)
+    assert bool(kept.any()) and bool((~kept).any())
+    for name, g, b in zip(k23.NODE_PLANES, got, before):
+        assert torch.equal(_bits(g)[kept], _bits(b)[kept]), f"kept rows: {name}"
+
+
+def test_second_commit_equals_two_twin_commits():
+    """A commit on the result of a commit, both in place, equals the twin
+    applied twice to clones."""
+    rng = np.random.default_rng(5)
+    state, src1, *rest = _slot_commit_case(rng, "cpu", 3, 77, 13, "phase", True, False)
+    _, src2, *_ = _slot_commit_case(rng, "cpu", 3, 77, 13, "committal", True, False)
+    once = tsolve.NodeState(*k23.slot_commit_twin(_clone(state), src1, *rest), state.n_next)
+    want = k23.slot_commit_twin(once, src2, *rest)
+    k23.slot_commit(state, src1, *rest)
+    got = k23.slot_commit(state, src2, *rest)
+    _same_bits(got, want, "two commits")
+
+
+@pytest.mark.parametrize("fault", ["expanded", "transposed", "aliased"])
+def test_slot_commit_refuses_a_state_it_cannot_write(fault):
+    """An expanded (stride-0) or otherwise non-contiguous state plane, or a
+    source that shares a state plane's storage, raises before any write."""
+    rng = np.random.default_rng(3)
+    state, src, *rest = _slot_commit_case(rng, "cpu", 3, 77, 13, "phase", True, False)
+    if fault == "expanded":
+        state = state._replace(viable=state.viable[:1].expand_as(state.viable))
+        match = "expanded"
+    elif fault == "transposed":
+        state = state._replace(used=state.used.transpose(0, 1).contiguous().transpose(0, 1))
+        match = "not contiguous"
+    else:
+        src = src._replace(merged=src.merged._replace(mask=state.kmask))
+        match = "shares storage"
+    before = _clone(state)
+    with pytest.raises(ValueError, match=match):
+        k23.slot_commit(state, src, *rest)
+    _same_bits(state, before, "a refused commit")
+
+
+def _warm_solver():
+    """A solved 700-pod backlog on the CPU: (solver, prep, final carry, a
+    delta count vector of one pod for each class that holds pods)."""
+    solver, pods = workloads.build_inputs(700, 50, 5, device="cpu")
+    ingest = PodIngest()
+    ingest.add_all(pods)
+    prep = solver.prepare_encoded(solver.encode(ingest))
+    out = solver.run_prepared(prep)
+    counts = (prep.cls.count > 0).to(torch.int32)
+    return solver, prep, tsolve.warm_carry_of(out), counts
+
+
+def test_warm_carry_is_whole_after_a_solve_unless_donated():
+    """``run_prepared`` over a warm carry: not donated, the carry comes out
+    bit for bit as it went in (the scan committed into a clone); donated,
+    the scan commits into the carry's own slot planes, and both repairs
+    give the same outputs."""
+    solver, prep, warm, counts = _warm_solver()
+    n_classes, n_slots = counts.shape[0], warm.state.pod_count.shape[0]
+    g1, n_zones = prep.statics_arrays.grp_skew.shape[0], prep.statics_arrays.tmpl_zone.shape[1]
+
+    def repair(donate):
+        plan = trelax._zero_repair_plan(n_classes, n_slots, g1, n_zones, "cpu")
+        return solver.run_prepared(prep, count=counts, warm_carry=warm, repair_plan=plan,
+                                   donate_carry=donate)
+
+    before = batch.tree_map(torch.clone, warm)
+    kept = repair(False)
+    for group in ("state", "ex_state", "topo"):
+        for name, g, b in zip(getattr(warm, group)._fields, getattr(warm, group),
+                              getattr(before, group)):
+            assert torch.equal(_bits(g), _bits(b)), f"not donated: {group}.{name}"
+    assert torch.equal(warm.remaining, before.remaining)
+    assert int(kept.assign.sum()) > 0
+    donated = repair(True)
+    assert donated.state.used.data_ptr() == warm.state.used.data_ptr()
+    assert donated.state.viable.data_ptr() == warm.state.viable.data_ptr()
+    assert not torch.equal(warm.state.pod_count, before.state.pod_count)  # consumed
+    _assert_same(kept, donated, "the donated repair against the kept one")
+
+
+def test_coalesced_tenants_with_differing_counts_keep_their_rows(monkeypatch):
+    """Tenants whose class counts differ (tests/test_torch_tenant_batch.py's
+    inputs; tenant 2 holds no pod of class 1): the batched scan equals the
+    reference's; every commit keeps every row of a tenant that holds no pod
+    of the class being scanned; and the class skip's select copies no slot
+    plane (the final planes are the cold carry's own, committed in place)."""
+    clss, sas, khb = _tenants(3)
+    cls_b, sa_b = _stack(clss), _stack(sas)
+    jfn = jcc.batched_solve_callable(3, clss[0], sas[0], TENANT_SLOTS, khb)
+    ref = jax.device_get(jfn(cls_b, sa_b))
+    tc, ts, tk = _port(cls_b, sa_b, khb)
+
+    current, commits, carries = {}, [], []
+    real_step, real_cold = tsolve._class_step, tsolve._cold_carry
+
+    def step(statics, ex_static, n_zones, carry_, cls, *args, **kwargs):
+        current["count"] = cls.count.clone()
+        return real_step(statics, ex_static, n_zones, carry_, cls, *args, **kwargs)
+
+    def cold(*args, **kwargs):
+        out = real_cold(*args, **kwargs)
+        carries.append(out[0])
+        return out
+
+    kernels = tsolve.KERNELS
+
+    def spy(state, src, *rest):
+        commits.append((current["count"], src.a.clone(), src.fresh_t.clone()))
+        return kernels.slot_commit(state, src, *rest)
+
+    monkeypatch.setattr(tsolve, "_class_step", step)
+    monkeypatch.setattr(tsolve, "_cold_carry", cold)
+    monkeypatch.setattr(tsolve, "KERNELS", kernels._replace(slot_commit=spy))
+    got = tsolve.solve_core_batched(tc, ts, TENANT_SLOTS, tk)
+    for i in range(3):
+        _assert_same(_slice_np(ref, i), batch.tree_map(lambda a, i=i: a[i], got),
+                     f"tenant {i} against the reference's batch")
+    off_commits = 0
+    for count, a, fresh_t in commits:
+        off = count <= 0
+        assert bool((a[off] == 0).all()) and bool((fresh_t[off] == -1).all())
+        off_commits += int(bool(off.any()) and bool((~off).any()))
+    assert off_commits > 0  # some commit ran with a tenant off
+    (cold_state,) = carries
+    for name in k23.NODE_PLANES:
+        assert getattr(got.state, name) is getattr(cold_state, name), name
